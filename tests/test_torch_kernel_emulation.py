@@ -1,0 +1,233 @@
+"""The CUDA attention kernel's own source, run on the CPU.
+
+There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu`` is
+compiled as host C++ against a small emulation of the CUDA features it uses
+(below): one std::thread per CUDA thread, std::barrier for
+``__syncthreads``, ``__syncwarp`` and the shuffles, and ``mma.sync`` /
+``ldmatrix`` evaluated per warp from the documented fragment layouts.
+Shared memory starts as NaN, so a read of an element the kernel never
+wrote shows up in the output. The kernel then runs blocks one after the
+other on small shapes and is held against ``fused_qkv_attention_reference``.
+
+This checks the kernel's indexing, masking, online softmax and fragment
+bookkeeping; whether it compiles for sm_90a and how fast it runs only the
+card can say (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vavae_tpu_torch.models.posembed import rope_2d_freqs
+from vavae_tpu_torch.ops.flash_attention import fold_sin, fused_qkv_attention_reference
+
+SOURCE = Path(__file__).resolve().parents[1] / "vavae_tpu_torch/ops/csrc/nat_attention_fwd.cu"
+
+EMULATION = r"""#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <limits>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+#define __shared__
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+inline thread_local dim3 threadIdx, blockIdx;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline size_t g_max_smem = 0;
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) { g_max_smem = v; return v > 232448 ? 1 : 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float* g_smem = nullptr;
+inline std::barrier<>* g_block_bar = nullptr;
+inline std::vector<std::barrier<>*> g_warp_bar;
+inline float g_xchg[1024];
+inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  int t = threadIdx.x; g_xchg[t] = v; g_warp_bar[t / 32]->arrive_and_wait();
+  float r = g_xchg[t ^ m]; g_warp_bar[t / 32]->arrive_and_wait(); return r;
+}
+inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()> body) {
+  if (smem > g_max_smem) throw 1;
+  std::vector<float> buf(smem / 4 + 1, std::numeric_limits<float>::quiet_NaN());
+  for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y) for (unsigned x = 0; x < grid.x; ++x) {
+    std::fill(buf.begin(), buf.end(), std::numeric_limits<float>::quiet_NaN());
+    g_smem = buf.data();
+    std::barrier<> bb(threads); g_block_bar = &bb;
+    std::vector<std::barrier<>*> wb; for (int w = 0; w < threads / 32; ++w) wb.push_back(new std::barrier<>(32));
+    g_warp_bar = wb;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx = dim3(t, 0, 0); blockIdx = dim3(x, y, z); body(); });
+    for (auto& t : ts) t.join();
+    for (auto* b : wb) delete b;
+  }
+}
+#define __align__(x)
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
+inline uint32_t g_mma_a[1024][4];
+inline uint32_t g_mma_b[1024][2];
+inline float bf_lo(uint32_t u) { return __bfloat162float({(uint16_t)(u & 0xffff)}); }
+inline float bf_hi(uint32_t u) { return __bfloat162float({(uint16_t)(u >> 16)}); }
+inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  int t = threadIdx.x, w = t / 32, base = w * 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  g_warp_bar[w]->arrive_and_wait();
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    int g = l / 4, c = l % 4; const uint32_t* aa = g_mma_a[base + l]; const uint32_t* bb = g_mma_b[base + l];
+    A[g][2*c] = bf_lo(aa[0]); A[g][2*c+1] = bf_hi(aa[0]);
+    A[g+8][2*c] = bf_lo(aa[1]); A[g+8][2*c+1] = bf_hi(aa[1]);
+    A[g][2*c+8] = bf_lo(aa[2]); A[g][2*c+9] = bf_hi(aa[2]);
+    A[g+8][2*c+8] = bf_lo(aa[3]); A[g+8][2*c+9] = bf_hi(aa[3]);
+    B[2*c][g] = bf_lo(bb[0]); B[2*c+1][g] = bf_hi(bb[0]);
+    B[2*c+8][g] = bf_lo(bb[1]); B[2*c+9][g] = bf_hi(bb[1]);
+  }
+  int lane = t % 32, g = lane / 4, c = lane % 4;
+  for (int k = 0; k < 16; ++k) {
+    d[0] += A[g][k] * B[k][2*c]; d[1] += A[g][k] * B[k][2*c+1];
+    d[2] += A[g+8][k] * B[k][2*c]; d[3] += A[g+8][k] * B[k][2*c+1];
+  }
+  g_warp_bar[w]->arrive_and_wait();
+}
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline const void* g_ldm_ptr[1024];
+inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row) {
+  int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
+  g_ldm_ptr[t] = row;
+  g_warp_bar[w]->arrive_and_wait();
+  int g = lane / 4, c = lane % 4;
+  auto el = [&](int m, int r, int col) { return ((const __nv_bfloat16*)g_ldm_ptr[base + m * 8 + r])[col]; };
+  auto pk = [](__nv_bfloat16 lo, __nv_bfloat16 hi) { return (uint32_t)lo.x | ((uint32_t)hi.x << 16); };
+  b0 = pk(el(0, 2 * c, g), el(0, 2 * c + 1, g));
+  b1 = pk(el(1, 2 * c, g), el(1, 2 * c + 1, g));
+  g_warp_bar[w]->arrive_and_wait();
+}
+"""
+
+
+def _host_source(src: str) -> str:
+    """The kernel source with shared memory, the two inline-PTX helpers and
+    the ``<<<...>>>`` launches routed to the emulation."""
+    src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
+    src = src.replace("extern __shared__ __align__(16) unsigned char mma_smem[];",
+                      "unsigned char* mma_smem = (unsigned char*)g_smem;")
+    for name, emu, sig in [
+        ("mma_m16n8k16_bf16", "emu_mma(d, a, b)",
+         "float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]"),
+        ("ldmatrix_x2_trans", "emu_ldmatrix_x2_trans(b0, b1, row)",
+         "uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row"),
+    ]:
+        src, n = re.subn(rf"__device__ __forceinline__ void {name}\(.*?\n}}\n",
+                         f"inline void {name}({sig}) {{ {emu}; }}\n", src, flags=re.S)
+        assert n == 1, name
+    src, n = re.subn(
+        r"(\w+<[^;<>]*>)<<<(.*?)>>>\((.*?)\);",
+        lambda m: (f"{{ auto* kfn = &{m.group(1)}; emu_launch({m.group(2).rsplit(',', 1)[0]}, "
+                   f"[=] {{ kfn({m.group(3)}); }}); }}"),
+        src, flags=re.S)
+    assert n == 2, n
+    return src
+
+
+@pytest.fixture(scope="module")
+def kernel(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    d = tmp_path_factory.mktemp("nat_emu")
+    (d / "inc").mkdir()
+    for header in ("cuda_bf16.h", "cuda_runtime.h"):
+        (d / "inc" / header).write_text("")
+    (d / "emulation.h").write_text(EMULATION)
+    (d / "kernel.cpp").write_text(_host_source(SOURCE.read_text()))
+    lib = d / "libnat_emu.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{d / 'inc'}",
+                    "-include", str(d / "emulation.h"), "-o", str(lib), str(d / "kernel.cpp"),
+                    "-lpthread"], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).nat_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run(kernel, qkv: torch.Tensor, rope):
+    B, N, _, H, D = qkv.shape
+    out = torch.empty((B, N, H, D), dtype=qkv.dtype)
+    if rope is not None:
+        cos, sinf = fold_sin(rope)
+        ptrs = (cos.data_ptr(), sinf.data_ptr())
+    else:
+        ptrs = (None, None)
+    code = {torch.float32: 0, torch.bfloat16: 1}[qkv.dtype]
+    err = kernel(qkv.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), B, N, H, D,
+                 int(rope is not None), code, None)
+    assert err == 0
+    return out
+
+
+def _tables(N, D):
+    if D % 4:  # the 2-D tables need D % 4 == 0; any angles exercise the rotation
+        ang = np.random.default_rng(D).uniform(0, 6.3, (N, D)).astype(np.float32)
+        return torch.from_numpy(np.cos(ang)), torch.from_numpy(np.sin(ang))
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    return torch.from_numpy(cos[:N]).contiguous(), torch.from_numpy(sin[:N]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D,rope", [
+    (2, 64, 2, 72, True),    # the XL head dim, one full tile
+    (1, 100, 1, 64, False),  # a ragged second key tile
+    (1, 130, 2, 8, True),    # three query tiles, a tiny head dim
+    (1, 1, 1, 72, True),     # one token
+    (1, 70, 1, 256, True),   # the widest head dim
+    (1, 33, 1, 250, True),   # D % 8 != 0: scalar loads, odd D/2
+])
+def test_kernel_source_matches_plain_version(kernel, B, N, H, D, rope, dtype):
+    # fp32: summation order only. bf16: at most two bf16 steps of the output
+    # where the online softmax rounds P against a running instead of the
+    # final row max (2e-2 max-abs is the TPU kernel's tolerance)
+    qkv = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(N)).to(dtype)
+    tables = _tables(N, D) if rope else None
+    got = _run(kernel, qkv, tables)
+    want = fused_qkv_attention_reference(qkv, tables)
+    assert not torch.isnan(got.float()).any()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_kernel_source_misaligned_input(kernel):
+    """A bf16 view that is not 16-byte aligned takes the scalar-load path."""
+    B, N, H, D = 1, 70, 2, 72
+    buf = torch.randn(B * N * 3 * H * D + 1, generator=torch.Generator().manual_seed(0))
+    qkv = buf.bfloat16()[1:].view(B, N, 3, H, D)
+    assert qkv.data_ptr() % 16 != 0
+    tables = _tables(N, D)
+    got = _run(kernel, qkv, tables)
+    want = fused_qkv_attention_reference(qkv, tables)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2

@@ -1,0 +1,97 @@
+"""The whole first slice on the CPU: tiny DiT → split-CFG euler sampling →
+un-normalisation → tiny VA-VAE decode to uint8, through the port and
+through the JAX package's own ``build_sample_fn`` and ``VA_VAE``.
+
+The JAX sampler draws its noise inside ``generate``; the test draws the
+same noise from the same key split and hands it to the port's
+``generate(z=...)``. Latents agree to 1e-4 relative (fp32, TF32 off: only
+summation order differs); images to one uint8 step (clamp-and-truncate at
+integer boundaries).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from test_torch_common import max_rel, tiny_dit_pair, tiny_vae_pair
+
+CFG = {
+    "data": {"image_size": 16, "num_classes": 10, "latent_norm": False,
+             "latent_multiplier": 0.9},
+    "vae": {"downsample_ratio": 2},
+    "transport": {"path_type": "Linear", "prediction": "velocity"},
+    "sample": {"mode": "ODE", "sampling_method": "euler", "num_sampling_steps": 10,
+               "cfg_scale": 4.0, "cfg_interval_start": 0.11, "timestep_shift": 0.3,
+               "cfg_channels": None},
+    "train": {"global_seed": 0},
+}
+
+
+def test_slice_sampling_and_decode_match_jax(tmp_path):
+    from vavae_tpu.pipelines.sample import build_sample_fn as jax_build_sample_fn
+    from vavae_tpu.utils.config import Config as JaxConfig
+    from vavae_tpu_torch.pipelines.sample import build_sample_fn
+    from vavae_tpu_torch.utils.config import Config
+
+    jm, params, tm = tiny_dit_pair(seed=6, patch_size=2)
+    jv, tv = tiny_vae_pair(tmp_path, seed=7)
+    rs = np.random.default_rng(8)
+    stats = (rs.standard_normal((1, 4, 1, 1)).astype(np.float32),
+             rs.uniform(0.5, 2.0, (1, 4, 1, 1)).astype(np.float32))
+    labels = np.array([1, 5, 9], np.int32)
+
+    rng = jax.random.PRNGKey(11)
+    jgen = jax_build_sample_fn(JaxConfig(CFG), jm, params, stats)
+    want = np.asarray(jgen(rng, jnp.asarray(labels)))
+    _, z_rng = jax.random.split(rng)  # generate's own draw of the initial noise
+    z = np.array(jax.random.normal(z_rng, (3, 8, 8, 4), jnp.float32))
+
+    gen = build_sample_fn(Config(CFG), tm, stats, device="cpu")
+    got = gen(labels, z=z).numpy()
+    assert got.shape == want.shape == (3, 8, 8, 4)
+    assert max_rel(got, want) < 1e-4
+
+    want_img = jv.decode_to_images(jnp.asarray(want))
+    got_img = tv.decode_to_images(got)
+    assert got_img.dtype == np.uint8 and got_img.shape == (3, 16, 16, 3)
+    assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
+
+
+def test_demo_sampling_writes_grid(tmp_path, monkeypatch):
+    """do_sample end to end on the CPU from a JAX-format train state and a
+    reference-format latent-stats cache: the demo grid is a PNG of the
+    expected size."""
+    import torch
+    from PIL import Image
+
+    from vavae_tpu.train.checkpoint import save_state_file
+    from vavae_tpu.train.dit_trainer import TrainState
+    from vavae_tpu_torch.pipelines.sample import do_sample
+    from vavae_tpu_torch.utils.config import Config
+    from test_torch_common import tiny_vae_config
+
+    _, params, _ = tiny_dit_pair(seed=9, patch_size=2)
+    ckpt = tmp_path / "0000001.safetensors"
+    # the JAX package's own train-state writer (EMA and raw params)
+    save_state_file(str(ckpt), TrainState(step=np.zeros((), np.int32), params=params,
+                                          ema_params=params, opt_state=None))
+    data = tmp_path / "latents"
+    data.mkdir()
+    torch.save({"mean": torch.zeros(1, 4, 1, 1), "std": torch.ones(1, 4, 1, 1)},
+               data / "latents_stats.pt")
+
+    cfg = Config(CFG).merged_with({
+        "ckpt_path": str(ckpt),
+        "data": {"latent_norm": True, "data_path": str(data)},
+        "vae": {"config": tiny_vae_config(tmp_path)},
+        "model": {"model_type": "LightningDiT-S/2", "use_swiglu": True, "use_rope": True,
+                  "use_rmsnorm": True, "in_chans": 4},
+        "sample_folder": str(tmp_path / "out"),
+        "demo_labels": [0, 1, 2],
+    })
+    # the tiny DiT stands in for S/2: same registry path, narrower widths
+    import vavae_tpu_torch.models.dit as dit
+
+    monkeypatch.setitem(dit._VARIANTS, "S", dict(depth=2, hidden_size=144, num_heads=2))
+    folder = do_sample(cfg, demo=True, device="cpu")
+    grid = np.asarray(Image.open(f"{folder}/demo_grid.png"))
+    assert grid.shape == (16, 48, 3) and grid.dtype == np.uint8

@@ -1,0 +1,98 @@
+"""Where the time of the sampling path goes, on the card.
+
+    python -m vavae_tpu_torch.pipelines.profile_sample [--out FILE.json]
+
+Profiles (torch.profiler, CUDA activity) the LightningDiT-XL/1 bf16 forward
+at the two batch sizes of the split-CFG euler program (16 in the CFG phase,
+8 in the cond-only phase) and the f16d32 VA-VAE decode at batch 8, with
+seeded random weights. For each it prints the device time per forward by
+kernel class (the attention kernel, matrix products, everything else), the
+wall time of the window and the device's busy share of it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from vavae_tpu_torch.models.dit import create_dit
+from vavae_tpu_torch.tokenizer import VA_VAE
+from vavae_tpu_torch.utils.device import resolve_device
+from vavae_tpu_torch.utils.weights import randomize_
+
+XL1 = {"model_type": "LightningDiT-XL/1", "use_qknorm": False, "use_swiglu": True,
+       "use_rope": True, "use_rmsnorm": True, "wo_shift": False, "in_chans": 32, "bf16": True}
+_GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "nat_fwd" in low:
+        return "attention_kernel"
+    if "fprop" in low or "conv" in low:
+        return "conv"
+    if any(k in low for k in _GEMM):
+        return "matmul"
+    return "other"
+
+
+def profile(fn, reps: int = 5) -> dict:
+    """Device time per call of ``fn`` by kernel class, wall ms per call and
+    the busy share (device kernel time over wall time)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    by_class: dict[str, float] = {}
+    top: list[tuple[float, str]] = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us <= 0:
+            continue
+        ms = us / 1e3 / reps
+        by_class[kernel_class(ev.key)] = by_class.get(kernel_class(ev.key), 0.0) + ms
+        top.append((ms, ev.key))
+    device = sum(by_class.values())
+    top.sort(reverse=True)
+    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+            "by_class_ms": by_class, "top": [[n[:90], t] for t, n in top[:8]]}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the results to this JSON file")
+    args = ap.parse_args(argv)
+    seed = 0
+    dev = resolve_device("cuda")
+    model = create_dit(XL1, 16, 1000, device=dev).eval()
+    randomize_(model, seed)
+    vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    results = {"device": torch.cuda.get_device_name(0)}
+    with torch.inference_mode():
+        for B in (16, 8):
+            x = torch.randn((B, 16, 16, 32), generator=gen, device=dev)
+            t = torch.rand((B,), generator=gen, device=dev)
+            y = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+            results[f"dit_forward_b{B}"] = profile(lambda: model(x, t, y))
+        z = torch.randn((8, 16, 16, 32), generator=gen, device=dev)
+        results["vae_decode_b8"] = profile(lambda: vae.decode(z))
+    for key, r in results.items():
+        print(key, json.dumps(r) if isinstance(r, dict) else r, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
