@@ -5,19 +5,33 @@
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
   1. device: name and power limit (nvidia-smi), torch's device name;
-  2. build: every CUDA kernel of the sampling path, from ``ops/csrc``;
+  2. build: every CUDA kernel (the attention forward and backward), from
+     ``ops/csrc``, one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main-path shapes, bf16, tolerance 2e-2 max-abs; times (CUDA events,
-     median of 30 after warm-up) of the kernel, the plain version and one
-     PyTorch library call computing the same function, beside the card's
-     bound for the same work;
-  4. main path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
+     the main paths' shapes, bf16 (forward 2e-2 max-abs, backward 3e-2 of
+     max|ref|); times (CUDA events, median of 30 after warm-up) of the
+     kernel, the plain version and one PyTorch library call computing the
+     same function, beside the card's bound for the same work;
+  4. sampling path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
      non-zero weights from the seed) → 250-step euler split-CFG sampling
      (cfg 10, interval 0.11, shift 0.3) at batch 8 → f16d32 VA-VAE decode to
      uint8 images, through ``build_sample_fn`` and ``VA_VAE``; checks shapes,
-     finiteness and that every launch of the attention kernel came from it;
+     finiteness and the forward kernel's launches (and none of the backward);
   5. the same XL/1 forward at batch 16 with the kernel and with attention
-     forced through the plain version: relative error of the velocity.
+     forced through the plain version: relative error of the velocity;
+  6. train path: one forward and backward of the XL/1 training loss
+     (velocity MSE + cosine, remat "dots") at batch 16 with both kernels and
+     with plain attention: relative error of all gradients and of the
+     ``attn.qkv`` gradients;
+  7. training path: XL/1 from the JAX init with the production config's
+     model, optimizer, transport and train blocks, 10 steps of
+     ``DiTTrainer.train_step`` (the function ``do_train`` calls) at batch 32:
+     ms/step and img/s of the last 8, peak memory, the backward kernel's 28
+     and the forward kernel's 56 launches in every step (remat runs the
+     forward again), finite losses, moved params and EMA;
+  8. entry point: ``do_train`` on seeded synthetic f16d32 latent shards (an
+     XL/1-width DiT cut to depth 2): 4 steps with a checkpoint every 2, then
+     a resumed run to step 6, with both kernels' launches counted.
 The line before the last holds the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -25,26 +39,35 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from vavae_tpu_torch.models import layers
+from vavae_tpu_torch.models import dit, layers
 from vavae_tpu_torch.models.dit import create_dit
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops import build
 from vavae_tpu_torch.ops.flash_attention import (
     fold_sin,
     fused_qkv_attention,
+    fused_qkv_attention_bwd,
+    fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
 )
 from vavae_tpu_torch.pipelines.sample import build_sample_fn
+from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.tokenizer import VA_VAE
+from vavae_tpu_torch.transport import build_transport
 from vavae_tpu_torch.utils.config import Config
+from vavae_tpu_torch.utils.safetensors_io import write_safetensors
 from vavae_tpu_torch.utils.weights import randomize_
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
@@ -59,18 +82,24 @@ PRODUCTION = {
     "vae": {"downsample_ratio": 16},
     "model": {"model_type": "LightningDiT-XL/1", "use_qknorm": False, "use_swiglu": True,
               "use_rope": True, "use_rmsnorm": True, "wo_shift": False, "in_chans": 32,
-              "bf16": True},
+              "use_checkpoint": True, "checkpoint_policy": "dots", "bf16": True},
     "transport": {"path_type": "Linear", "prediction": "velocity", "use_cosine_loss": True,
                   "use_lognorm": True},
     "sample": {"mode": "ODE", "sampling_method": "euler", "num_sampling_steps": 250,
                "cfg_scale": 10.0, "cfg_interval_start": 0.11, "timestep_shift": 0.3,
                "per_proc_batch_size": 8, "cfg_channels": None},
-    "train": {"global_seed": 0},
+    "optimizer": {"lr": 0.0002, "beta2": 0.95},
+    "train": {"max_steps": 80000, "global_batch_size": 1024, "global_seed": 0,
+              "output_dir": "output", "exp_name": "lightningdit_xl_vavae_f16d32",
+              "log_every": 100, "ckpt_every": 20000, "ema_decay": 0.9999},
 }
 BATCH = 8
+TRAIN_BATCH = 32
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
 SEED = 0  # weights, noise and labels are all drawn from generators seeded with it
 ATTN_TOL = 2e-2   # bf16 max-abs, the TPU kernel's own tolerance (tests/test_ops.py:99)
-PATH_TOL = 3e-2   # bf16 relative (Frobenius) error of a 28-layer XL/1 forward
+BWD_TOL = 3e-2    # bf16 max|err| / max|ref|, the TPU backward's tolerance (tests/test_ops.py:190)
+PATH_TOL = 3e-2   # bf16 relative (Frobenius) error of a 28-layer XL/1 forward or gradient
 
 
 def fail(msg: str) -> None:
@@ -109,13 +138,24 @@ def phase_device() -> dict:
     return {"smi": smi, "name": name}
 
 
+KERNELS = ("nat_attention_fwd", "nat_attention_bwd")
+
+
 def phase_build() -> dict:
+    def timed_build(name):
+        t0 = time.perf_counter()
+        path = build.build(name)
+        return path, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = build.build("nat_attention_fwd")
-    build.load_library("nat_attention_fwd")
-    seconds = time.perf_counter() - t0
-    log(f"[build] {path.name}: {seconds:.1f} s")
-    return {"nat_attention_fwd": seconds}
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+    for name in KERNELS:
+        build.load_library(name)
+    for name, (path, seconds) in built.items():
+        log(f"[build] {path.name}: {seconds:.1f} s")
+    log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
+    return {name: seconds for name, (_, seconds) in built.items()}
 
 
 def _attention_case(B: int, H: int, N: int, D: int, rope: bool, gen: torch.Generator):
@@ -179,6 +219,61 @@ def phase_kernels(seed: int) -> dict:
     return {"nat_attention_fwd": {"worst_err": worst, "rows": rows}}
 
 
+def _bwd_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float, str]:
+    """Least time on an H100 for one backward call: 10·B·H·N²·D operations
+    (S, dP, dV, dQ, dK) at the bf16 peak vs qkv, g and dqkv (3 + 1 + 3 of
+    B·N·H·D bf16) and the tables moved once."""
+    flops = 10.0 * B * H * N * N * D
+    nbytes = 2.0 * (3 + 1 + 3) * B * N * H * D + (2 * N * D * 4 if rope else 0)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_bwd_kernel(seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    cases = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
+             (16, 16, 256, 72, True), (16, 16, 256, 72, False),
+             (4, 16, 200, 64, True), (4, 16, 200, 64, False)]
+    worst, rows = 0.0, []
+    for B, H, N, D, rope in cases:
+        qkv, tables = _attention_case(B, H, N, D, rope, gen)
+        g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        got = fused_qkv_attention_bwd(qkv, g, rope=tables)
+        torch.cuda.synchronize()
+        ref = fused_qkv_attention_bwd_reference(qkv, g, rope=tables)
+        abs_err = (got.float() - ref.float()).abs().max().item()
+        err = abs_err / ref.float().abs().max().item()
+        if not (err <= BWD_TOL):
+            fail(f"backward kernel vs plain at {(B, H, N, D, rope)}: max-rel {err} > {BWD_TOL}")
+        worst = max(worst, abs_err)
+
+        # the library yardstick: SDPA's backward on q, k, v rotated beforehand
+        if tables is not None:
+            cos, sinf = fold_sin(tables, device="cuda")
+            c, s = cos[None, :, None].to(qkv.dtype), sinf[None, :, None].to(qkv.dtype)
+            rot = lambda x: x * c + torch.roll(x, D // 2, dims=-1) * s  # noqa: E731
+        else:
+            rot = lambda x: x  # noqa: E731
+        q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                   for t in (rot(qkv[:, :, 0]), rot(qkv[:, :, 1]), qkv[:, :, 2]))
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        gt = g.transpose(1, 2).contiguous()
+        row = {
+            "shape": [B, H, N, D], "rope": rope, "max_rel_err": err, "max_abs_err": abs_err,
+            "ms": time_ms(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
+            "plain_ms": time_ms(lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables)),
+            "library_ms": time_ms(
+                lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True)),
+        }
+        row["bound_ms"], row["bound_by"] = _bwd_bound(B, H, N, D, rope)
+        rows.append(row)
+        log(f"[kernels] nat_attention_bwd B={B} H={H} N={N} D={D} rope={rope}: "
+            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"SDPA backward {row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bound_by']})")
+    return {"nat_attention_bwd": {"worst_err": worst, "rows": rows}}
+
+
 def build_xl(seed: int):
     cfg = Config(PRODUCTION)
     latent = cfg.data.image_size // cfg.vae.downsample_ratio
@@ -201,7 +296,7 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
     vae.decode_to_images(warm(labels, generator=gen))
     torch.cuda.synchronize()
 
-    fused_qkv_attention.launches = 0
+    fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     latents = generate(labels, generator=gen)
@@ -213,8 +308,9 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     want = model.depth * (cfg.sample.num_sampling_steps - 1)  # one forward per step
-    if launches != want:
-        fail(f"attention kernel launched {launches} times on the main path, expected {want}")
+    if (launches, fused_qkv_attention.bwd_launches) != (want, 0):
+        fail(f"attention kernels launched {launches} / {fused_qkv_attention.bwd_launches} times "
+             f"on the sampling path, expected {want} / 0 (forward / backward)")
     S = cfg.data.image_size
     if imgs.shape != (BATCH, S, S, 3) or imgs.dtype != np.uint8:
         fail(f"images {imgs.shape} {imgs.dtype}, expected ({BATCH}, {S}, {S}, 3) uint8")
@@ -259,6 +355,150 @@ def phase_kernel_on_path(model, seed: int) -> dict:
     return {"rel_err": rel, "rel_max_err": rel_max}
 
 
+def _training_loss(model, transport, x, y, t, x0, drop):
+    """The trainer's loss (velocity MSE + cosine) at fixed draws."""
+    terms = transport.losses_at(
+        lambda xt, tt: model(xt, tt, y, train=True, force_drop_ids=drop), t, x0, x)
+    return terms["loss"].mean() + terms["cos_loss"].mean()
+
+
+def phase_train_path(cfg: Config, model, seed: int) -> dict:
+    """XL/1 gradients of the training loss with both kernels against those
+    with attention forced through the plain version (autograd of it)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    B, s, C = 2 * BATCH, model.input_size, model.in_channels
+    transport = build_transport(cfg)
+    x = torch.randn((B, s, s, C), generator=gen, device="cuda")
+    y = torch.randint(0, cfg.data.num_classes, (B,), generator=gen, device="cuda")
+    t = transport.sample_t(B, gen)
+    x0 = torch.randn((B, s, s, C), generator=gen, device="cuda")
+    drop = (torch.rand((B,), generator=gen, device="cuda") < 0.1).long()
+    names, params = zip(*model.named_parameters())
+
+    def grads():
+        g = torch.autograd.grad(_training_loss(model, transport, x, y, t, x0, drop), params)
+        flat = torch.cat([v.float().flatten() for v in g])
+        qkv = torch.cat([v.float().flatten() for n, v in zip(names, g) if ".attn.qkv." in n])
+        return flat, qkv
+
+    fwd, bwd = fused_qkv_attention.launches, fused_qkv_attention.bwd_launches
+    with_kernel, qkv_kernel = grads()
+    torch.cuda.synchronize()
+    fwd, bwd = fused_qkv_attention.launches - fwd, fused_qkv_attention.bwd_launches - bwd
+    if (fwd, bwd) != (2 * model.depth, model.depth):
+        fail(f"XL/1 training backward launched the kernels {fwd} / {bwd} times, "
+             f"expected {2 * model.depth} / {model.depth}")
+    original = layers.fused_qkv_attention
+    layers.fused_qkv_attention = fused_qkv_attention_reference  # smoke-only switch
+    try:
+        plain, qkv_plain = grads()
+    finally:
+        layers.fused_qkv_attention = original
+    rel = ((with_kernel - plain).norm() / plain.norm()).item()
+    rel_qkv = ((qkv_kernel - qkv_plain).norm() / qkv_plain.norm()).item()
+    if not (rel <= PATH_TOL and rel_qkv <= PATH_TOL):
+        fail(f"XL/1 gradients with the kernels vs plain attention: relative error {rel}, "
+             f"attn.qkv {rel_qkv} (limit {PATH_TOL})")
+    log(f"[train-path] XL/1 loss gradients B={B}, kernels vs plain attention: relative error "
+        f"{rel:.3e}, attn.qkv {rel_qkv:.3e}")
+    return {"rel_err": rel, "rel_err_qkv": rel_qkv}
+
+
+def phase_train_steps(seed: int, device_info: dict) -> dict:
+    """The training path: XL/1 from the JAX init through DiTTrainer.train_step."""
+    cfg = Config(PRODUCTION)
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    trainer = build_trainer(cfg, model, steps_per_epoch=1, max_steps=cfg.train.max_steps)
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    s, C, steps = model.input_size, model.in_channels, TRAIN_WARMUP + TRAIN_TIMED
+    batches = [(torch.randn((TRAIN_BATCH, s, s, C), generator=gen, device="cuda"),
+                torch.randint(0, cfg.data.num_classes, (TRAIN_BATCH,), generator=gen,
+                              device="cuda")) for _ in range(steps)]
+    watch = [i for i, n in enumerate(state.names) if "adaLN" in n or "final_layer" in n]
+    before = [state.params[i].detach().clone() for i in watch]
+    ema_before = [state.ema_params[i].clone() for i in watch]
+
+    fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_step, losses = [], []
+    for i, batch in enumerate(batches):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        counts = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+        losses.append(trainer.train_step(state, batch)["loss"])
+        per_step.append((fused_qkv_attention.launches - counts[0],
+                         fused_qkv_attention.bwd_launches - counts[1]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    want = (2 * model.depth, model.depth)  # remat "dots" runs the forward kernel again
+    if any(c != want for c in per_step):
+        fail(f"kernel launches per train step {per_step}, expected {want} (forward, backward)")
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        fail(f"non-finite training loss {losses.tolist()}")
+    if all(torch.equal(a, b) for a, b in zip(before, (state.params[i] for i in watch))):
+        fail("the train steps left the parameters unchanged")
+    if all(torch.equal(a, b) for a, b in zip(ema_before, (state.ema_params[i] for i in watch))):
+        fail("the train steps left the EMA unchanged")
+    result = {
+        "batch": TRAIN_BATCH, "timed_steps": TRAIN_TIMED,
+        "ms_per_step": seconds / TRAIN_TIMED * 1e3, "img_per_s": TRAIN_BATCH * TRAIN_TIMED / seconds,
+        "peak_bytes": peak, "fwd_launches": launches[0], "bwd_launches": launches[1],
+        "launches_per_step": list(want), "losses": losses.tolist(),
+    }
+    log(f"[train] XL/1 train_step batch {TRAIN_BATCH} (remat dots, AdamW, fp32 EMA): "
+        f"{result['ms_per_step']:.2f} ms/step, {result['img_per_s']:.2f} img/s, "
+        f"peak {peak / 2**30:.2f} GiB, launches per step {want[0]} forward / {want[1]} "
+        f"backward, loss {losses[0]:.4f} → {losses[-1]:.4f} [{device_info['smi']}]")
+    return result
+
+
+def phase_entry_point(seed: int) -> dict:
+    """do_train on synthetic f16d32 latent shards, then a resumed run."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    saved = dict(dit._VARIANTS["XL"])
+    try:
+        rs = np.random.default_rng(seed)
+        data = os.path.join(work, "latents")
+        for i in range(2):
+            lat = rs.standard_normal((24, 32, 16, 16)).astype(np.float32)
+            write_safetensors(os.path.join(data, f"shard_{i:03d}.safetensors"), {
+                "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+                "labels": rs.integers(0, 1000, (24,)).astype(np.int32)})
+        cfg = Config(PRODUCTION).merged_with({
+            "data": {"data_path": data},
+            "train": {"max_steps": 4, "global_batch_size": 8, "ckpt_every": 2, "log_every": 2,
+                      "output_dir": os.path.join(work, "out"), "exp_name": "smoke"}})
+        depth = 2
+        dit._VARIANTS["XL"] = dict(saved, depth=depth)  # smoke-only: an XL/1-width DiT, depth 2
+        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+        t0 = time.perf_counter()
+        first = do_train(cfg, device="cuda")
+        resumed = do_train(cfg.merged_with({"train": {"max_steps": 6}}), device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+        ckpts = sorted(os.listdir(os.path.join(work, "out", "smoke", "checkpoints")))
+        want = ["0000002.safetensors", "0000004.safetensors", "0000006.safetensors", "config.json"]
+        if first.step != 4 or resumed.step != 6 or ckpts != want:
+            fail(f"do_train reached steps {first.step}, {resumed.step} with checkpoints {ckpts}")
+        if launches != (6 * 2 * depth, 6 * depth):  # 6 steps, remat "dots"
+            fail(f"do_train launched the kernels {launches[0]} / {launches[1]} times, expected "
+                 f"{6 * 2 * depth} / {6 * depth} (forward / backward)")
+    finally:
+        dit._VARIANTS["XL"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[entry] do_train XL/1-width depth 2: 4 steps, resumed to 6, checkpoints {ckpts[:-1]}, "
+        f"kernel launches {launches[0]} forward / {launches[1]} backward, {seconds:.1f} s")
+    return {"steps": [first.step, resumed.step], "checkpoints": ckpts, "seconds": seconds,
+            "launches": list(launches)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -272,12 +512,19 @@ def main(argv=None) -> int:
     device = phase_device()
     builds = phase_build()
     kernels = phase_kernels(SEED)
+    kernels.update(phase_bwd_kernel(SEED))
     cfg, model = build_xl(SEED)
     main_path = phase_main_path(cfg, model, SEED, device)
     on_path = phase_kernel_on_path(model, SEED)
+    train_path = phase_train_path(cfg, model, SEED)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train_steps(SEED, device)
+    entry = phase_entry_point(SEED)
 
-    nat = kernels["nat_attention_fwd"]
-    main_row = nat["rows"][0]  # (16, 16, 256, 72) with RoPE: the CFG-phase shape
+    nat, bwd = kernels["nat_attention_fwd"], kernels["nat_attention_bwd"]
+    fwd_row = nat["rows"][0]  # (16, 16, 256, 72) with RoPE: the CFG-phase shape
+    bwd_row = bwd["rows"][0]  # (32, 16, 256, 72) with RoPE: the training shape
     line = {"kernels": [{
         "name": "nat_attention_fwd",
         "route": "cuda",
@@ -285,16 +532,30 @@ def main(argv=None) -> int:
         "replaces": "vavae_tpu/ops/pallas/flash_attention.py:215",
         "launches": main_path["launches"],
         "max_abs_err": nat["worst_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "ms": fwd_row["ms"],
+        "plain_ms": fwd_row["plain_ms"],
+        "bound_ms": fwd_row["bound_ms"],
+        "bound_by": fwd_row["bound_by"],
+        "library_ms": fwd_row["library_ms"],
+    }, {
+        "name": "nat_attention_bwd",
+        "route": "cuda",
+        "source": "vavae_tpu_torch/ops/csrc/nat_attention_bwd.cu",
+        "replaces": "vavae_tpu/ops/pallas/flash_attention.py:240",
+        "launches": train["bwd_launches"],
+        "max_abs_err": bwd["worst_err"],
+        "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
     }]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": device, "build_s": builds, "kernels": kernels,
-                       "main_path": main_path, "kernel_on_path": on_path}, f, indent=1)
+                       "main_path": main_path, "kernel_on_path": on_path,
+                       "train_path": train_path, "train_steps": train, "entry_point": entry},
+                      f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

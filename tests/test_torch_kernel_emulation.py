@@ -1,15 +1,16 @@
-"""The CUDA attention kernel's own source, run on the CPU.
+"""The CUDA attention kernels' own sources, run on the CPU.
 
-There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu`` is
-compiled as host C++ against a small emulation of the CUDA features it uses
+There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu`` and
+``nat_attention_bwd.cu`` are compiled as host C++ against a small emulation of the CUDA features it uses
 (below): one std::thread per CUDA thread, std::barrier for
 ``__syncthreads``, ``__syncwarp`` and the shuffles, and ``mma.sync`` /
 ``ldmatrix`` evaluated per warp from the documented fragment layouts.
 Shared memory starts as NaN, so a read of an element the kernel never
-wrote shows up in the output. The kernel then runs blocks one after the
-other on small shapes and is held against ``fused_qkv_attention_reference``.
+wrote shows up in the output. The kernels then run blocks one after the
+other on small shapes and are held against ``fused_qkv_attention_reference``
+and ``fused_qkv_attention_bwd_reference``.
 
-This checks the kernel's indexing, masking, online softmax and fragment
+This checks the kernels' indexing, masking, online softmax and fragment
 bookkeeping; whether it compiles for sm_90a and how fast it runs only the
 card can say (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -24,9 +25,15 @@ import pytest
 import torch
 
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
-from vavae_tpu_torch.ops.flash_attention import fold_sin, fused_qkv_attention_reference
+from vavae_tpu_torch.ops.flash_attention import (
+    fold_sin,
+    fused_qkv_attention_bwd_reference,
+    fused_qkv_attention_reference,
+)
 
-SOURCE = Path(__file__).resolve().parents[1] / "vavae_tpu_torch/ops/csrc/nat_attention_fwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "vavae_tpu_torch/ops/csrc"
+SOURCE = CSRC / "nat_attention_fwd.cu"
+BWD_SOURCE = CSRC / "nat_attention_bwd.cu"
 
 EMULATION = r"""#include <barrier>
 #include <cmath>
@@ -131,9 +138,9 @@ inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat1
 """
 
 
-def _host_source(src: str) -> str:
+def _host_source(src: str, launches: int = 2) -> str:
     """The kernel source with shared memory, the two inline-PTX helpers and
-    the ``<<<...>>>`` launches routed to the emulation."""
+    its ``launches`` ``<<<...>>>`` launches routed to the emulation."""
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = src.replace("extern __shared__ __align__(16) unsigned char mma_smem[];",
                       "unsigned char* mma_smem = (unsigned char*)g_smem;")
@@ -151,29 +158,46 @@ def _host_source(src: str) -> str:
         lambda m: (f"{{ auto* kfn = &{m.group(1)}; emu_launch({m.group(2).rsplit(',', 1)[0]}, "
                    f"[=] {{ kfn({m.group(3)}); }}); }}"),
         src, flags=re.S)
-    assert n == 2, n
+    assert n == launches, n
     return src
 
 
-@pytest.fixture(scope="module")
-def kernel(tmp_path_factory):
+def build_host_library(d: Path, source: str, launches: int) -> ctypes.CDLL:
+    """Compile a kernel source as host C++ against the emulation, in ``d``."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
-    d = tmp_path_factory.mktemp("nat_emu")
-    (d / "inc").mkdir()
+    (d / "inc").mkdir(exist_ok=True)
     for header in ("cuda_bf16.h", "cuda_runtime.h"):
         (d / "inc" / header).write_text("")
     (d / "emulation.h").write_text(EMULATION)
-    (d / "kernel.cpp").write_text(_host_source(SOURCE.read_text()))
+    (d / "kernel.cpp").write_text(_host_source(source, launches))
     lib = d / "libnat_emu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{d / 'inc'}",
                     "-include", str(d / "emulation.h"), "-o", str(lib), str(d / "kernel.cpp"),
                     "-lpthread"], check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(str(lib)).nat_attention_fwd
+    return ctypes.CDLL(str(lib))
+
+
+def bwd_function(lib: ctypes.CDLL):
+    fn = lib.nat_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def kernel(tmp_path_factory):
+    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), SOURCE.read_text(), 2).nat_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@pytest.fixture(scope="module")
+def bwd_kernel(tmp_path_factory):
+    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), BWD_SOURCE.read_text(), 4)
+    return bwd_function(lib)
 
 
 def _run(kernel, qkv: torch.Tensor, rope):
@@ -231,3 +255,84 @@ def test_kernel_source_misaligned_input(kernel):
     got = _run(kernel, qkv, tables)
     want = fused_qkv_attention_reference(qkv, tables)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def run_bwd(kernel, qkv: torch.Tensor, g: torch.Tensor, rope):
+    B, N, _, H, D = qkv.shape
+    dqkv = torch.full_like(qkv, float("nan"))
+    stats = torch.empty((3, B, H, N), dtype=torch.float32)
+    if rope is not None:
+        cos, sinf = fold_sin(rope)
+        ptrs = (cos.data_ptr(), sinf.data_ptr())
+    else:
+        ptrs = (None, None)
+    code = {torch.float32: 0, torch.bfloat16: 1}[qkv.dtype]
+    err = kernel(qkv.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], dqkv.data_ptr(),
+                 stats.data_ptr(), B, N, H, D, int(rope is not None), code, None)
+    assert err == 0
+    return dqkv
+
+
+def bwd_case(B, N, H, D, rope, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed + N)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen).to(dtype)
+    g = torch.randn((B, N, H, D), generator=gen).to(dtype)
+    return qkv, g, _tables(N, D) if rope else None
+
+
+def bwd_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |err| / max |ref| (the TPU kernel's own measure, tests/test_ops.py:188-190)"""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D,rope", [
+    (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
+    (1, 100, 2, 8, True),    # N not a multiple of 64: ragged query and key tiles
+    (2, 70, 1, 72, False),   # no RoPE, two batches
+])
+def test_bwd_kernel_source_matches_plain_version(bwd_kernel, B, N, H, D, rope, dtype):
+    # fp32: summation order only (and the kernel's P = exp(s - m)·(1/l));
+    # bf16: 3e-2 of max|ref|, the TPU backward kernel's own tolerance
+    qkv, g, tables = bwd_case(B, N, H, D, rope, dtype)
+    got = run_bwd(bwd_kernel, qkv, g, tables)
+    want = fused_qkv_attention_bwd_reference(qkv, g, tables)
+    assert not torch.isnan(got.float()).any()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert bwd_error(got, want) <= 3e-2
+
+
+def test_bwd_kernel_source_misaligned_input(bwd_kernel):
+    """bf16 views that are not 16-byte aligned take the scalar-load path."""
+    B, N, H, D = 1, 70, 1, 72
+    gen = torch.Generator().manual_seed(1)
+    buf = torch.randn(B * N * 3 * H * D + 1, generator=gen).bfloat16()
+    qkv = buf[1:].view(B, N, 3, H, D)
+    g = torch.randn(B * N * H * D + 1, generator=gen).bfloat16()[1:].view(B, N, H, D)
+    assert qkv.data_ptr() % 16 != 0
+    tables = _tables(N, D)
+    got = run_bwd(bwd_kernel, qkv, g, tables)
+    assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) <= 3e-2
+
+
+# Two faults that the test above must catch, each applied to a copy of the
+# source: delta (rowsum(dP∘P)) left out of dS, and dq/dk written without the
+# transposed RoPE.
+MUTATIONS = {
+    "no_delta": ("p * (dp[j][e] - delta) * scale", "p * dp[j][e] * scale"),
+    "no_transposed_rope": ("      val = val * cos_t[n * D + d] + tile[r * ld + p] * sin_t[n * D + p];",
+                           "      val = val + 0.f * p;"),
+}
+
+
+@pytest.mark.parametrize("name", list(MUTATIONS))
+def test_bwd_emulation_catches_mutations(tmp_path, name):
+    old, new = MUTATIONS[name]
+    source = BWD_SOURCE.read_text()
+    assert source.count(old) >= 1, name
+    fn = bwd_function(build_host_library(tmp_path, source.replace(old, new), 4))
+    qkv, g, tables = bwd_case(1, 64, 1, 72, True, torch.bfloat16)
+    got = run_bwd(fn, qkv, g, tables)
+    assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) > 3e-2

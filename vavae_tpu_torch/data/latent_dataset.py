@@ -1,0 +1,123 @@
+"""Latent-shard dataset (port of ``vavae_tpu/data/latent_dataset.py``).
+
+Shards are safetensors files holding ``latents`` and ``latents_flip``
+(N, C, H, W) and ``labels`` (N,). Each shard is memory-mapped once (its
+header gives the offsets), and items are views into the map. Channel stats
+come from a ``latents_stats.safetensors`` cache, or a reference
+``latents_stats.pt`` (read through a lazy ``torch.load``), or are computed
+from ≤10k random items and cached with the numpy writer.
+
+``batches`` yields NHWC float32 batches in the JAX package's order, with
+its flips and its normalisation ``(x − μ) / σ · multiplier``, bit for bit:
+the same ``default_rng(seed + epoch)`` shuffle and ``default_rng([seed,
+epoch, 1])`` flip stream. The JAX package's C++ batch reader is not ported.
+"""
+from __future__ import annotations
+
+import os
+import warnings
+from glob import glob
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from vavae_tpu_torch.utils.safetensors_io import map_safetensors, write_safetensors
+
+STATS_FILE = "latents_stats.safetensors"
+
+
+class ImgLatentDataset:
+    def __init__(self, data_dir: str, latent_norm: bool = True, latent_multiplier: float = 1.0,
+                 seed: int = 0):
+        self.data_dir = data_dir
+        self.latent_norm = latent_norm
+        self.latent_multiplier = float(latent_multiplier)
+        self._rng = np.random.default_rng(seed)
+
+        self.files = [f for f in sorted(glob(os.path.join(data_dir, "*.safetensors")))
+                      if not f.endswith(STATS_FILE)]
+        if not self.files:
+            raise FileNotFoundError(f"no latent shards in {data_dir}")
+        self._shards = [map_safetensors(f)[0] for f in self.files]
+        sizes = [len(s["labels"]) for s in self._shards]
+        self._shard_of = np.repeat(np.arange(len(sizes)), sizes)
+        self._row_of = np.concatenate([np.arange(n) for n in sizes])
+
+        self._mean: Optional[np.ndarray] = None
+        self._std: Optional[np.ndarray] = None
+        if latent_norm:
+            self._mean, self._std = self._latent_stats()
+
+    # -- stats -------------------------------------------------------------------
+
+    def _latent_stats(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Channel stats (1, C, 1, 1), the reference cache layout."""
+        np_cache = os.path.join(self.data_dir, STATS_FILE)
+        pt_cache = os.path.join(self.data_dir, "latents_stats.pt")
+        if os.path.exists(np_cache):
+            tensors, _ = map_safetensors(np_cache)
+            return np.array(tensors["mean"]), np.array(tensors["std"])
+        if os.path.exists(pt_cache):
+            import torch
+
+            stats = torch.load(pt_cache, map_location="cpu", weights_only=False)
+            return stats["mean"].numpy(), stats["std"].numpy()
+        mean, std = self.compute_latent_stats()
+        write_safetensors(np_cache, {"mean": mean, "std": std})
+        return mean, std
+
+    def compute_latent_stats(self, num_samples: int = 10000) -> Tuple[np.ndarray, np.ndarray]:
+        n = min(num_samples, len(self))
+        idxs = self._rng.choice(len(self), n, replace=False)
+        lats = np.stack([self._read("latents", int(i)) for i in idxs])  # (n, C, H, W)
+        mean = lats.mean(axis=(0, 2, 3), keepdims=True)[0][None]
+        std = lats.std(axis=(0, 2, 3), keepdims=True, ddof=1)[0][None]
+        return mean.astype(np.float32), std.astype(np.float32)
+
+    @property
+    def latent_stats(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(mean, std) each (1, C, 1, 1); used by sampling to un-normalise."""
+        if self._mean is None:
+            return np.zeros((1, 1, 1, 1), np.float32), np.ones((1, 1, 1, 1), np.float32)
+        return self._mean, self._std
+
+    # -- items -------------------------------------------------------------------
+
+    def _read(self, key: str, idx: int) -> np.ndarray:
+        return self._shards[self._shard_of[idx]][key][self._row_of[idx]]
+
+    def __len__(self) -> int:
+        return len(self._shard_of)
+
+    # -- batching ----------------------------------------------------------------
+
+    def batches(self, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
+                seed: int = 0, epochs: Optional[int] = None
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yields (latents (B, H, W, C) float32, labels (B,) int32) forever, or
+        for ``epochs`` passes."""
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            order = np.arange(len(self))
+            if shuffle:
+                np.random.default_rng(seed + epoch).shuffle(order)
+            stop = len(order) - (len(order) % batch_size) if drop_last else len(order)
+            if stop == 0:
+                msg = (f"dataset ({len(order)} items) is smaller than batch_size {batch_size}"
+                       + (" with drop_last" if drop_last else "") + " — the epoch yields zero batches")
+                if epochs is None:
+                    raise ValueError(msg + " and epochs=None would spin forever")
+                warnings.warn(msg, stacklevel=2)
+            # a seed space disjoint from the shuffle stream (seed + epoch)
+            flip_rng = np.random.default_rng([seed, epoch, 1])
+            for s in range(0, stop, batch_size):
+                idxs = order[s: s + batch_size]
+                flips = flip_rng.random(len(idxs)) > 0.5
+                lats = np.stack([self._read("latents_flip" if fl else "latents", int(i))
+                                 for i, fl in zip(idxs, flips)]).astype(np.float32)
+                labels = np.array([self._read("labels", int(i)) for i in idxs], np.int32)
+                if self.latent_norm:  # the JAX package's arithmetic, in its order
+                    lats = (lats - self._mean[0]) / self._std[0]
+                lats = lats * self.latent_multiplier
+                yield np.ascontiguousarray(lats.transpose(0, 2, 3, 1)), labels
+            epoch += 1

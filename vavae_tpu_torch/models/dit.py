@@ -3,15 +3,24 @@
 NHWC latents in and out, as the JAX package. The JAX block stack runs under
 ``nn.scan`` over stacked parameters; here it is a plain loop over
 ``blocks``, a ``ModuleList`` (the weight bridge unstacks the depth axis).
+
+Activation checkpointing per block (``use_checkpoint``) maps the JAX remat
+policies onto ``torch.utils.checkpoint``: ``"nothing"`` recomputes the whole
+block in the backward; ``"dots"`` saves the outputs of the Linear layers'
+matrix products (``aten.mm``/``aten.addmm``, as
+``dots_with_no_batch_dims_saveable`` saves dots) and recomputes the rest,
+the attention kernel included.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from vavae_tpu_torch.models.layers import (
     Attention,
@@ -42,6 +51,19 @@ class PatchEmbed(nn.Module):
         h, w = H // p, W // p
         x = x.reshape(B, h, p, w, p, C).permute(0, 1, 3, 2, 4, 5)
         return self.proj(x.reshape(B, h * w, p * p * C))
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> checkpoint.CheckpointPolicy:
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# torch.utils.checkpoint context_fn per JAX remat policy name
+_REMAT_POLICIES = {
+    "nothing": checkpoint.noop_context_fn,
+    "dots": functools.partial(checkpoint.create_selective_checkpoint_contexts, _save_matmuls),
+}
 
 
 def _norm(use_rmsnorm: bool, hidden_size: int, dtype: torch.dtype) -> nn.Module:
@@ -113,8 +135,14 @@ class LightningDiT(nn.Module):
                  num_classes: int = 1000, learn_sigma: bool = False,
                  use_qknorm: bool = False, use_swiglu: bool = False, use_rope: bool = False,
                  use_rmsnorm: bool = False, wo_shift: bool = False,
+                 use_checkpoint: bool = False, checkpoint_policy: str = "nothing",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if use_checkpoint and checkpoint_policy not in _REMAT_POLICIES:
+            raise ValueError(f"checkpoint_policy={checkpoint_policy!r}: expected one of "
+                             f"{sorted(_REMAT_POLICIES)}")
+        self.use_checkpoint = use_checkpoint
+        self.checkpoint_policy = checkpoint_policy
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -172,13 +200,20 @@ class LightningDiT(nn.Module):
         return (self.rope_cos, self.rope_sin) if self.use_rope else None
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
-                force_drop_ids: torch.Tensor | None = None) -> torch.Tensor:
+                train: bool = False, force_drop_ids: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``train`` turns on label dropout, drawn from ``generator``."""
         x = self.x_embedder(x)
         x = x + self.pos_embed[None].to(x.dtype)
-        c = self.t_embedder(t) + self.y_embedder(y, force_drop_ids)
+        c = self.t_embedder(t) + self.y_embedder(y, train, force_drop_ids, generator)
         rope = self.rope()
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, c, rope)
+            if remat:
+                x = checkpoint.checkpoint(block, x, c, rope, use_reentrant=False,
+                                          context_fn=_REMAT_POLICIES[self.checkpoint_policy])
+            else:
+                x = block(x, c, rope)
         x = self._unpatchify(self.final_layer(x, c))
         if self.learn_sigma:
             x = x[..., : self.in_channels]
@@ -258,6 +293,8 @@ def create_dit(model_cfg: Any, latent_size: int, num_classes: int,
             wo_shift=g("wo_shift", False),
             in_channels=g("in_chans", 4),
             class_dropout_prob=g("class_dropout_prob", 0.1),
+            use_checkpoint=g("use_checkpoint", False),
+            checkpoint_policy=g("checkpoint_policy", "nothing"),
             dtype=torch.bfloat16 if g("bf16", False) else torch.float32,
         )
 

@@ -131,19 +131,26 @@ class TimestepEmbedder(nn.Module):
 class LabelEmbedder(nn.Module):
     """Class-label table with an extra null row when CFG dropout is on.
 
-    Label dropout during training comes with the training slice; here
-    ``force_drop_ids`` selects the null row."""
+    In training (``train=True``) each label is replaced by the null row where
+    a uniform draw from ``generator`` is below ``dropout_prob``;
+    ``force_drop_ids`` (1 = drop) takes the place of the draw."""
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.dtype = dtype
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels: torch.Tensor, force_drop_ids: torch.Tensor | None = None):
+    def forward(self, labels: torch.Tensor, train: bool = False,
+                force_drop_ids: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if force_drop_ids is not None:
             labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
+        elif train and self.dropout_prob > 0:
+            u = torch.rand(labels.shape, generator=generator, device=labels.device)
+            labels = torch.where(u < self.dropout_prob, self.num_classes, labels)
         return self.embedding_table(labels).to(self.dtype)
 
 

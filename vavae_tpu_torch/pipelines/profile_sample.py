@@ -31,6 +31,10 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "nat_fwd" in low:
         return "attention_kernel"
+    if "nat_bwd" in low:
+        return "attention_bwd_kernel"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "foreach"  # the optimizer's and the EMA's fused list updates
     if "fprop" in low or "conv" in low:
         return "conv"
     if any(k in low for k in _GEMM):

@@ -24,7 +24,7 @@ import torch
 
 from vavae_tpu_torch.models.dit import LightningDiT, create_dit
 from vavae_tpu_torch.tokenizer import VA_VAE
-from vavae_tpu_torch.transport import Sampler, create_transport
+from vavae_tpu_torch.transport import Sampler, build_transport
 from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.png import encode_png, write_pngs
@@ -40,22 +40,6 @@ def create_logger() -> logging.Logger:
         handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s", "%Y-%m-%d %H:%M:%S"))
         logger.addHandler(handler)
     return logger
-
-
-def build_transport(cfg: Config):
-    t = cfg.transport
-    return create_transport(
-        t.get("path_type", "Linear"),
-        t.get("prediction", "velocity"),
-        t.get("loss_weight"),
-        t.get("train_eps"),
-        t.get("sample_eps"),
-        use_cosine_loss=t.get("use_cosine_loss", False),
-        use_lognorm=t.get("use_lognorm", False),
-        partial_train=t.get("partitial_train"),  # reference key spelling
-        partial_ratio=t.get("partial_ratio", 1.0),
-        shift_lg=t.get("shift_lg", False),
-    )
 
 
 def load_dit_params(model: LightningDiT, ckpt_path: str, prefer_ema: bool = True) -> None:

@@ -4,6 +4,7 @@ from vavae_tpu_torch.transport.transport import (
     PathType,
     Transport,
     WeightType,
+    build_transport,
     create_transport,
 )
 
@@ -12,6 +13,7 @@ __all__ = [
     "PathType",
     "Transport",
     "WeightType",
+    "build_transport",
     "create_transport",
     "Sampler",
 ]

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX-package param trees → the port's state dicts.
+"""Weight bridge between JAX-package param trees and the port's state dicts.
 
 Each function takes a flax param tree as numpy arrays and returns a
 ``state_dict`` (of CPU tensors) for the port's module, so both compute the
@@ -15,7 +15,8 @@ whose target names are the reference's, which the port's modules use:
     relies on it (only a reference ``.pt`` needs ``rope_permute_qkv``).
 
 The port's PatchEmbed is a Linear over the (p, p, C) flattening, as the JAX
-Dense, so its weight is the transposed kernel.
+Dense, so its weight is the transposed kernel. ``dit_state_to_jax`` walks
+the other way, so the port's checkpoints hold the JAX package's tree.
 """
 from __future__ import annotations
 
@@ -145,6 +146,61 @@ def dit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     if "norm_final" in params["final_layer"]:
         sd["final_layer.norm_final.weight"] = _t(params["final_layer"]["norm_final"]["weight"])
     return sd
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def _dense_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    out = {"kernel": _np(sd[f"{prefix}.weight"]).T}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _dit_block_to_jax(sd: Mapping[str, torch.Tensor], p: str) -> dict:
+    attn = {"qkv": _dense_to_jax(sd, f"{p}.attn.qkv"), "proj": _dense_to_jax(sd, f"{p}.attn.proj")}
+    for name in ("q_norm", "k_norm"):
+        key = f"{p}.attn.{name}"
+        if f"{key}.bias" in sd:  # LayerNorm
+            attn[name] = {"scale": _np(sd[f"{key}.weight"]), "bias": _np(sd[f"{key}.bias"])}
+        elif f"{key}.weight" in sd:  # RMSNorm
+            attn[name] = {"weight": _np(sd[f"{key}.weight"])}
+    tree = {"attn": attn, "adaLN": _dense_to_jax(sd, f"{p}.adaLN_modulation.1"), "mlp": {}}
+    for name in ("norm1", "norm2"):
+        if f"{p}.{name}.weight" in sd:
+            tree[name] = {"weight": _np(sd[f"{p}.{name}.weight"])}
+    for name in ("w12", "w3", "fc1", "fc2"):
+        if f"{p}.mlp.{name}.weight" in sd:
+            tree["mlp"][name] = _dense_to_jax(sd, f"{p}.mlp.{name}")
+    return tree
+
+
+def dit_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's LightningDiT state dict → the JAX package's param tree,
+    with the blocks scan-stacked under ``blocks/block`` (leading depth
+    axis), as numpy fp32: the inverse of ``dit_state_from_jax``."""
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    blocks = [_dit_block_to_jax(sd, f"blocks.{i}") for i in range(depth)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    final = {"adaLN": _dense_to_jax(sd, "final_layer.adaLN_modulation.1"),
+             "linear": _dense_to_jax(sd, "final_layer.linear")}
+    if "final_layer.norm_final.weight" in sd:
+        final["norm_final"] = {"weight": _np(sd["final_layer.norm_final.weight"])}
+    return {
+        "x_embedder": {"proj": _dense_to_jax(sd, "x_embedder.proj")},
+        "t_embedder": {"fc1": _dense_to_jax(sd, "t_embedder.mlp.0"),
+                       "fc2": _dense_to_jax(sd, "t_embedder.mlp.2")},
+        "y_embedder": {"table": {"embedding": _np(sd["y_embedder.embedding_table.weight"])}},
+        "blocks": {"block": stack(blocks)},
+        "final_layer": final,
+    }
 
 
 @torch.no_grad()
