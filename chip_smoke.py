@@ -5,18 +5,20 @@
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
   1. device: name and power limit (nvidia-smi), torch's device name;
-  2. build: every CUDA kernel (the attention forward and backward), from
-     ``ops/csrc``, one nvcc per source, all started together;
+  2. build: every CUDA kernel (the fused-qkv attention forward and backward,
+     the separate-q/k/v attention forward and backward), from ``ops/csrc``,
+     one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes, bf16 (forward 2e-2 max-abs, backward 3e-2 of
      max|ref|); times (CUDA events, median of 30 after warm-up) of the
      kernel, the plain version and one PyTorch library call computing the
-     same function, beside the card's bound for the same work;
+     same function, beside the card's bound for the same work, and the
+     kernel's device time alone (torch.profiler);
   4. sampling path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
      non-zero weights from the seed) → 250-step euler split-CFG sampling
      (cfg 10, interval 0.11, shift 0.3) at batch 8 → f16d32 VA-VAE decode to
      uint8 images, through ``build_sample_fn`` and ``VA_VAE``; checks shapes,
-     finiteness and the forward kernel's launches (and none of the backward);
+     finiteness and the forward kernel's launches (and none of the others);
   5. the same XL/1 forward at batch 16 with the kernel and with attention
      forced through the plain version: relative error of the velocity;
   6. train path: one forward and backward of the XL/1 training loss
@@ -31,13 +33,24 @@ Phases, each fatal on failure:
      forward again), finite losses, moved params and EMA;
   8. entry point: ``do_train`` on seeded synthetic f16d32 latent shards (an
      XL/1-width DiT cut to depth 2): 4 steps with a checkpoint every 2, then
-     a resumed run to step 6, with both kernels' launches counted.
-The line before the last holds the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+     a resumed run to step 6, with both kernels' launches counted;
+  9-13. phases 4-8 again with ``model.use_qknorm: true`` (RMSNorm q/k norms,
+     RoPE): attention then runs through ``flash_attention``, whose forward
+     kernel with RoPE and backward kernel take the places of the fused-qkv
+     ones; phase 11 also reports the ``attn.q_norm``/``attn.k_norm``
+     gradients on their own;
+  14. the forward kernel without RoPE: an XL/1-width qk-norm model with
+     ``use_rope: false`` and ``use_rmsnorm: false`` (LayerNorm q/k norms) at
+     depth 4, its forward and its loss gradients against plain attention.
+Every path phase sets the launch counts to 0 before it and holds them to
+the exact expected counts after it. The line before the last holds the
+kernels' JSON; the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -56,11 +69,16 @@ from vavae_tpu_torch.models.dit import create_dit
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops import build
 from vavae_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
     fold_sin,
     fused_qkv_attention,
     fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
+    rotate_half,
 )
 from vavae_tpu_torch.pipelines.sample import build_sample_fn
 from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
@@ -102,6 +120,83 @@ BWD_TOL = 3e-2    # bf16 max|err| / max|ref|, the TPU backward's tolerance (test
 PATH_TOL = 3e-2   # bf16 relative (Frobenius) error of a 28-layer XL/1 forward or gradient
 
 
+# each kernel's launch count: (wrapper, attribute)
+COUNTERS = {
+    "nat_attention_fwd": (fused_qkv_attention, "launches"),
+    "nat_attention_bwd": (fused_qkv_attention, "bwd_launches"),
+    "attn_small_fwd_rope": (flash_attention, "rope_launches"),
+    "attn_small_fwd": (flash_attention, "launches"),
+    "attn_small_bwd": (flash_attention, "bwd_launches"),
+}
+
+# the attention branches the paths run: the model options that select one,
+# its forward and backward kernels, the ``layers`` attribute that calls them
+# and the plain version to swap in for it, and the gradients reported apart
+BRANCHES = {
+    "production": {
+        "model": {}, "fwd": "nat_attention_fwd", "bwd": "nat_attention_bwd",
+        "op": "fused_qkv_attention", "plain": fused_qkv_attention_reference,
+        "groups": {"attn.qkv": (".attn.qkv.",)},
+    },
+    "qknorm": {
+        "model": {"use_qknorm": True}, "fwd": "attn_small_fwd_rope", "bwd": "attn_small_bwd",
+        "op": "dot_product_attention", "plain": flash_attention_reference,
+        "groups": {"attn.qkv": (".attn.qkv.",),
+                   "attn.q_norm/k_norm": (".attn.q_norm.", ".attn.k_norm.")},
+    },
+    "qknorm_no_rope": {
+        "model": {"use_qknorm": True, "use_rope": False, "use_rmsnorm": False},
+        "fwd": "attn_small_fwd", "bwd": "attn_small_bwd",
+        "op": "dot_product_attention", "plain": flash_attention_reference,
+        "groups": {"attn.q_norm/k_norm": (".attn.q_norm.", ".attn.k_norm.")},
+    },
+}
+NO_ROPE_DEPTH = 4
+
+
+def reset_counts() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def expect_counts(got: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly as ``want`` says (absent: never)."""
+    full = {name: want.get(name, 0) for name in COUNTERS}
+    if got != full:
+        fail(f"{what}: kernel launches {got}, expected {full}")
+
+
+@contextlib.contextmanager
+def plain_attention(branch: str):
+    """Attention of ``branch`` forced through its plain version (smoke-only switch)."""
+    op = BRANCHES[branch]["op"]
+    original = getattr(layers, op)
+    setattr(layers, op, BRANCHES[branch]["plain"])
+    try:
+        yield
+    finally:
+        setattr(layers, op, original)
+
+
+@contextlib.contextmanager
+def xl_depth(depth: int):
+    """Smoke-only: the XL registry entries at XL width, cut to ``depth``."""
+    saved = dict(dit._VARIANTS["XL"])
+    dit._VARIANTS["XL"] = dict(saved, depth=depth)
+    try:
+        yield
+    finally:
+        dit._VARIANTS["XL"] = saved
+
+
+def branch_config(branch: str) -> Config:
+    return Config(PRODUCTION).merged_with({"model": BRANCHES[branch]["model"]})
+
+
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
@@ -126,6 +221,22 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` in ms: the summed time of the kernels
+    it runs, from torch.profiler (CUDA activity). Unlike ``time_ms`` it
+    leaves out the host's share of a call that the device waits for."""
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if getattr(ev, "device_type", None) == cuda)
+    return us / 1e3 / reps
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -138,7 +249,7 @@ def phase_device() -> dict:
     return {"smi": smi, "name": name}
 
 
-KERNELS = ("nat_attention_fwd", "nat_attention_bwd")
+KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd", "attn_small_bwd")
 
 
 def phase_build() -> dict:
@@ -206,6 +317,7 @@ def phase_kernels(seed: int) -> dict:
         row = {
             "shape": [B, H, N, D], "rope": rope, "max_abs_err": err,
             "ms": time_ms(lambda: fused_qkv_attention(qkv, rope=tables)),
+            "device_ms": device_ms(lambda: fused_qkv_attention(qkv, rope=tables)),
             "plain_ms": time_ms(lambda: fused_qkv_attention_reference(qkv, rope=tables)),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
@@ -213,9 +325,9 @@ def phase_kernels(seed: int) -> dict:
         row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
         rows.append(row)
         log(f"[kernels] nat_attention_fwd B={B} H={H} N={N} D={D} rope={rope}: "
-            f"max-abs {err:.3e}, kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"SDPA {row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({row['bound_by']})")
+            f"max-abs {err:.3e}, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return {"nat_attention_fwd": {"worst_err": worst, "rows": rows}}
 
 
@@ -261,6 +373,7 @@ def phase_bwd_kernel(seed: int) -> dict:
         row = {
             "shape": [B, H, N, D], "rope": rope, "max_rel_err": err, "max_abs_err": abs_err,
             "ms": time_ms(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
+            "device_ms": device_ms(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
             "plain_ms": time_ms(lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables)),
             "library_ms": time_ms(
                 lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True)),
@@ -268,21 +381,107 @@ def phase_bwd_kernel(seed: int) -> dict:
         row["bound_ms"], row["bound_by"] = _bwd_bound(B, H, N, D, rope)
         rows.append(row)
         log(f"[kernels] nat_attention_bwd B={B} H={H} N={N} D={D} rope={rope}: "
-            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
             f"SDPA backward {row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
             f"({row['bound_by']})")
     return {"nat_attention_bwd": {"worst_err": worst, "rows": rows}}
 
 
-def build_xl(seed: int):
-    cfg = Config(PRODUCTION)
+def _small_case(B: int, H: int, N: int, D: int, rope: bool, gen: torch.Generator):
+    """q, k fresh (B, N, H, D) tensors (the q/k norms' outputs) and v the
+    strided view qkv[:, :, 2] of a (B, N, 3, H, D) projection, bf16."""
+    q, k = (torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    qkv, tables = _attention_case(B, H, N, D, rope, gen)
+    return q, k, qkv[:, :, 2], tables
+
+
+def _rotated_bhnd(q, k, v, tables):
+    """SDPA's inputs: q, k rotated as the kernels rotate them, all (B, H, N, D)."""
+    if tables is not None:
+        cos, sin = (t[None, :, None].to(q.dtype) for t in tables)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+    return [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+
+
+def phase_small_kernels(seed: int) -> dict:
+    """The separate-q/k/v kernels (the qk-norm branch) at the sampling (B=16)
+    and training (B=32) shapes, with v a strided view of the projection."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    result = {}
+    for rope in (True, False):
+        name = "attn_small_fwd_rope" if rope else "attn_small_fwd"
+        B, H, N, D = 16, 16, 256, 72
+        q, k, v, tables = _small_case(B, H, N, D, rope, gen)
+        out = flash_attention(q, k, v, rope=tables)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, rope=tables)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= ATTN_TOL):
+            fail(f"{name} vs plain at {(B, H, N, D)}: max-abs {err} > {ATTN_TOL}")
+        qt, kt, vt = _rotated_bhnd(q, k, v, tables)
+        row = {
+            "shape": [B, H, N, D], "rope": rope, "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, rope=tables)),
+            "device_ms": device_ms(lambda: flash_attention(q, k, v, rope=tables)),
+            "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, rope=tables)),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+        }
+        row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
+        result[name] = {"worst_err": err, "rows": [row]}
+        log(f"[kernels] {name} B={B} H={H} N={N} D={D} (v strided): max-abs {err:.3e}, "
+            f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+
+    worst, rows = 0.0, []
+    for rope in (True, False):
+        B, H, N, D = 32, 16, 256, 72
+        q, k, v, tables = _small_case(B, H, N, D, rope, gen)
+        g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        got = flash_attention_bwd(q, k, v, g, rope=tables)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_reference(q, k, v, g, rope=tables)
+        abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                  for a, b in zip(got, ref))
+        if not (err <= BWD_TOL):
+            fail(f"attn_small_bwd vs plain at {(B, H, N, D, rope)}: max-rel {err} > {BWD_TOL}")
+        worst = max(worst, abs_err)
+        qt, kt, vt = (t.requires_grad_(True) for t in _rotated_bhnd(q, k, v, tables))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        gt = g.transpose(1, 2).contiguous()
+        row = {
+            "shape": [B, H, N, D], "rope": rope, "max_rel_err": err, "max_abs_err": abs_err,
+            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, g, rope=tables)),
+            "device_ms": device_ms(lambda: flash_attention_bwd(q, k, v, g, rope=tables)),
+            "plain_ms": time_ms(lambda: flash_attention_bwd_reference(q, k, v, g, rope=tables)),
+            "library_ms": time_ms(
+                lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)),
+        }
+        row["bound_ms"], row["bound_by"] = _bwd_bound(B, H, N, D, rope)
+        rows.append(row)
+        log(f"[kernels] attn_small_bwd B={B} H={H} N={N} D={D} rope={rope} (v strided): "
+            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, SDPA backward "
+            f"{row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    result["attn_small_bwd"] = {"worst_err": worst, "rows": rows}
+    return result
+
+
+def build_xl(seed: int, branch: str = "production"):
+    cfg = branch_config(branch)
     latent = cfg.data.image_size // cfg.vae.downsample_ratio
     model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda").eval()
     randomize_(model, seed)  # the JAX init's zero adaLN would make sampling integrate 0
     return cfg, model
 
 
-def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
+def phase_main_path(cfg: Config, model, seed: int, device_info: dict,
+                    branch: str = "production") -> dict:
     C = model.in_channels
     stats = (np.zeros((1, C, 1, 1), np.float32), np.ones((1, C, 1, 1), np.float32))
     vae = VA_VAE(embed_dim=32, img_size=cfg.data.image_size, seed=seed, device="cuda")
@@ -296,7 +495,7 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
     vae.decode_to_images(warm(labels, generator=gen))
     torch.cuda.synchronize()
 
-    fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     latents = generate(labels, generator=gen)
@@ -304,13 +503,12 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
     t1 = time.perf_counter()
     imgs = vae.decode_to_images(latents)
     t2 = time.perf_counter()
-    launches = fused_qkv_attention.launches
+    got = counts()
     peak = torch.cuda.max_memory_allocated()
 
+    fwd = BRANCHES[branch]["fwd"]
     want = model.depth * (cfg.sample.num_sampling_steps - 1)  # one forward per step
-    if (launches, fused_qkv_attention.bwd_launches) != (want, 0):
-        fail(f"attention kernels launched {launches} / {fused_qkv_attention.bwd_launches} times "
-             f"on the sampling path, expected {want} / 0 (forward / backward)")
+    expect_counts(got, {fwd: want}, f"{branch} sampling path")
     S = cfg.data.image_size
     if imgs.shape != (BATCH, S, S, 3) or imgs.dtype != np.uint8:
         fail(f"images {imgs.shape} {imgs.dtype}, expected ({BATCH}, {S}, {S}, 3) uint8")
@@ -320,38 +518,38 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict) -> dict:
     if latents.float().std().item() == 0.0 or len(np.unique(imgs)) < 16:
         fail("constant latents or images")
     result = {
-        "launches": launches, "sample_s": t1 - t0, "decode_s": t2 - t1,
+        "launches": got[fwd], "sample_s": t1 - t0, "decode_s": t2 - t1,
         "samples_per_s": BATCH / (t2 - t0), "peak_bytes": peak,
         "latent_std": latents.float().std().item(), "image_mean": float(imgs.mean()),
     }
-    log(f"[main] XL/1 euler-250 split-CFG batch {BATCH}: sampling {result['sample_s']:.3f} s, "
-        f"decode {result['decode_s']:.3f} s, {result['samples_per_s']:.4f} samples/s, "
-        f"peak {peak / 2**30:.2f} GiB, attention launches {launches} "
-        f"[{device_info['smi']}]")
+    log(f"[main] {branch} XL/1 euler-250 split-CFG batch {BATCH}: sampling "
+        f"{result['sample_s']:.3f} s, decode {result['decode_s']:.3f} s, "
+        f"{result['samples_per_s']:.4f} samples/s, peak {peak / 2**30:.2f} GiB, "
+        f"{fwd} launches {got[fwd]} [{device_info['smi']}]")
     return result
 
 
 @torch.no_grad()
-def phase_kernel_on_path(model, seed: int) -> dict:
+def phase_kernel_on_path(model, seed: int, branch: str = "production") -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     B = 2 * BATCH
     s = model.input_size
     x = torch.randn((B, s, s, model.in_channels), generator=gen, device="cuda")
     t = torch.rand((B,), generator=gen, device="cuda")
     y = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    reset_counts()
     with_kernel = model(x, t, y).float()
-    original = layers.fused_qkv_attention
-    layers.fused_qkv_attention = fused_qkv_attention_reference  # smoke-only switch
-    try:
+    torch.cuda.synchronize()
+    expect_counts(counts(), {BRANCHES[branch]["fwd"]: model.depth}, f"{branch} XL/1 forward")
+    with plain_attention(branch):
         plain = model(x, t, y).float()
-    finally:
-        layers.fused_qkv_attention = original
     rel = ((with_kernel - plain).norm() / plain.norm()).item()
     rel_max = ((with_kernel - plain).abs().max() / plain.abs().max()).item()
     if not (rel <= PATH_TOL):
-        fail(f"XL/1 forward with the kernel vs plain attention: relative error {rel} > {PATH_TOL}")
-    log(f"[path] XL/1 forward B={B}, kernel vs plain attention: relative error {rel:.3e} "
-        f"(max {rel_max:.3e})")
+        fail(f"{branch} XL/1 forward with the kernel vs plain attention: relative error {rel} "
+             f"> {PATH_TOL}")
+    log(f"[path] {branch} XL/1 forward B={B} depth {model.depth}, kernel vs plain attention: "
+        f"relative error {rel:.3e} (max {rel_max:.3e})")
     return {"rel_err": rel, "rel_max_err": rel_max}
 
 
@@ -362,7 +560,7 @@ def _training_loss(model, transport, x, y, t, x0, drop):
     return terms["loss"].mean() + terms["cos_loss"].mean()
 
 
-def phase_train_path(cfg: Config, model, seed: int) -> dict:
+def phase_train_path(cfg: Config, model, seed: int, branch: str = "production") -> dict:
     """XL/1 gradients of the training loss with both kernels against those
     with attention forced through the plain version (autograd of it)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -374,39 +572,46 @@ def phase_train_path(cfg: Config, model, seed: int) -> dict:
     x0 = torch.randn((B, s, s, C), generator=gen, device="cuda")
     drop = (torch.rand((B,), generator=gen, device="cuda") < 0.1).long()
     names, params = zip(*model.named_parameters())
+    groups = BRANCHES[branch]["groups"]
 
     def grads():
         g = torch.autograd.grad(_training_loss(model, transport, x, y, t, x0, drop), params)
         flat = torch.cat([v.float().flatten() for v in g])
-        qkv = torch.cat([v.float().flatten() for n, v in zip(names, g) if ".attn.qkv." in n])
-        return flat, qkv
+        parts = {key: torch.cat([v.float().flatten() for n, v in zip(names, g)
+                                 if any(m in n for m in marks)])
+                 for key, marks in groups.items()}
+        return flat, parts
 
-    fwd, bwd = fused_qkv_attention.launches, fused_qkv_attention.bwd_launches
-    with_kernel, qkv_kernel = grads()
+    fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
+    reset_counts()
+    with_kernel, parts_kernel = grads()
     torch.cuda.synchronize()
-    fwd, bwd = fused_qkv_attention.launches - fwd, fused_qkv_attention.bwd_launches - bwd
-    if (fwd, bwd) != (2 * model.depth, model.depth):
-        fail(f"XL/1 training backward launched the kernels {fwd} / {bwd} times, "
-             f"expected {2 * model.depth} / {model.depth}")
-    original = layers.fused_qkv_attention
-    layers.fused_qkv_attention = fused_qkv_attention_reference  # smoke-only switch
-    try:
-        plain, qkv_plain = grads()
-    finally:
-        layers.fused_qkv_attention = original
+    launches = counts()
+    # remat "dots" runs the forward kernel again in the backward
+    expect_counts(launches, {fwd: 2 * model.depth, bwd: model.depth},
+                  f"{branch} XL/1 training backward")
+    with plain_attention(branch):
+        plain, parts_plain = grads()
     rel = ((with_kernel - plain).norm() / plain.norm()).item()
-    rel_qkv = ((qkv_kernel - qkv_plain).norm() / qkv_plain.norm()).item()
-    if not (rel <= PATH_TOL and rel_qkv <= PATH_TOL):
-        fail(f"XL/1 gradients with the kernels vs plain attention: relative error {rel}, "
-             f"attn.qkv {rel_qkv} (limit {PATH_TOL})")
-    log(f"[train-path] XL/1 loss gradients B={B}, kernels vs plain attention: relative error "
-        f"{rel:.3e}, attn.qkv {rel_qkv:.3e}")
-    return {"rel_err": rel, "rel_err_qkv": rel_qkv}
+    rel_parts = {key: ((parts_kernel[key] - parts_plain[key]).norm()
+                       / parts_plain[key].norm()).item() for key in groups}
+    if not (rel <= PATH_TOL and all(r <= PATH_TOL for r in rel_parts.values())):
+        fail(f"{branch} XL/1 gradients with the kernels vs plain attention: relative error "
+             f"{rel}, {rel_parts} (limit {PATH_TOL})")
+    qkv_part = f", attn.qkv {rel_parts['attn.qkv']:.3e}" if "attn.qkv" in rel_parts else ""
+    log(f"[train-path] {branch} XL/1 loss gradients B={B} depth {model.depth}, kernels vs "
+        f"plain attention: relative error {rel:.3e}{qkv_part}")
+    for key, r in rel_parts.items():
+        if key != "attn.qkv":
+            log(f"[train-path] {branch} XL/1 {key} gradients, kernels vs plain attention: "
+                f"relative error {r:.3e}")
+    return {"rel_err": rel, **{f"rel_err_{key}": r for key, r in rel_parts.items()},
+            "launches": [launches[fwd], launches[bwd]]}
 
 
-def phase_train_steps(seed: int, device_info: dict) -> dict:
+def phase_train_steps(seed: int, device_info: dict, branch: str = "production") -> dict:
     """The training path: XL/1 from the JAX init through DiTTrainer.train_step."""
-    cfg = Config(PRODUCTION)
+    cfg = branch_config(branch)
     latent = cfg.data.image_size // cfg.vae.downsample_ratio
     model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
     trainer = build_trainer(cfg, model, steps_per_epoch=1, max_steps=cfg.train.max_steps)
@@ -419,26 +624,27 @@ def phase_train_steps(seed: int, device_info: dict) -> dict:
     watch = [i for i, n in enumerate(state.names) if "adaLN" in n or "final_layer" in n]
     before = [state.params[i].detach().clone() for i in watch]
     ema_before = [state.ema_params[i].clone() for i in watch]
+    fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
 
-    fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     per_step, losses = [], []
     for i, batch in enumerate(batches):
         if i == TRAIN_WARMUP:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        counts = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+        c0 = counts()
         losses.append(trainer.train_step(state, batch)["loss"])
-        per_step.append((fused_qkv_attention.launches - counts[0],
-                         fused_qkv_attention.bwd_launches - counts[1]))
+        c1 = counts()
+        per_step.append({k: c1[k] - c0[k] for k in c1})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
 
-    want = (2 * model.depth, model.depth)  # remat "dots" runs the forward kernel again
-    if any(c != want for c in per_step):
-        fail(f"kernel launches per train step {per_step}, expected {want} (forward, backward)")
+    want = {fwd: 2 * model.depth, bwd: model.depth}  # remat "dots" runs the forward again
+    for i, got in enumerate(per_step):
+        expect_counts(got, want, f"{branch} train step {i}")
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all():
         fail(f"non-finite training loss {losses.tolist()}")
@@ -449,20 +655,21 @@ def phase_train_steps(seed: int, device_info: dict) -> dict:
     result = {
         "batch": TRAIN_BATCH, "timed_steps": TRAIN_TIMED,
         "ms_per_step": seconds / TRAIN_TIMED * 1e3, "img_per_s": TRAIN_BATCH * TRAIN_TIMED / seconds,
-        "peak_bytes": peak, "fwd_launches": launches[0], "bwd_launches": launches[1],
-        "launches_per_step": list(want), "losses": losses.tolist(),
+        "peak_bytes": peak, "fwd_launches": launches[fwd], "bwd_launches": launches[bwd],
+        "launches_per_step": [want[fwd], want[bwd]], "losses": losses.tolist(),
     }
-    log(f"[train] XL/1 train_step batch {TRAIN_BATCH} (remat dots, AdamW, fp32 EMA): "
+    log(f"[train] {branch} XL/1 train_step batch {TRAIN_BATCH} (remat dots, AdamW, fp32 EMA): "
         f"{result['ms_per_step']:.2f} ms/step, {result['img_per_s']:.2f} img/s, "
-        f"peak {peak / 2**30:.2f} GiB, launches per step {want[0]} forward / {want[1]} "
-        f"backward, loss {losses[0]:.4f} → {losses[-1]:.4f} [{device_info['smi']}]")
+        f"peak {peak / 2**30:.2f} GiB, launches per step {want[fwd]} {fwd} / {want[bwd]} "
+        f"{bwd}, loss {losses[0]:.4f} → {losses[-1]:.4f} [{device_info['smi']}]")
     return result
 
 
-def phase_entry_point(seed: int) -> dict:
+def phase_entry_point(seed: int, branch: str = "production") -> dict:
     """do_train on synthetic f16d32 latent shards, then a resumed run."""
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    saved = dict(dit._VARIANTS["XL"])
+    fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
+    depth = 2
     try:
         rs = np.random.default_rng(seed)
         data = os.path.join(work, "latents")
@@ -471,32 +678,64 @@ def phase_entry_point(seed: int) -> dict:
             write_safetensors(os.path.join(data, f"shard_{i:03d}.safetensors"), {
                 "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
                 "labels": rs.integers(0, 1000, (24,)).astype(np.int32)})
-        cfg = Config(PRODUCTION).merged_with({
+        cfg = branch_config(branch).merged_with({
             "data": {"data_path": data},
             "train": {"max_steps": 4, "global_batch_size": 8, "ckpt_every": 2, "log_every": 2,
                       "output_dir": os.path.join(work, "out"), "exp_name": "smoke"}})
-        depth = 2
-        dit._VARIANTS["XL"] = dict(saved, depth=depth)  # smoke-only: an XL/1-width DiT, depth 2
-        fused_qkv_attention.launches = fused_qkv_attention.bwd_launches = 0
-        t0 = time.perf_counter()
-        first = do_train(cfg, device="cuda")
-        resumed = do_train(cfg.merged_with({"train": {"max_steps": 6}}), device="cuda")
-        seconds = time.perf_counter() - t0
-        launches = (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches)
+        with xl_depth(depth):  # an XL/1-width DiT, depth 2
+            reset_counts()
+            t0 = time.perf_counter()
+            first = do_train(cfg, device="cuda")
+            resumed = do_train(cfg.merged_with({"train": {"max_steps": 6}}), device="cuda")
+            seconds = time.perf_counter() - t0
+        got = counts()
         ckpts = sorted(os.listdir(os.path.join(work, "out", "smoke", "checkpoints")))
         want = ["0000002.safetensors", "0000004.safetensors", "0000006.safetensors", "config.json"]
         if first.step != 4 or resumed.step != 6 or ckpts != want:
             fail(f"do_train reached steps {first.step}, {resumed.step} with checkpoints {ckpts}")
-        if launches != (6 * 2 * depth, 6 * depth):  # 6 steps, remat "dots"
-            fail(f"do_train launched the kernels {launches[0]} / {launches[1]} times, expected "
-                 f"{6 * 2 * depth} / {6 * depth} (forward / backward)")
+        # 6 steps, remat "dots"
+        expect_counts(got, {fwd: 6 * 2 * depth, bwd: 6 * depth}, f"{branch} do_train")
     finally:
-        dit._VARIANTS["XL"] = saved
         shutil.rmtree(work, ignore_errors=True)
-    log(f"[entry] do_train XL/1-width depth 2: 4 steps, resumed to 6, checkpoints {ckpts[:-1]}, "
-        f"kernel launches {launches[0]} forward / {launches[1]} backward, {seconds:.1f} s")
+    log(f"[entry] {branch} do_train XL/1-width depth 2: 4 steps, resumed to 6, checkpoints "
+        f"{ckpts[:-1]}, kernel launches {got[fwd]} {fwd} / {got[bwd]} {bwd}, {seconds:.1f} s")
     return {"steps": [first.step, resumed.step], "checkpoints": ckpts, "seconds": seconds,
-            "launches": list(launches)}
+            "launches": [got[fwd], got[bwd]]}
+
+
+def run_paths(branch: str, device: dict) -> dict:
+    """Phases 4-8 (or 9-13) on one attention branch."""
+    cfg, model = build_xl(SEED, branch)
+    out = {"main_path": phase_main_path(cfg, model, SEED, device, branch),
+           "kernel_on_path": phase_kernel_on_path(model, SEED, branch),
+           "train_path": phase_train_path(cfg, model, SEED, branch)}
+    del model
+    torch.cuda.empty_cache()
+    out["train_steps"] = phase_train_steps(SEED, device, branch)
+    out["entry_point"] = phase_entry_point(SEED, branch)
+    return out
+
+
+def phase_no_rope(seed: int) -> dict:
+    """Phase 14: the forward kernel without RoPE, on an XL/1-width qk-norm
+    model at depth NO_ROPE_DEPTH, forward and loss gradients."""
+    branch = "qknorm_no_rope"
+    with xl_depth(NO_ROPE_DEPTH):
+        cfg, model = build_xl(seed, branch)
+    on_path = phase_kernel_on_path(model, seed, branch)
+    train_path = phase_train_path(cfg, model, seed, branch)
+    del model
+    torch.cuda.empty_cache()
+    return {"kernel_on_path": on_path, "train_path": train_path}
+
+
+def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
+    row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward)
+    return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
+            "replaces": f"vavae_tpu/ops/pallas/flash_attention.py:{replaces}",
+            "launches": launches, "max_abs_err": summary["worst_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def main(argv=None) -> int:
@@ -513,48 +752,27 @@ def main(argv=None) -> int:
     builds = phase_build()
     kernels = phase_kernels(SEED)
     kernels.update(phase_bwd_kernel(SEED))
-    cfg, model = build_xl(SEED)
-    main_path = phase_main_path(cfg, model, SEED, device)
-    on_path = phase_kernel_on_path(model, SEED)
-    train_path = phase_train_path(cfg, model, SEED)
-    del model
-    torch.cuda.empty_cache()
-    train = phase_train_steps(SEED, device)
-    entry = phase_entry_point(SEED)
+    kernels.update(phase_small_kernels(SEED))
+    production = run_paths("production", device)
+    qknorm = run_paths("qknorm", device)
+    no_rope = phase_no_rope(SEED)
 
-    nat, bwd = kernels["nat_attention_fwd"], kernels["nat_attention_bwd"]
-    fwd_row = nat["rows"][0]  # (16, 16, 256, 72) with RoPE: the CFG-phase shape
-    bwd_row = bwd["rows"][0]  # (32, 16, 256, 72) with RoPE: the training shape
-    line = {"kernels": [{
-        "name": "nat_attention_fwd",
-        "route": "cuda",
-        "source": "vavae_tpu_torch/ops/csrc/nat_attention_fwd.cu",
-        "replaces": "vavae_tpu/ops/pallas/flash_attention.py:215",
-        "launches": main_path["launches"],
-        "max_abs_err": nat["worst_err"],
-        "ms": fwd_row["ms"],
-        "plain_ms": fwd_row["plain_ms"],
-        "bound_ms": fwd_row["bound_ms"],
-        "bound_by": fwd_row["bound_by"],
-        "library_ms": fwd_row["library_ms"],
-    }, {
-        "name": "nat_attention_bwd",
-        "route": "cuda",
-        "source": "vavae_tpu_torch/ops/csrc/nat_attention_bwd.cu",
-        "replaces": "vavae_tpu/ops/pallas/flash_attention.py:240",
-        "launches": train["bwd_launches"],
-        "max_abs_err": bwd["worst_err"],
-        "ms": bwd_row["ms"],
-        "plain_ms": bwd_row["plain_ms"],
-        "bound_ms": bwd_row["bound_ms"],
-        "bound_by": bwd_row["bound_by"],
-        "library_ms": bwd_row["library_ms"],
-    }]}
+    line = {"kernels": [
+        _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
+                      production["main_path"]["launches"], kernels["nat_attention_fwd"]),
+        _kernel_entry("nat_attention_bwd", "nat_attention_bwd.cu", "240",
+                      production["train_steps"]["bwd_launches"], kernels["nat_attention_bwd"]),
+        _kernel_entry("attn_small_fwd_rope", "attn_small_fwd.cu", "68",
+                      qknorm["main_path"]["launches"], kernels["attn_small_fwd_rope"]),
+        _kernel_entry("attn_small_fwd", "attn_small_fwd.cu", "49",
+                      no_rope["train_path"]["launches"][0], kernels["attn_small_fwd"]),
+        _kernel_entry("attn_small_bwd", "attn_small_bwd.cu", "94",
+                      qknorm["train_steps"]["bwd_launches"], kernels["attn_small_bwd"]),
+    ]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": device, "build_s": builds, "kernels": kernels,
-                       "main_path": main_path, "kernel_on_path": on_path,
-                       "train_path": train_path, "train_steps": train, "entry_point": entry},
+                       "production": production, "qknorm": qknorm, "no_rope": no_rope},
                       f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,10 @@ import torch
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops import build
 from vavae_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
     fused_qkv_attention,
     fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_reference,
@@ -138,3 +142,131 @@ def test_bwd_kernel_refuses_cpu_tensors():
     x = torch.zeros((1, 8, 3, 2, 8))
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         fused_qkv_attention_bwd(x, torch.zeros((1, 8, 2, 8)))
+
+
+# -- separate q, k, v (the qk-norm branch): attn_small_fwd.cu, attn_small_bwd.cu --
+
+
+def _flash_case(B, H, N, D, rope, dtype, seed=0, offset=0, device="cuda"):
+    """q, k contiguous, v the strided view qkv[:, :, 2] of a (B, N, 3, H, D)
+    tensor starting ``offset`` elements into its buffer (as on the qk-norm
+    path, where v is read in place), the output gradient and the tables."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, g = (torch.randn((B, N, H, D), generator=gen).to(dtype).to(device) for _ in range(3))
+    buf = torch.randn(offset + B * N * 3 * H * D, generator=gen).to(dtype).to(device)
+    v = buf[offset:].view(B, N, 3, H, D)[:, :, 2]
+    tables = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    return q, k, v, g, (tables[0][:N], tables[1][:N]) if rope else None
+
+
+def _flash_counts():
+    return (flash_attention.rope_launches, flash_attention.launches, flash_attention.bwd_launches)
+
+
+def test_flash_no_fallback_off_the_cpu():
+    """A tensor on neither the CPU nor CUDA raises: the plain version is
+    taken only for CPU tensors."""
+    x = torch.empty((1, 8, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no attention path"):
+        flash_attention(x, x, x)
+
+
+def test_flash_bwd_kernel_refuses_cpu_tensors():
+    q, k, v, g, _ = _flash_case(1, 2, 8, 8, False, torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        flash_attention_bwd(q, k, v, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,N,D", [(16, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8)])
+@pytest.mark.parametrize("rope", [True, False])
+def test_cuda_flash_kernel_matches_plain_version(B, H, N, D, rope, dtype):
+    # bf16: 2e-2 max-abs, the TPU kernel's tolerance; fp32: summation order only
+    _cuda_or_skip()
+    q, k, v, _, tables = _flash_case(B, H, N, D, rope, dtype)
+    before = _flash_counts()
+    got = flash_attention(q, k, v, rope=tables)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + rope, before[1] + (not rope), before[2])
+    want = flash_attention_reference(q, k, v, rope=tables)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8)])
+@pytest.mark.parametrize("rope", [True, False])
+def test_cuda_flash_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
+    # max|err| / max|ref| of each of dq, dk, dv: bf16 3e-2, the TPU backward
+    # kernel's tolerance (tests/test_ops.py:188-190); fp32 1e-4
+    _cuda_or_skip()
+    q, k, v, g, tables = _flash_case(B, H, N, D, rope, dtype, seed=2)
+    before = flash_attention.bwd_launches
+    got = flash_attention_bwd(q, k, v, g, rope=tables)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 1
+    want = flash_attention_bwd_reference(q, k, v, g, rope=tables)
+    for a, b in zip(got, want):
+        assert _max_rel(a, b) <= (3e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_kernels_misaligned_v():
+    """A bf16 v whose rows are not 16-byte aligned takes the kernels'
+    scalar loads, with the same results."""
+    _cuda_or_skip()
+    q, k, v, g, tables = _flash_case(2, 3, 70, 72, True, torch.bfloat16, seed=3, offset=1)
+    assert v.data_ptr() % 16 != 0
+    got = flash_attention(q, k, v, rope=tables)
+    want = flash_attention_reference(q, k, v, rope=tables)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    for a, b in zip(flash_attention_bwd(q, k, v, g, rope=tables),
+                    flash_attention_bwd_reference(q, k, v, g, rope=tables)):
+        assert _max_rel(a, b) <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_autograd_runs_both_kernels(dtype, rope):
+    """loss.backward() through flash_attention on the card leaves on q, k and
+    the tensor v is a view of the gradients of the plain version's autograd,
+    launching each kernel once."""
+    _cuda_or_skip()
+    q, k, _, g, tables = _flash_case(4, 16, 256, 72, rope, dtype, seed=4)
+    qkv = torch.randn((4, 256, 3, 16, 72), generator=torch.Generator().manual_seed(5))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, qkv.to(dtype).cuda())]
+    before = _flash_counts()
+    out = flash_attention(leaves[0], leaves[1], leaves[2][:, :, 2], rope=tables)
+    assert out.grad_fn is not None
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + rope, before[1] + (not rope), before[2] + 1)
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref = flash_attention_reference(plain[0], plain[1], plain[2][:, :, 2], rope=tables)
+    (ref.float() * g.float()).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _max_rel(a.grad, b.grad) <= (3e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_kernels_reject_unsupported_inputs():
+    _cuda_or_skip()
+    z = lambda *shape, **kw: torch.zeros(shape, device="cuda", **kw)  # noqa: E731
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(z(1, 8, 2, 7), z(1, 8, 2, 7), z(1, 8, 2, 7))
+    wide = z(1, 8, 2, 136, requires_grad=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(wide, wide, wide)  # D > 128 has a forward kernel but no backward one
+    half = z(1, 8, 2, 8, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(half, half, half)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(z(1, 8, 2, 8), z(1, 8, 2, 8), z(1, 8, 2, 8, dtype=torch.bfloat16))
+    strided = z(1, 8, 2, 16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_attention(strided, strided, strided)
+    with pytest.raises(ValueError, match="gradient must be"):
+        flash_attention_bwd(z(1, 8, 2, 8), z(1, 8, 2, 8), z(1, 8, 2, 8), z(1, 8, 2, 4))

@@ -1,14 +1,17 @@
 """The CUDA attention kernels' own sources, run on the CPU.
 
-There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu`` and
-``nat_attention_bwd.cu`` are compiled as host C++ against a small emulation of the CUDA features it uses
+There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu``,
+``nat_attention_bwd.cu``, ``attn_small_fwd.cu`` and ``attn_small_bwd.cu`` (with
+the ``.cuh`` headers they include inlined) are compiled as host C++ against a
+small emulation of the CUDA features they use
 (below): one std::thread per CUDA thread, std::barrier for
 ``__syncthreads``, ``__syncwarp`` and the shuffles, and ``mma.sync`` /
 ``ldmatrix`` evaluated per warp from the documented fragment layouts.
 Shared memory starts as NaN, so a read of an element the kernel never
 wrote shows up in the output. The kernels then run blocks one after the
-other on small shapes and are held against ``fused_qkv_attention_reference``
-and ``fused_qkv_attention_bwd_reference``.
+other on small shapes and are held against their plain versions
+(``fused_qkv_attention_reference``, ``fused_qkv_attention_bwd_reference``,
+``flash_attention_reference``, ``flash_attention_bwd_reference``).
 
 This checks the kernels' indexing, masking, online softmax and fragment
 bookkeeping; whether it compiles for sm_90a and how fast it runs only the
@@ -26,6 +29,9 @@ import torch
 
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops.flash_attention import (
+    _strides,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
     fold_sin,
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
@@ -34,6 +40,8 @@ from vavae_tpu_torch.ops.flash_attention import (
 CSRC = Path(__file__).resolve().parents[1] / "vavae_tpu_torch/ops/csrc"
 SOURCE = CSRC / "nat_attention_fwd.cu"
 BWD_SOURCE = CSRC / "nat_attention_bwd.cu"
+SMALL_SOURCE = CSRC / "attn_small_fwd.cu"
+SMALL_BWD_SOURCE = CSRC / "attn_small_bwd.cu"
 
 EMULATION = r"""#include <barrier>
 #include <cmath>
@@ -138,6 +146,21 @@ inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat1
 """
 
 
+def expand_includes(path: Path, seen=None) -> str:
+    """The source with each ``#include "header"`` replaced by the header's
+    own expanded text, once per header (its include guard)."""
+    seen = set() if seen is None else seen
+
+    def inline(m):
+        header = path.parent / m.group(1)
+        if header in seen:
+            return ""
+        seen.add(header)
+        return expand_includes(header, seen)
+
+    return re.sub(r'^#include "([^"]+)"$', inline, path.read_text(), flags=re.M)
+
+
 def _host_source(src: str, launches: int = 2) -> str:
     """The kernel source with shared memory, the two inline-PTX helpers and
     its ``launches`` ``<<<...>>>`` launches routed to the emulation."""
@@ -188,7 +211,7 @@ def bwd_function(lib: ctypes.CDLL):
 
 @pytest.fixture(scope="module")
 def kernel(tmp_path_factory):
-    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), SOURCE.read_text(), 2).nat_attention_fwd
+    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), expand_includes(SOURCE), 2).nat_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -196,7 +219,7 @@ def kernel(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def bwd_kernel(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), BWD_SOURCE.read_text(), 4)
+    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), expand_includes(BWD_SOURCE), 4)
     return bwd_function(lib)
 
 
@@ -330,9 +353,150 @@ MUTATIONS = {
 @pytest.mark.parametrize("name", list(MUTATIONS))
 def test_bwd_emulation_catches_mutations(tmp_path, name):
     old, new = MUTATIONS[name]
-    source = BWD_SOURCE.read_text()
+    source = expand_includes(BWD_SOURCE)
     assert source.count(old) >= 1, name
     fn = bwd_function(build_host_library(tmp_path, source.replace(old, new), 4))
     qkv, g, tables = bwd_case(1, 64, 1, 72, True, torch.bfloat16)
     got = run_bwd(fn, qkv, g, tables)
     assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) > 3e-2
+
+
+# -- separate q, k, v: attn_small_fwd.cu and attn_small_bwd.cu ---------------------
+
+
+@pytest.fixture(scope="module")
+def small_kernel(tmp_path_factory):
+    lib = build_host_library(tmp_path_factory.mktemp("small_emu"), expand_includes(SMALL_SOURCE), 2)
+    fn = lib.attn_small_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def small_bwd_function(lib: ctypes.CDLL):
+    fn = lib.attn_small_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def small_bwd_kernel(tmp_path_factory):
+    src = expand_includes(SMALL_BWD_SOURCE)
+    return small_bwd_function(build_host_library(tmp_path_factory.mktemp("small_bwd_emu"), src, 4))
+
+
+def _table_ptrs(rope):
+    if rope is None:
+        return None, None, ()
+    cos, sinf = fold_sin(rope)
+    return cos.data_ptr(), sinf.data_ptr(), (cos, sinf)
+
+
+def run_small(kernel, q, k, v, rope):
+    B, N, H, D = q.shape
+    out = torch.full((B, N, H, D), float("nan"), dtype=q.dtype)
+    cos, sinf, keep = _table_ptrs(rope)
+    strides = _strides(q, k, v)
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos, sinf, out.data_ptr(),
+                 ctypes.addressof(strides), B, N, H, D, int(rope is not None), code, None)
+    assert err == 0
+    return out
+
+
+def run_small_bwd(kernel, q, k, v, g, rope):
+    B, N, H, D = q.shape
+    grads = [torch.full((B, N, H, D), float("nan"), dtype=q.dtype) for _ in range(3)]
+    stats = torch.empty((3, B, H, N), dtype=torch.float32)
+    cos, sinf, keep = _table_ptrs(rope)
+    strides = _strides(q, k, v, g)
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos, sinf,
+                 *(t.data_ptr() for t in grads), stats.data_ptr(), ctypes.addressof(strides),
+                 B, N, H, D, int(rope is not None), code, None)
+    assert err == 0
+    return grads
+
+
+def small_case(B, N, H, D, rope, dtype, seed=0, offset=0):
+    """q, k fresh (B, N, H, D) tensors (the q/k norms' outputs), v the strided
+    view qkv[:, :, 2] of a (B, N, 3, H, D) tensor that starts ``offset``
+    elements into its buffer; g and the tables."""
+    gen = torch.Generator().manual_seed(seed + N)
+    q, k, g = (torch.randn((B, N, H, D), generator=gen).to(dtype) for _ in range(3))
+    buf = torch.randn(offset + B * N * 3 * H * D, generator=gen).to(dtype)
+    v = buf[offset:].view(B, N, 3, H, D)[:, :, 2]
+    return q, k, v, g, _tables(N, D) if rope else None
+
+
+SMALL_CASES = [
+    (2, 64, 2, 72, True),    # the XL head dim, one full tile
+    (1, 100, 3, 64, False),  # ragged key tiles, odd H, no RoPE
+    (1, 130, 1, 8, True),    # three query tiles, a tiny head dim
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D,rope", SMALL_CASES)
+def test_small_kernel_source_matches_plain_version(small_kernel, B, N, H, D, rope, dtype):
+    # as test_kernel_source_matches_plain_version: fp32 1e-5, bf16 2e-2 max-abs
+    q, k, v, _, tables = small_case(B, N, H, D, rope, dtype)
+    assert not v.is_contiguous()
+    got = run_small(small_kernel, q, k, v, tables)
+    want = flash_attention_reference(q, k, v, tables)
+    assert not torch.isnan(got.float()).any()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_small_kernel_source_misaligned_input(small_kernel):
+    """A strided bf16 v whose rows are not 16-byte aligned takes the
+    scalar-load path."""
+    q, k, v, _, tables = small_case(1, 70, 2, 72, True, torch.bfloat16, offset=1)
+    assert v.data_ptr() % 16 != 0
+    got = run_small(small_kernel, q, k, v, tables)
+    want = flash_attention_reference(q, k, v, tables)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def _small_bwd_error(got, want) -> float:
+    return max(bwd_error(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D,rope", [
+    (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
+    (1, 100, 2, 8, True),    # ragged query and key tiles
+    (2, 70, 1, 72, False),   # no RoPE: no tables are passed
+])
+def test_small_bwd_kernel_source_matches_plain_version(small_bwd_kernel, B, N, H, D, rope, dtype):
+    # fp32 1e-5 max-abs; bf16 3e-2 of max|ref| for each of dq, dk, dv
+    q, k, v, g, tables = small_case(B, N, H, D, rope, dtype, seed=5)
+    got = run_small_bwd(small_bwd_kernel, q, k, v, g, tables)
+    want = flash_attention_bwd_reference(q, k, v, g, tables)
+    assert not any(torch.isnan(t.float()).any() for t in got)
+    if dtype == torch.float32:
+        assert max((a - b).abs().max().item() for a, b in zip(got, want)) <= 1e-5
+    else:
+        assert _small_bwd_error(got, want) <= 3e-2
+
+
+def test_small_bwd_kernel_source_misaligned_input(small_bwd_kernel):
+    q, k, v, g, tables = small_case(1, 70, 1, 72, True, torch.bfloat16, seed=6, offset=3)
+    assert v.data_ptr() % 16 != 0
+    got = run_small_bwd(small_bwd_kernel, q, k, v, g, tables)
+    assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) <= 3e-2
+
+
+@pytest.mark.parametrize("name", list(MUTATIONS))
+def test_small_bwd_emulation_catches_mutations(tmp_path, name):
+    """The same two faults in attn_small_bwd.cu (through the body it shares
+    with nat_attention_bwd.cu) must fail the check above."""
+    old, new = MUTATIONS[name]
+    source = expand_includes(SMALL_BWD_SOURCE)
+    assert source.count(old) >= 1, name
+    fn = small_bwd_function(build_host_library(tmp_path, source.replace(old, new), 4))
+    q, k, v, g, tables = small_case(1, 64, 1, 72, True, torch.bfloat16, seed=5)
+    got = run_small_bwd(fn, q, k, v, g, tables)
+    assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) > 3e-2

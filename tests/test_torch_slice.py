@@ -1,6 +1,7 @@
 """The whole first slice on the CPU: tiny DiT → split-CFG euler sampling →
 un-normalisation → tiny VA-VAE decode to uint8, through the port and
-through the JAX package's own ``build_sample_fn`` and ``VA_VAE``.
+through the JAX package's own ``build_sample_fn`` and ``VA_VAE``; once with
+the production block and once with qk-norm.
 
 The JAX sampler draws its noise inside ``generate``; the test draws the
 same noise from the same key split and hands it to the port's
@@ -26,13 +27,13 @@ CFG = {
 }
 
 
-def test_slice_sampling_and_decode_match_jax(tmp_path):
+def _check_slice(tmp_path, **dit_kw):
     from vavae_tpu.pipelines.sample import build_sample_fn as jax_build_sample_fn
     from vavae_tpu.utils.config import Config as JaxConfig
     from vavae_tpu_torch.pipelines.sample import build_sample_fn
     from vavae_tpu_torch.utils.config import Config
 
-    jm, params, tm = tiny_dit_pair(seed=6, patch_size=2)
+    jm, params, tm = tiny_dit_pair(seed=6, patch_size=2, **dit_kw)
     jv, tv = tiny_vae_pair(tmp_path, seed=7)
     rs = np.random.default_rng(8)
     stats = (rs.standard_normal((1, 4, 1, 1)).astype(np.float32),
@@ -54,6 +55,16 @@ def test_slice_sampling_and_decode_match_jax(tmp_path):
     got_img = tv.decode_to_images(got)
     assert got_img.dtype == np.uint8 and got_img.shape == (3, 16, 16, 3)
     assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
+
+
+def test_slice_sampling_and_decode_match_jax(tmp_path):
+    _check_slice(tmp_path)
+
+
+def test_slice_qknorm_sampling_and_decode_match_jax(tmp_path):
+    """The same with RMSNorm q/k norms: attention goes through the port's
+    ``dot_product_attention`` (on the card, ``flash_attention``)."""
+    _check_slice(tmp_path, use_qknorm=True)
 
 
 def test_demo_sampling_writes_grid(tmp_path, monkeypatch):

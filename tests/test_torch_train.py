@@ -282,10 +282,16 @@ def _frob_rel(got: list, want: list) -> float:
     return float(np.linalg.norm(g - w) / np.linalg.norm(w))
 
 
-@pytest.mark.parametrize("remat", [None, "nothing", "dots"])
-def test_dit_loss_gradients_match_jax_grad(remat, monkeypatch):
+# remat policy × attention branch; the fused-qkv cases keep their old ids
+REMAT_CASES = [pytest.param(remat, qknorm, id=("qknorm-" if qknorm else "") + str(remat))
+               for qknorm in (False, True) for remat in (None, "nothing", "dots")]
+
+
+@pytest.mark.parametrize("remat,qknorm", REMAT_CASES)
+def test_dit_loss_gradients_match_jax_grad(remat, qknorm, monkeypatch):
     """Gradients of the training loss of the tiny DiT (head dim 72, RoPE,
-    SwiGLU, RMSNorm) against jax.grad of the JAX trainer's loss, through the
+    SwiGLU, RMSNorm; with qknorm, RMSNorm q/k norms and the separate-q/k/v
+    attention op) against jax.grad of the JAX trainer's loss, through the
     weight bridge; the port with remat off, "nothing" and "dots". Every
     gradient tensor to 1e-4 of its largest element (fp32 summation order).
     With remat, the attention op runs again in the backward."""
@@ -293,7 +299,7 @@ def test_dit_loss_gradients_match_jax_grad(remat, monkeypatch):
     from vavae_tpu_torch.models import layers
     from vavae_tpu_torch.utils.weights import dit_state_from_jax
 
-    jm, params, tm = tiny_dit_pair(seed=3, class_dropout_prob=0.0)
+    jm, params, tm = tiny_dit_pair(seed=3, class_dropout_prob=0.0, use_qknorm=qknorm)
     if remat:
         tm.use_checkpoint, tm.checkpoint_policy = True, remat
     kw = dict(use_lognorm=True, use_cosine_loss=True)
@@ -306,9 +312,9 @@ def test_dit_loss_gradients_match_jax_grad(remat, monkeypatch):
     want = dit_state_from_jax(jgrads)
 
     calls = []
-    original = layers.fused_qkv_attention
-    monkeypatch.setattr(layers, "fused_qkv_attention",
-                        lambda *a, **k: calls.append(1) or original(*a, **k))
+    op = "dot_product_attention" if qknorm else "fused_qkv_attention"
+    original = getattr(layers, op)
+    monkeypatch.setattr(layers, op, lambda *a, **k: calls.append(1) or original(*a, **k))
     t, x0 = _jax_draws(jtr, rng, x.shape)
     terms = create_transport(**kw).losses_at(
         lambda xt, tt: tm(xt, tt, torch.from_numpy(y).long(), train=True),
@@ -321,18 +327,19 @@ def test_dit_loss_gradients_match_jax_grad(remat, monkeypatch):
         assert max_rel(g.numpy(), want[name].numpy()) < 1e-4, name
 
 
-@pytest.mark.parametrize("remat", [None, "nothing", "dots"])
-def test_kernel_autograd_function_under_remat(remat, monkeypatch):
-    """The CUDA path's wiring, run on the CPU: ``_FusedQKVAttention`` with
-    its two launchers stood in by the plain versions, inside the DiT under
-    each remat policy. The gradients equal those of plain autograd (fp32,
-    1e-5 of each tensor's largest element), the backward runs once per
-    block, and the forward once more per block under remat: "dots" saves
-    only matmul outputs, so the attention forward is recomputed."""
+@pytest.mark.parametrize("remat,qknorm", REMAT_CASES)
+def test_kernel_autograd_function_under_remat(remat, qknorm, monkeypatch):
+    """The CUDA path's wiring, run on the CPU: ``_FusedQKVAttention`` (with
+    qknorm, ``_FlashAttention`` behind the q/k norms) with its two launchers
+    stood in by the plain versions, inside the DiT under each remat policy.
+    The gradients equal those of plain autograd (fp32, 1e-5 of each tensor's
+    largest element), the backward runs once per block, and the forward once
+    more per block under remat: "dots" saves only matmul outputs, so the q/k
+    norms and the attention forward are recomputed."""
     from vavae_tpu_torch.models import layers
     from vavae_tpu_torch.ops import flash_attention as fa
 
-    _, _, tm = tiny_dit_pair(seed=6, class_dropout_prob=0.0)
+    _, _, tm = tiny_dit_pair(seed=6, class_dropout_prob=0.0, use_qknorm=qknorm)
     tm.use_checkpoint, tm.checkpoint_policy = remat is not None, remat or "nothing"
     x, y = _batch(1)
     rs = np.random.default_rng(2)
@@ -358,15 +365,31 @@ def test_kernel_autograd_function_under_remat(remat, monkeypatch):
         fa.fused_qkv_attention.bwd_launches += 1
         return fa.fused_qkv_attention_bwd_reference(qkv5, g, fa.fold_sin(tables))
 
-    monkeypatch.setattr(fa, "_launch_fwd", fwd)
-    monkeypatch.setattr(fa, "_launch_bwd", bwd)
-    monkeypatch.setattr(layers, "fused_qkv_attention",
-                        lambda qkv5, rope: fa._FusedQKVAttention.apply(qkv5, *fa.fold_sin(rope)))
-    monkeypatch.setattr(fa.fused_qkv_attention, "launches", 0)
-    monkeypatch.setattr(fa.fused_qkv_attention, "bwd_launches", 0)
+    def flash_fwd(q, k, v, tables):
+        fa.flash_attention.rope_launches += 1
+        return fa.flash_attention_reference(q, k, v, fa.fold_sin(tables))
+
+    def flash_bwd(q, k, v, g, tables):
+        fa.flash_attention.bwd_launches += 1
+        return fa.flash_attention_bwd_reference(q, k, v, g, fa.fold_sin(tables))
+
+    if qknorm:
+        counter, attr = fa.flash_attention, "rope_launches"
+        monkeypatch.setattr(fa, "_launch_flash_fwd", flash_fwd)
+        monkeypatch.setattr(fa, "_launch_flash_bwd", flash_bwd)
+        monkeypatch.setattr(layers, "dot_product_attention", lambda q, k, v, rope: (
+            fa._FlashAttention.apply(q, k, v, *fa.fold_sin(rope))))
+    else:
+        counter, attr = fa.fused_qkv_attention, "launches"
+        monkeypatch.setattr(fa, "_launch_fwd", fwd)
+        monkeypatch.setattr(fa, "_launch_bwd", bwd)
+        monkeypatch.setattr(layers, "fused_qkv_attention",
+                            lambda qkv5, rope: fa._FusedQKVAttention.apply(qkv5, *fa.fold_sin(rope)))
+    monkeypatch.setattr(counter, attr, 0)
+    monkeypatch.setattr(counter, "bwd_launches", 0)
     got = grads()
-    assert fa.fused_qkv_attention.launches == tm.depth * (2 if remat else 1)
-    assert fa.fused_qkv_attention.bwd_launches == tm.depth
+    assert getattr(counter, attr) == tm.depth * (2 if remat else 1)
+    assert counter.bwd_launches == tm.depth
     for name, g, w in zip(names, got, want):
         assert max_rel(g.numpy(), w.numpy()) < 1e-5, (name, max_rel(g.numpy(), w.numpy()))
 

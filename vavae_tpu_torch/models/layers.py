@@ -163,8 +163,11 @@ class Attention(nn.Module):
     """Multi-head attention with qkv bias, optional QK-norm and 2-D RoPE.
 
     Without QK-norm (every shipped DiT config) attention runs straight off
-    the fused qkv tensor through ``fused_qkv_attention``: the hand-written
-    kernel on the card. The QK-norm branch uses the plain op."""
+    the fused qkv tensor through ``fused_qkv_attention``. The QK-norm branch
+    normalises q and k and hands them, with the strided view of v, to
+    ``dot_product_attention``, which runs ``flash_attention`` on the card.
+    Both run hand-written kernels on the card and the plain versions on the
+    CPU."""
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
                  use_rmsnorm: bool = False, dtype: torch.dtype = torch.float32):

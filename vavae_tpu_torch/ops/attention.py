@@ -1,21 +1,19 @@
-"""Plain attention op (port of ``vavae_tpu/ops/attention.py``).
+"""Attention op (port of ``vavae_tpu/ops/attention.py``).
 
 ``plain_attention`` is the counterpart of the JAX ``_xla_attention``: fp32
 logits, fp32 softmax, probabilities cast to the input dtype before P·V.
-``dot_product_attention`` applies split-half RoPE outside the op, as the
-JAX function does off the TPU. It serves the qk-norm attention branch,
-whose Hopper kernels (``_attn_kernel_small_rope`` and relatives) are not
-ported yet.
+``dot_product_attention`` serves the qk-norm attention branch. CUDA tensors
+go through ``flash_attention``, the hand-written kernels of
+``_attn_kernel_small_rope``, ``_attn_kernel_small`` and
+``_attn_bwd_kernel_small`` (as the JAX function takes the Pallas kernel on
+the TPU); other tensors through the plain op, with split-half RoPE applied
+outside it, as the JAX function does off the TPU. A kernel failure raises.
 """
 from __future__ import annotations
 
 import torch
 
-
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    """Split-half rotation partner: (x1 | x2) -> (-x2 | x1)."""
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([-x2, x1], dim=-1)
+from vavae_tpu_torch.ops.flash_attention import flash_attention, rotate_half
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -32,7 +30,10 @@ def dot_product_attention(
     v: torch.Tensor,
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """``rope``: optional (cos, sin) split-half tables of shape (N, D)."""
+    """q, k, v: (B, N, H, D) -> (B, N, H, D). ``rope``: optional (cos, sin)
+    split-half tables of shape (N, D)."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, rope)
     if rope is not None:
         cos, sin = rope
         fc = cos[None, :, None, :].to(q.dtype)

@@ -3,14 +3,16 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/vavae_tpu_torch/``
 (beside the package, listed in ``.gitignore``) at first use, named by the
-hash of its source so an edited source is rebuilt, and loaded with ctypes.
-Nothing is compiled when a module is imported.
+hash of its source and of every header it includes from ``csrc/`` (so an
+edited source or header is rebuilt), and loaded with ctypes. Nothing is
+compiled when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +25,20 @@ NVCC_FLAGS = [
 ]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly or
+    through another header, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
 
 
 def _nvcc() -> str:
@@ -40,9 +56,12 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source (keyed
-    by its hash) exists; returns the library's path."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Compile ``csrc/<name>.cu`` unless the library for this source and its
+    headers (keyed by their hash) exists; returns the library's path."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{name}.{digest}.so"
     if out.exists():
         return out

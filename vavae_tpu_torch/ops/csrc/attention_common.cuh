@@ -1,0 +1,173 @@
+// Pieces shared by the attention kernels (attention_fwd.cuh, attention_bwd.cuh):
+// strided tensor views, rounding to the input dtype, the mma.sync and ldmatrix
+// wrappers, and the tile loads into shared memory.
+//
+// Every tensor reaches a kernel as a View: a base pointer and element strides
+// over (batch, token, head), the head dim contiguous. The fused-qkv entries
+// (nat_attention_*.cu) point q, k and v into one (B, N, 3, H, D) tensor; the
+// separate-tensor entries (attn_small_*.cu) pass each tensor's own strides,
+// so a strided view such as qkv[:, :, 2] is read in place.
+
+#ifndef VAVAE_ATTENTION_COMMON_CUH
+#define VAVAE_ATTENTION_COMMON_CUH
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 64;       // rows owned by a block
+constexpr int kBlockN = 64;       // rows per streamed tile
+constexpr int kThreads = 256;     // fp32 kernels: 16 x 16 threads, 4 x 4 outputs each
+constexpr int kMmaThreads = 128;  // bf16 kernels: 4 warps x 16 rows
+
+// A (B, N, H, D) tensor: base pointer and element strides; stride 1 over D.
+struct View {
+  const void* ptr;
+  long long sb, sn, sh;
+};
+
+// first element of (batch b, token 0, head h)
+template <typename T>
+__device__ __forceinline__ T* head_base(const View& v, int b, int h) {
+  return const_cast<T*>(static_cast<const T*>(v.ptr)) + b * v.sb + h * v.sh;
+}
+
+// a contiguous (B, N, H, D) tensor
+inline View contiguous_view(const void* ptr, int N, int H, int D) {
+  return View{ptr, (long long)N * H * D, (long long)H * D, (long long)D};
+}
+
+// 16-byte loads need every row start of a bf16 tensor on a 16-byte boundary
+inline bool rows_aligned16(const View& v, int D) {
+  return D % 8 == 0 && reinterpret_cast<uintptr_t>(v.ptr) % 16 == 0 && v.sb % 8 == 0 &&
+         v.sn % 8 == 0 && v.sh % 8 == 0;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// value of x after a round trip through T (identity for fp32)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// the partner of column d in the split-half rotation: roll by D/2
+__device__ __forceinline__ int rope_partner(int d, int half) {
+  return d < half ? d + half : d - half;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 kernels
+
+// One 64-row tile (rows n0.. of a head with row stride row_stride) into shared
+// memory as fp32 with stride ld, zero past N. With rotate, applies the RoPE
+// roll form x*cos + roll(x, D/2)*sin'.
+__device__ void load_tile_f32(float* dst, int ld, const float* base, long long row_stride, int n0,
+                              int N, int D, bool rotate, const float* cos_t, const float* sin_t) {
+  const int half = D / 2;
+  for (int idx = threadIdx.x; idx < kBlockM * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int n = n0 + r;
+    float val = 0.f;
+    if (n < N) {
+      const float* src = base + n * row_stride;
+      val = src[d];
+      if (rotate) val = val * cos_t[n * D + d] + src[rope_partner(d, half)] * sin_t[n * D + d];
+    }
+    dst[r * ld + d] = val;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 kernels (tensor cores)
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a (16x16, row-major fragment) * b (16x8, col-major fragment)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// B fragments of two 8x8 bf16 blocks, transposed on the way (ldmatrix):
+// lanes 0-7 address the rows of the first block, lanes 8-15 the second.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const __nv_bfloat16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
+}
+
+// One 64-row tile (rows n0.. of a head with row stride row_stride) into
+// shared memory, row-major with stride LD, zero past N and past D. VEC =
+// elements per load: 8 (16 bytes) when rows_aligned16 holds, else 1.
+template <int DP, int LD, int VEC>
+__device__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* base, long long row_stride,
+                               int n0, int N, int D) {
+  constexpr int kChunks = DP / VEC;
+  for (int idx = threadIdx.x; idx < kBlockM * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks;
+    const int d = (idx - r * kChunks) * VEC;
+    const int n = n0 + r;
+    const bool in = n < N && d < D;
+    const __nv_bfloat16* src = base + n * row_stride + d;
+    if constexpr (VEC == 8) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (in) v = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(dst + r * LD + d) = v;
+    } else {
+      dst[r * LD + d] = in ? *src : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Split-half RoPE in place on a tile loaded by load_tile_bf16: each item owns
+// the pair (d, d + D/2), so reading the partner before writing is safe.
+// Rounds after each operation in bf16, as the TPU kernels do.
+template <int LD>
+__device__ void rotate_tile_bf16(__nv_bfloat16* buf, int n0, int N, int D, const float* cos_t,
+                                 const float* sin_t) {
+  const int half = D / 2;
+  for (int idx = threadIdx.x; idx < kBlockM * half; idx += kMmaThreads) {
+    const int r = idx / half;
+    const int d = idx - r * half;
+    const int n = n0 + r;
+    if (n >= N) continue;
+    __nv_bfloat16* row = buf + r * LD;
+    const float x = __bfloat162float(row[d]);
+    const float xr = __bfloat162float(row[d + half]);
+    const float* ct = cos_t + n * D;
+    const float* st = sin_t + n * D;
+    using T = __nv_bfloat16;
+    row[d] = __float2bfloat16(round_to<T>(x * round_to<T>(ct[d])) +
+                              round_to<T>(xr * round_to<T>(st[d])));
+    row[d + half] = __float2bfloat16(round_to<T>(xr * round_to<T>(ct[d + half])) +
+                                     round_to<T>(x * round_to<T>(st[d + half])));
+  }
+}
+
+}  // namespace
+
+#endif  // VAVAE_ATTENTION_COMMON_CUH

@@ -1,20 +1,32 @@
-"""Fused-qkv attention with in-kernel RoPE: the Hopper port of
-``vavae_tpu/ops/pallas/flash_attention.py:_nat_fwd_kernel`` and of its
-recompute backward ``_nat_bwd_kernel``.
+"""Attention with in-kernel RoPE: the Hopper ports of the TPU kernels in
+``vavae_tpu/ops/pallas/flash_attention.py``.
 
-``fused_qkv_attention(qkv5, rope)`` takes the free reshape of the qkv
+``fused_qkv_attention(qkv5, rope)`` ports ``_nat_fwd_kernel`` and its
+recompute backward ``_nat_bwd_kernel``. It takes the free reshape of the qkv
 projection, ``(B, N, 3, H, D)``, and returns ``(B, N, H, D)``. For a CUDA
 tensor it runs ``_FusedQKVAttention``: the forward launches
-``csrc/nat_attention_fwd.cu`` and the backward ``csrc/nat_attention_bwd.cu``
-(each built at first use), or they raise. For a CPU tensor it runs
-``fused_qkv_attention_reference``, the plain version with the kernel's
-numerics, under torch autograd (as the JAX package differentiates its XLA
-fallback off the TPU). There is no fallback from a kernel to a plain version.
+``csrc/nat_attention_fwd.cu`` and the backward ``csrc/nat_attention_bwd.cu``.
 
-Unlike the JAX entry point there is no sequence-length routing: the JAX
-thresholds (256 ≤ N ≤ 1024) keep tiny CPU dry runs off the TPU kernel,
+``flash_attention(q, k, v, rope)`` ports the JAX entry point of the same
+name, the qk-norm models' attention: ``_attn_kernel_small_rope`` (with
+``rope``) and ``_attn_kernel_small`` (without) forward, and
+``_attn_bwd_kernel_small`` backward. It takes separate ``(B, N, H, D)``
+tensors of any batch, token and head strides (the head dim contiguous), so
+``v`` may be the strided view ``qkv[:, :, 2]``, and returns ``(B, N, H, D)``.
+For CUDA tensors it runs ``_FlashAttention``: the forward launches
+``csrc/attn_small_fwd.cu`` and the backward ``csrc/attn_small_bwd.cu``.
+
+Each kernel is built at first use; a failed build or launch raises. CPU
+tensors run the plain versions (``*_reference``, the kernels' numerics)
+under torch autograd, as the JAX package differentiates its XLA fallback off
+the TPU. There is no fallback from a kernel to a plain version.
+
+Unlike the JAX entry points there is no sequence-length routing: the JAX
+thresholds (256 ≤ N ≤ 1024) keep tiny CPU dry runs off the TPU kernels,
 while the CUDA kernels take any N ≥ 1 and any even D ≤ 256 (forward) or
-D ≤ 128 (backward).
+D ≤ 128 (backward). So on the card N > 1024, where the JAX package runs
+``_flash_kernel``, also goes through ``attn_small_fwd`` until that kernel is
+ported.
 """
 from __future__ import annotations
 
@@ -44,6 +56,26 @@ def fold_sin(rope, device=None) -> tuple[torch.Tensor, torch.Tensor]:
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sinf: torch.Tensor) -> torch.Tensor:
     """The RoPE roll form ``x·cos + roll(x, D/2)·sin'`` on (B, N, H, D)."""
     return x * cos + torch.roll(x, x.shape[-1] // 2, dims=-1) * sinf
+
+
+def _table_pair(rope, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) split-half tables → (1, N, 1, D) in ``dtype``."""
+    cos, sin = (torch.as_tensor(t, dtype=torch.float32, device=device) for t in rope)
+    return cos[None, :, None, :].to(dtype), sin[None, :, None, :].to(dtype)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """Split-half rotation partner: (x1 | x2) -> (-x2 | x1) (the TPU
+    kernels' ``_rot_half``)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _rot_half_t(y: torch.Tensor) -> torch.Tensor:
+    """Its transpose, (y1 | y2) → (y2 | −y1) (``_attn_bwd_kernel_small``'s
+    ``rot_t``)."""
+    half = y.shape[-1] // 2
+    return torch.cat([y[..., half:], -y[..., :half]], dim=-1)
 
 
 def fused_qkv_attention_reference(qkv5: torch.Tensor, rope=None) -> torch.Tensor:
@@ -97,6 +129,61 @@ def fused_qkv_attention_bwd_reference(qkv5: torch.Tensor, g: torch.Tensor,
         dq = dq * cos + torch.roll(dq * sinf, D // 2, dims=-1)
         dk = dk * cos + torch.roll(dk * sinf, D // 2, dims=-1)
     return torch.stack([dq, dk, dv], dim=2).to(dtype)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              rope=None) -> torch.Tensor:
+    """Plain version of ``_attn_kernel_small_rope`` (``rope`` given) and
+    ``_attn_kernel_small``, op for op: q̃, k̃ = x·cos + rot_half(x)·sin in the
+    input dtype with the tables cast to it; fp32 ``q̃·k̃ᵀ·D^-0.5``; fp32
+    softmax numerator; P rounded to the input dtype before P·V with fp32
+    accumulation; division by the row sum last.
+
+    q, k, v: (B, N, H, D) → (B, N, H, D); ``rope``: optional (cos, sin)
+    split-half tables of shape (N, D)."""
+    D = q.shape[-1]
+    dtype = q.dtype
+    if rope is not None:
+        cos, sin = _table_pair(rope, dtype, q.device)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(dtype).float(), v.float())
+    return (acc / l).to(dtype).transpose(1, 2)
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  g: torch.Tensor, rope=None):
+    """Plain version of ``_attn_bwd_kernel_small``, op for op: q̃, k̃ rotated
+    in the input dtype; fp32 scores; the *normalised* fp32 softmax; P rounded
+    to the dtype for dv; fp32 dP and dS = P∘(dP − rowsum(dP∘P))·scale, dS
+    rounded to the dtype for dq and dk; the transposed rotation
+    ``x·cos + rot_t(x·sin)`` in fp32 with the fp32 tables; each result cast to
+    the dtype last.
+
+    q, k, v, g: (B, N, H, D) → (dq, dk, dv), each (B, N, H, D)."""
+    D = q.shape[-1]
+    dtype = q.dtype
+    scale = D ** -0.5
+    if rope is not None:
+        cos, sin = _table_pair(rope, torch.float32, q.device)
+        cd, sd = cos.to(dtype), sin.to(dtype)
+        q, k = q * cd + rotate_half(q) * sd, k * cd + rotate_half(k) * sd
+    gf = g.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    if rope is not None:
+        dq = dq * cos + _rot_half_t(dq * sin)
+        dk = dk * cos + _rot_half_t(dk * sin)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 def _check_kernel_input(qkv5: torch.Tensor, max_head_dim: int = MAX_HEAD_DIM) -> None:
@@ -220,3 +307,144 @@ def fused_qkv_attention(qkv5: torch.Tensor, rope=None) -> torch.Tensor:
 
 fused_qkv_attention.launches = 0
 fused_qkv_attention.bwd_launches = 0
+
+
+# -- separate q, k, v: _attn_kernel_small_rope, _attn_kernel_small and
+#    _attn_bwd_kernel_small ----------------------------------------------------
+
+
+def _check_flash_input(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       max_head_dim: int = MAX_HEAD_DIM) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, N, H, D) alike, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, N, H, D = q.shape
+    if min(B, N, H) < 1:
+        raise ValueError(f"empty attention input {tuple(q.shape)}")
+    if D < 2 or D % 2 or D > max_head_dim:
+        raise ValueError(f"head dim must be even and <= {max_head_dim}, got {D}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a contiguous head dim (stride 1)")
+
+
+def _strides(*tensors: torch.Tensor):
+    """(batch, token, head) element strides of each tensor, as a C array."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables) -> torch.Tensor:
+    """(B, N, H, D) through ``csrc/attn_small_fwd.cu``: counted in
+    ``flash_attention.rope_launches`` with tables, else in
+    ``flash_attention.launches``."""
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    fn = load_library("attn_small_fwd").attn_small_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cos, sinf = _table_ptrs(tables)
+    strides = _strides(q, k, v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos, sinf, out.data_ptr(),
+             ctypes.addressof(strides), B, N, H, D, int(tables is not None),
+             _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"attn_small_fwd launch failed: CUDA error {err}")
+    if tables is None:
+        flash_attention.launches += 1
+    else:
+        flash_attention.rope_launches += 1
+    return out
+
+
+def _launch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                      tables) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each (B, N, H, D), through ``csrc/attn_small_bwd.cu``:
+    its two passes are one launch of the wrapper, counted in
+    ``flash_attention.bwd_launches``."""
+    _check_flash_input(q, k, v, MAX_BWD_HEAD_DIM)
+    B, N, H, D = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"gradient must be ({B}, {N}, {H}, {D}) {q.dtype} on {q.device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty((3, B, H, N), dtype=torch.float32, device=q.device)
+    fn = load_library("attn_small_bwd").attn_small_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cos, sinf = _table_ptrs(tables)
+    strides = _strides(q, k, v, g)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos, sinf,
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+             ctypes.addressof(strides), B, N, H, D, int(tables is not None),
+             _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"attn_small_bwd launch failed: CUDA error {err}")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                        rope=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel on CUDA tensors (raises on any other device):
+    (dq, dk, dv) for q, k, v (B, N, H, D) and the output gradient g.
+    ``rope``: optional (cos, sin) split-half tables."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"the backward kernel needs CUDA tensors, got {q.device}")
+    _, N, _, D = q.shape
+    return _launch_flash_bwd(q, k, v, g, _kernel_tables(rope, N, D, q.device))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Both kernels under autograd, as the JAX ``flash_attention`` custom VJP:
+    the forward saves q, k, v and the folded tables (``_fwd`` saves
+    ``(q, k, v, rope)``); the backward recomputes P in the backward kernel.
+    The tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sinf):
+        tables = None if cos is None else (cos, sinf)
+        ctx.save_for_backward(q, k, v, cos, sinf)
+        ctx.use_rope = tables is not None
+        return _launch_flash_fwd(q, k, v, tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sinf = ctx.saved_tensors
+        tables = (cos, sinf) if ctx.use_rope else None
+        return (*_launch_flash_bwd(q, k, v, g, tables), None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rope=None) -> torch.Tensor:
+    """q, k, v: (B, N, H, D) → (B, N, H, D). Softmax scale D^-0.5.
+    ``rope``: optional (cos, sin) split-half tables of shape (N, D), applied
+    to q and k inside the kernel.
+
+    CUDA tensors go through the hand-written kernels (the forward counted in
+    ``flash_attention.rope_launches`` with RoPE and ``flash_attention.launches``
+    without, the backward in ``flash_attention.bwd_launches``); CPU tensors
+    through the plain version. Any other device raises."""
+    if q.device.type == "cuda":
+        _check_flash_input(q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            _check_flash_input(q, k, v, MAX_BWD_HEAD_DIM)  # refuse now, not in the backward
+        _, N, _, D = q.shape
+        tables = _kernel_tables(rope, N, D, q.device)
+        cos, sinf = (None, None) if tables is None else tables
+        return _FlashAttention.apply(q, k, v, cos, sinf)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, rope)
+    raise RuntimeError(f"no attention path for device {q.device}")
+
+
+flash_attention.rope_launches = 0
+flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -1,13 +1,14 @@
 """Where the time of the sampling path goes, on the card.
 
-    python -m vavae_tpu_torch.pipelines.profile_sample [--out FILE.json]
+    python -m vavae_tpu_torch.pipelines.profile_sample [--qknorm] [--out FILE.json]
 
 Profiles (torch.profiler, CUDA activity) the LightningDiT-XL/1 bf16 forward
 at the two batch sizes of the split-CFG euler program (16 in the CFG phase,
 8 in the cond-only phase) and the f16d32 VA-VAE decode at batch 8, with
 seeded random weights. For each it prints the device time per forward by
 kernel class (the attention kernel, matrix products, everything else), the
-wall time of the window and the device's busy share of it.
+wall time of the window and the device's busy share of it. ``--qknorm``
+profiles the production model with ``use_qknorm: true`` instead.
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ _GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "nat_fwd" in low:
+    if "attn_fwd" in low:  # attention_fwd.cuh: the fused-qkv and the qk-norm entries
         return "attention_kernel"
-    if "nat_bwd" in low:
+    if "attn_bwd" in low:  # attention_bwd.cuh
         return "attention_bwd_kernel"
     if "multi_tensor_apply" in low or "foreach" in low:
         return "foreach"  # the optimizer's and the EMA's fused list updates
@@ -74,15 +75,16 @@ def profile(fn, reps: int = 5) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--qknorm", action="store_true", help="the model with use_qknorm: true")
     ap.add_argument("--out", help="also write the results to this JSON file")
     args = ap.parse_args(argv)
     seed = 0
     dev = resolve_device("cuda")
-    model = create_dit(XL1, 16, 1000, device=dev).eval()
+    model = create_dit(dict(XL1, use_qknorm=args.qknorm), 16, 1000, device=dev).eval()
     randomize_(model, seed)
     vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    results = {"device": torch.cuda.get_device_name(0)}
+    results = {"device": torch.cuda.get_device_name(0), "qknorm": args.qknorm}
     with torch.inference_mode():
         for B in (16, 8):
             x = torch.randn((B, 16, 16, 32), generator=gen, device=dev)
