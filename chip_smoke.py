@@ -41,9 +41,25 @@ Phases, each fatal on failure:
      gradients on their own;
   14. the forward kernel without RoPE: an XL/1-width qk-norm model with
      ``use_rope: false`` and ``use_rmsnorm: false`` (LayerNorm q/k norms) at
-     depth 4, its forward and its loss gradients against plain attention.
-Every path phase sets the launch counts to 0 before it and holds them to
-the exact expected counts after it. The line before the last holds the
+     depth 4, its forward and its loss gradients against plain attention;
+  15. the long route at 1024² (``data.image_size: 1024``, 64×64×32 latents,
+     N = 4,096 tokens), where attention runs ``flash_fwd`` (``_flash_kernel``)
+     on q, k rotated beforehand with the fp32 tables: XL/1 euler-250
+     split-CFG sampling at per-batch 2 + f16d32 decode to 1024² uint8
+     images (6,972 ``flash_fwd`` launches and none of any other kernel), the
+     XL/1 forward at batch 4 of the production and the qk-norm model against
+     plain attention, and the loss gradients of XL/1-width models cut to
+     depth 2 at batch 2 against plain attention (the backward is autograd of
+     the exact op; remat "dots" runs the kernel again).
+Phase 3 also holds ``flash_fwd`` against its plain version at the 1024²
+shapes (B = 4 and 2, H = 16, N = 4,096, D = 72) in its three dtype pairs
+(fp32 q̃, k̃ with bf16 v; all bf16; all fp32) and at N = 4,033 (the last key
+tile holds one key and 63 masked ones), within 2e-2 max-abs and, tighter,
+within ``LONG_TOL`` relative (Frobenius) error; at N = 4,033 it also shows
+that two planted faults, emulated in plain PyTorch on the same inputs (the
+tail mask dropped, the running sums not rescaled), exceed that limit.
+Every path phase sets the launch counts to 0 before it and holds
+them to the exact expected counts after it. The line before the last holds the
 kernels' JSON; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
@@ -72,12 +88,16 @@ from vavae_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
+    flash_attention_long,
+    flash_attention_long_reference,
     flash_attention_reference,
     fold_sin,
     fused_qkv_attention,
     fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
+    long_attention_reference,
+    rope_uncast,
     rotate_half,
 )
 from vavae_tpu_torch.pipelines.sample import build_sample_fn
@@ -90,6 +110,8 @@ from vavae_tpu_torch.utils.weights import randomize_
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # the production config (vavae_tpu/configs/lightningdit_xl_vavae_f16d32.yaml),
@@ -112,12 +134,21 @@ PRODUCTION = {
               "log_every": 100, "ckpt_every": 20000, "ema_decay": 0.9999},
 }
 BATCH = 8
+HIRES = 1024        # data.image_size of the long-route phase: 64×64 latents, N = 4,096
+HIRES_BATCH = 2     # its per-batch size
+HIRES_GRAD_DEPTH = 2
 TRAIN_BATCH = 32
 TRAIN_WARMUP, TRAIN_TIMED = 2, 8
 SEED = 0  # weights, noise and labels are all drawn from generators seeded with it
 ATTN_TOL = 2e-2   # bf16 max-abs, the TPU kernel's own tolerance (tests/test_ops.py:99)
 BWD_TOL = 3e-2    # bf16 max|err| / max|ref|, the TPU backward's tolerance (tests/test_ops.py:190)
 PATH_TOL = 3e-2   # bf16 relative (Frobenius) error of a 28-layer XL/1 forward or gradient
+# ``flash_fwd`` against its plain version, relative (Frobenius) error. With
+# bf16 v both round P to bf16, against a running and a final row max: about
+# 2e-3 apart. A dropped tail mask (zero keys at logit 0 in the softmax) gives
+# about 9e-3 at N = 4,033, which the 2e-2 max-abs limit cannot see.
+LONG_TOL = 5e-3
+LONG_TOL_F32 = 1e-5  # all fp32: summation order only
 
 
 # each kernel's launch count: (wrapper, attribute)
@@ -127,6 +158,7 @@ COUNTERS = {
     "attn_small_fwd_rope": (flash_attention, "rope_launches"),
     "attn_small_fwd": (flash_attention, "launches"),
     "attn_small_bwd": (flash_attention, "bwd_launches"),
+    "flash_fwd": (flash_attention, "long_launches"),
 }
 
 # the attention branches the paths run: the model options that select one,
@@ -149,6 +181,20 @@ BRANCHES = {
         "fwd": "attn_small_fwd", "bwd": "attn_small_bwd",
         "op": "dot_product_attention", "plain": flash_attention_reference,
         "groups": {"attn.q_norm/k_norm": (".attn.q_norm.", ".attn.k_norm.")},
+    },
+    # 1024²: both branches take the long route; its backward is autograd of
+    # the exact op, so there is no backward kernel
+    "hires": {
+        "model": {}, "data": {"image_size": HIRES}, "fwd": "flash_fwd", "bwd": None,
+        "op": "fused_qkv_attention",
+        "plain": lambda qkv5, rope=None: long_attention_reference(*qkv5.unbind(dim=2), rope),
+        "groups": {"attn.qkv": (".attn.qkv.",)},
+    },
+    "hires_qknorm": {
+        "model": {"use_qknorm": True}, "data": {"image_size": HIRES}, "fwd": "flash_fwd",
+        "bwd": None, "op": "dot_product_attention", "plain": long_attention_reference,
+        "groups": {"attn.qkv": (".attn.qkv.",),
+                   "attn.q_norm/k_norm": (".attn.q_norm.", ".attn.k_norm.")},
     },
 }
 NO_ROPE_DEPTH = 4
@@ -194,7 +240,8 @@ def xl_depth(depth: int):
 
 
 def branch_config(branch: str) -> Config:
-    return Config(PRODUCTION).merged_with({"model": BRANCHES[branch]["model"]})
+    spec = BRANCHES[branch]
+    return Config(PRODUCTION).merged_with({"model": spec["model"], "data": spec.get("data", {})})
 
 
 def fail(msg: str) -> None:
@@ -249,7 +296,7 @@ def phase_device() -> dict:
     return {"smi": smi, "name": name}
 
 
-KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd", "attn_small_bwd")
+KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd", "attn_small_bwd", "flash_fwd")
 
 
 def phase_build() -> dict:
@@ -472,6 +519,128 @@ def phase_small_kernels(seed: int) -> dict:
     return result
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _long_case(B: int, H: int, N: int, D: int, qk_dtype, v_dtype, gen: torch.Generator):
+    """q̃, k̃, v as the long route hands them to ``flash_fwd``: v the strided
+    view qkv[:, :, 2] of a (B, N, 3, H, D) projection; fp32 q̃, k̃ its q and k
+    rotated with the fp32 tables (the RoPE models), bf16 q̃, k̃ its unrotated
+    strided views (``use_rope: false``)."""
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda").to(v_dtype)
+    if qk_dtype == BF16:
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    tables = (torch.as_tensor(cos[:N], device="cuda"), torch.as_tensor(sin[:N], device="cuda"))
+    return rope_uncast(qkv[:, :, 0], tables), rope_uncast(qkv[:, :, 1], tables), qkv[:, :, 2]
+
+
+def _long_bound(B: int, H: int, N: int, D: int, qk_dtype, v_dtype) -> tuple[float, str]:
+    """Least time on an H100 for one ``flash_fwd`` call: q̃·k̃ᵀ (2·B·H·N²·D)
+    at the peak of q̃'s type (TF32 tensor cores for fp32 q̃, k̃ with bf16 v,
+    bf16 tensor cores for bf16, fp32 FMAs for the all-fp32 pair) and P·V (as
+    much again) at the peak of v's type, vs q̃, k̃, v read once and the
+    output (in q̃'s type) written once."""
+    half = 2.0 * B * H * N * N * D
+    qk_peak = {(F32, BF16): PEAK_TF32_FLOPS, (BF16, BF16): PEAK_BF16_FLOPS,
+               (F32, F32): PEAK_FP32_FLOPS}[(qk_dtype, v_dtype)]
+    pv_peak = PEAK_BF16_FLOPS if v_dtype == BF16 else PEAK_FP32_FLOPS
+    t_ops = half / qk_peak + half / pv_peak
+    qk_bytes, v_bytes = torch.finfo(qk_dtype).bits / 8, torch.finfo(v_dtype).bits / 8
+    t_bytes = (3 * qk_bytes + v_bytes) * B * N * H * D / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+LONG_TILE = 64  # flash_fwd's key tile
+
+
+def _planted_unmasked_tail(q, k, v):
+    """``flash_fwd`` with the tail mask dropped: the zero-filled keys past N
+    in the last key tile enter the softmax with logit 0 (and v = 0)."""
+    pad = -k.shape[1] % LONG_TILE
+    zeros = lambda t: torch.cat([t, t.new_zeros(t.shape[0], pad, *t.shape[2:])], dim=1)
+    return flash_attention_long_reference(q, zeros(k), zeros(v))
+
+
+def _planted_no_rescale(q, k, v):
+    """``flash_fwd`` with alpha dropped: the running sum and the accumulator
+    are not rescaled when a later key tile raises the row max."""
+    m = l = acc = None
+    for k0 in range(0, k.shape[1], LONG_TILE):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, k0:k0 + LONG_TILE].float())
+        s = s * q.shape[-1] ** -0.5
+        m = s.amax(-1, keepdim=True) if m is None else torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                          v[:, k0:k0 + LONG_TILE].float())
+        l = p.sum(-1, keepdim=True) + (0 if l is None else l)
+        acc = pv + (0 if acc is None else acc)
+    return (acc / l).to(q.dtype).transpose(1, 2)
+
+
+def phase_long_kernel(seed: int) -> dict:
+    """``flash_fwd`` against its plain version at the 1024² path's shapes
+    (B = 4 in the CFG phase, 2 in the cond-only phase), in its three dtype
+    pairs, and at N = 4,033 (the last key tile holds one key), where the
+    planted faults must exceed the limit. The SDPA yardstick takes q̃, k̃
+    cast to v's dtype (SDPA takes one dtype: with bf16 v its logits inputs
+    are bf16, where the kernel's are TF32) and v."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    N, H, D = (HIRES // 16) ** 2, 16, 72
+    cases = [(4, H, N, D, F32, BF16), (2, H, N, D, F32, BF16), (4, H, N, D, BF16, BF16),
+             (4, H, N, D, F32, F32), (2, H, 4033, D, F32, BF16)]
+    worst, worst_rel, rows = 0.0, 0.0, []
+    for B, H, N, D, qk_dtype, v_dtype in cases:
+        q, k, v = _long_case(B, H, N, D, qk_dtype, v_dtype, gen)
+        out = flash_attention_long(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash_attention_long_reference(q, k, v)
+        torch.cuda.synchronize()
+        if out.dtype != qk_dtype or ref.dtype != qk_dtype:
+            fail(f"flash_fwd output {out.dtype}, plain {ref.dtype}, expected {qk_dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = rel_err(out, ref)
+        tol = LONG_TOL_F32 if v_dtype == F32 else LONG_TOL
+        if not (err <= ATTN_TOL and rel <= tol):
+            fail(f"flash_fwd vs plain at {(B, H, N, D, qk_dtype, v_dtype)}: max-abs {err} "
+                 f"(limit {ATTN_TOL}), relative {rel} (limit {tol})")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        planted = {}
+        if N % LONG_TILE:
+            planted = {"unmasked_tail": rel_err(_planted_unmasked_tail(q, k, v), ref),
+                       "no_rescale": rel_err(_planted_no_rescale(q, k, v), ref)}
+            if not all(r > tol for r in planted.values()):
+                fail(f"flash_fwd's limit {tol} does not catch the planted faults {planted}")
+            log(f"[kernels] flash_fwd planted faults at N={N}, relative error against the "
+                f"plain version: tail mask dropped {planted['unmasked_tail']:.3e}, no rescale "
+                f"{planted['no_rescale']:.3e} (limit {tol}; kernel {rel:.3e})")
+        qt, kt, vt = (t.to(v_dtype).transpose(1, 2).contiguous() for t in (q, k, v))
+        del out, ref
+        row = {
+            "shape": [B, H, N, D], "qk_dtype": str(qk_dtype), "v_dtype": str(v_dtype),
+            "max_abs_err": err, "rel_err": rel, "planted_rel_err": planted,
+            "ms": time_ms(lambda: flash_attention_long(q, k, v)),
+            "device_ms": device_ms(lambda: flash_attention_long(q, k, v)),
+            "plain_ms": time_ms(lambda: flash_attention_long_reference(q, k, v), reps=10),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+        }
+        row["bound_ms"], row["bound_by"] = _long_bound(B, H, N, D, qk_dtype, v_dtype)
+        rows.append(row)
+        log(f"[kernels] flash_fwd B={B} H={H} N={N} D={D} q/k {qk_dtype} v {v_dtype}: max-abs "
+            f"{err:.3e}, relative {rel:.3e}, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA (q, k in v's dtype) {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"flash_fwd": {"worst_err": worst, "worst_rel_err": worst_rel, "rows": rows}}
+
+
 def build_xl(seed: int, branch: str = "production"):
     cfg = branch_config(branch)
     latent = cfg.data.image_size // cfg.vae.downsample_ratio
@@ -481,13 +650,13 @@ def build_xl(seed: int, branch: str = "production"):
 
 
 def phase_main_path(cfg: Config, model, seed: int, device_info: dict,
-                    branch: str = "production") -> dict:
+                    branch: str = "production", batch: int = BATCH) -> dict:
     C = model.in_channels
     stats = (np.zeros((1, C, 1, 1), np.float32), np.ones((1, C, 1, 1), np.float32))
     vae = VA_VAE(embed_dim=32, img_size=cfg.data.image_size, seed=seed, device="cuda")
     generate = build_sample_fn(cfg, model, stats, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(cfg.train.global_seed)
-    labels = torch.randint(0, cfg.data.num_classes, (BATCH,), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.data.num_classes, (batch,), generator=gen, device="cuda")
 
     # warm-up: cuBLAS/cuDNN handles and the decoder's algorithms, 3 steps
     warm = build_sample_fn(Config(cfg).merged_with({"sample": {"num_sampling_steps": 3}}),
@@ -510,19 +679,20 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict,
     want = model.depth * (cfg.sample.num_sampling_steps - 1)  # one forward per step
     expect_counts(got, {fwd: want}, f"{branch} sampling path")
     S = cfg.data.image_size
-    if imgs.shape != (BATCH, S, S, 3) or imgs.dtype != np.uint8:
-        fail(f"images {imgs.shape} {imgs.dtype}, expected ({BATCH}, {S}, {S}, 3) uint8")
+    if imgs.shape != (batch, S, S, 3) or imgs.dtype != np.uint8:
+        fail(f"images {imgs.shape} {imgs.dtype}, expected ({batch}, {S}, {S}, 3) uint8")
     s = model.input_size
-    if latents.shape != (BATCH, s, s, C) or not torch.isfinite(latents).all():
+    if latents.shape != (batch, s, s, C) or not torch.isfinite(latents).all():
         fail(f"latents {tuple(latents.shape)} not finite or of the wrong shape")
     if latents.float().std().item() == 0.0 or len(np.unique(imgs)) < 16:
         fail("constant latents or images")
     result = {
         "launches": got[fwd], "sample_s": t1 - t0, "decode_s": t2 - t1,
-        "samples_per_s": BATCH / (t2 - t0), "peak_bytes": peak,
+        "samples_per_s": batch / (t2 - t0), "peak_bytes": peak,
         "latent_std": latents.float().std().item(), "image_mean": float(imgs.mean()),
     }
-    log(f"[main] {branch} XL/1 euler-250 split-CFG batch {BATCH}: sampling "
+    log(f"[main] {branch} XL/1 {S}² euler-{cfg.sample.num_sampling_steps} split-CFG batch "
+        f"{batch}: sampling "
         f"{result['sample_s']:.3f} s, decode {result['decode_s']:.3f} s, "
         f"{result['samples_per_s']:.4f} samples/s, peak {peak / 2**30:.2f} GiB, "
         f"{fwd} launches {got[fwd]} [{device_info['smi']}]")
@@ -530,9 +700,10 @@ def phase_main_path(cfg: Config, model, seed: int, device_info: dict,
 
 
 @torch.no_grad()
-def phase_kernel_on_path(model, seed: int, branch: str = "production") -> dict:
+def phase_kernel_on_path(model, seed: int, branch: str = "production",
+                         batch: int = 2 * BATCH) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    B = 2 * BATCH
+    B = batch
     s = model.input_size
     x = torch.randn((B, s, s, model.in_channels), generator=gen, device="cuda")
     t = torch.rand((B,), generator=gen, device="cuda")
@@ -548,7 +719,8 @@ def phase_kernel_on_path(model, seed: int, branch: str = "production") -> dict:
     if not (rel <= PATH_TOL):
         fail(f"{branch} XL/1 forward with the kernel vs plain attention: relative error {rel} "
              f"> {PATH_TOL}")
-    log(f"[path] {branch} XL/1 forward B={B} depth {model.depth}, kernel vs plain attention: "
+    log(f"[path] {branch} XL/1 forward B={B} N={s * s} depth {model.depth}, kernel vs plain "
+        f"attention: "
         f"relative error {rel:.3e} (max {rel_max:.3e})")
     return {"rel_err": rel, "rel_max_err": rel_max}
 
@@ -560,11 +732,12 @@ def _training_loss(model, transport, x, y, t, x0, drop):
     return terms["loss"].mean() + terms["cos_loss"].mean()
 
 
-def phase_train_path(cfg: Config, model, seed: int, branch: str = "production") -> dict:
+def phase_train_path(cfg: Config, model, seed: int, branch: str = "production",
+                     batch: int = 2 * BATCH) -> dict:
     """XL/1 gradients of the training loss with both kernels against those
     with attention forced through the plain version (autograd of it)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    B, s, C = 2 * BATCH, model.input_size, model.in_channels
+    B, s, C = batch, model.input_size, model.in_channels
     transport = build_transport(cfg)
     x = torch.randn((B, s, s, C), generator=gen, device="cuda")
     y = torch.randint(0, cfg.data.num_classes, (B,), generator=gen, device="cuda")
@@ -587,9 +760,10 @@ def phase_train_path(cfg: Config, model, seed: int, branch: str = "production") 
     with_kernel, parts_kernel = grads()
     torch.cuda.synchronize()
     launches = counts()
-    # remat "dots" runs the forward kernel again in the backward
-    expect_counts(launches, {fwd: 2 * model.depth, bwd: model.depth},
-                  f"{branch} XL/1 training backward")
+    # remat "dots" runs the forward kernel again in the backward; the long
+    # route has no backward kernel
+    want = {fwd: 2 * model.depth} if bwd is None else {fwd: 2 * model.depth, bwd: model.depth}
+    expect_counts(launches, want, f"{branch} XL/1 training backward")
     with plain_attention(branch):
         plain, parts_plain = grads()
     rel = ((with_kernel - plain).norm() / plain.norm()).item()
@@ -599,14 +773,14 @@ def phase_train_path(cfg: Config, model, seed: int, branch: str = "production") 
         fail(f"{branch} XL/1 gradients with the kernels vs plain attention: relative error "
              f"{rel}, {rel_parts} (limit {PATH_TOL})")
     qkv_part = f", attn.qkv {rel_parts['attn.qkv']:.3e}" if "attn.qkv" in rel_parts else ""
-    log(f"[train-path] {branch} XL/1 loss gradients B={B} depth {model.depth}, kernels vs "
+    log(f"[train-path] {branch} XL/1 loss gradients B={B} N={s * s} depth {model.depth}, kernels vs "
         f"plain attention: relative error {rel:.3e}{qkv_part}")
     for key, r in rel_parts.items():
         if key != "attn.qkv":
             log(f"[train-path] {branch} XL/1 {key} gradients, kernels vs plain attention: "
                 f"relative error {r:.3e}")
     return {"rel_err": rel, **{f"rel_err_{key}": r for key, r in rel_parts.items()},
-            "launches": [launches[fwd], launches[bwd]]}
+            "launches": [launches[fwd], launches[bwd] if bwd else 0]}
 
 
 def phase_train_steps(seed: int, device_info: dict, branch: str = "production") -> dict:
@@ -729,8 +903,32 @@ def phase_no_rope(seed: int) -> dict:
     return {"kernel_on_path": on_path, "train_path": train_path}
 
 
+def phase_hires(seed: int, device: dict) -> dict:
+    """Phase 15: the long route at 1024²: XL/1 sampling + decode at per-batch
+    2 and the XL/1 forward at batch 4 against plain attention (production),
+    the same forward with qk-norm, and the loss gradients of both branches
+    at depth HIRES_GRAD_DEPTH, batch 2."""
+    cfg, model = build_xl(seed, "hires")
+    out = {"main_path": phase_main_path(cfg, model, seed, device, "hires", HIRES_BATCH),
+           "kernel_on_path": phase_kernel_on_path(model, seed, "hires", 2 * HIRES_BATCH)}
+    del model
+    torch.cuda.empty_cache()
+    _, model = build_xl(seed, "hires_qknorm")
+    out["qknorm_kernel_on_path"] = phase_kernel_on_path(model, seed, "hires_qknorm",
+                                                        2 * HIRES_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    for branch in ("hires", "hires_qknorm"):
+        with xl_depth(HIRES_GRAD_DEPTH):
+            cfg, model = build_xl(seed, branch)
+        out[f"{branch}_train_path"] = phase_train_path(cfg, model, seed, branch, HIRES_BATCH)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
-    row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward)
+    row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
             "replaces": f"vavae_tpu/ops/pallas/flash_attention.py:{replaces}",
             "launches": launches, "max_abs_err": summary["worst_err"], "ms": row["ms"],
@@ -753,9 +951,11 @@ def main(argv=None) -> int:
     kernels = phase_kernels(SEED)
     kernels.update(phase_bwd_kernel(SEED))
     kernels.update(phase_small_kernels(SEED))
+    kernels.update(phase_long_kernel(SEED))
     production = run_paths("production", device)
     qknorm = run_paths("qknorm", device)
     no_rope = phase_no_rope(SEED)
+    hires = phase_hires(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -768,11 +968,14 @@ def main(argv=None) -> int:
                       no_rope["train_path"]["launches"][0], kernels["attn_small_fwd"]),
         _kernel_entry("attn_small_bwd", "attn_small_bwd.cu", "94",
                       qknorm["train_steps"]["bwd_launches"], kernels["attn_small_bwd"]),
+        _kernel_entry("flash_fwd", "flash_fwd.cu", "163",
+                      hires["main_path"]["launches"], kernels["flash_fwd"]),
     ]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": device, "build_s": builds, "kernels": kernels,
-                       "production": production, "qknorm": qknorm, "no_rope": no_rope},
+                       "production": production, "qknorm": qknorm, "no_rope": no_rope,
+                       "hires": hires},
                       f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -84,16 +84,18 @@ def tiny_vae_config(tmp_path) -> str:
     return str(path)
 
 
-def tiny_vae_pair(tmp_path, seed: int = 0):
-    """JAX VA_VAE and the port's VA_VAE (CPU) sharing random weights."""
+def tiny_vae_pair(tmp_path, seed: int = 0, img_size: int = 16):
+    """JAX VA_VAE and the port's VA_VAE (CPU) sharing random weights. At an
+    ``img_size`` other than 16 the 8x8 attention level is gone and only the
+    mid-block attention runs, as in the f16d32 VAE at 1024²."""
     from vavae_tpu.tokenizer import VA_VAE as JaxVAE
     from vavae_tpu_torch.tokenizer import VA_VAE
     from vavae_tpu_torch.utils.weights import vae_state_from_jax
 
     cfg = tiny_vae_config(tmp_path)
-    jv = JaxVAE(cfg, img_size=16)
+    jv = JaxVAE(cfg, img_size=img_size)
     jv.params = randomize(jv.params, seed)
-    tv = VA_VAE(cfg, img_size=16, device="cpu")
+    tv = VA_VAE(cfg, img_size=img_size, device="cpu")
     tv.model.load_state_dict(vae_state_from_jax(jv.params), strict=True)
     return jv, tv
 

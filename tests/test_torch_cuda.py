@@ -10,14 +10,20 @@ import torch
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops import build
 from vavae_tpu_torch.ops.flash_attention import (
+    _LONG_DTYPE_PAIRS,
+    _check_flash_input,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
+    flash_attention_long,
+    flash_attention_long_reference,
     flash_attention_reference,
     fused_qkv_attention,
     fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
+    long_attention_reference,
+    rope_uncast,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -270,3 +276,146 @@ def test_cuda_flash_kernels_reject_unsupported_inputs():
         flash_attention(strided, strided, strided)
     with pytest.raises(ValueError, match="gradient must be"):
         flash_attention_bwd(z(1, 8, 2, 8), z(1, 8, 2, 8), z(1, 8, 2, 8), z(1, 8, 2, 4))
+
+
+# -- the long route (N > 1024): flash_fwd.cu ------------------------------------------
+
+
+def _all_counts():
+    return (fused_qkv_attention.launches, fused_qkv_attention.bwd_launches,
+            *_flash_counts(), flash_attention.long_launches)
+
+
+def _long_case(B, H, N, D, qk_dtype, v_dtype, seed=0, offset=0, device="cuda"):
+    """q̃, k̃, v as the long route hands them to the kernel: v the strided view
+    qkv[:, :, 2] of a (B, N, 3, H, D) projection starting ``offset`` elements
+    into its buffer; fp32 q̃, k̃ its q and k rotated with the fp32 tables,
+    bf16 q̃, k̃ its unrotated strided views (a ``use_rope: false`` model)."""
+    gen = torch.Generator().manual_seed(seed)
+    buf = torch.randn(offset + B * N * 3 * H * D, generator=gen).to(v_dtype).to(device)
+    qkv = buf[offset:].view(B, N, 3, H, D)
+    if qk_dtype == torch.bfloat16:
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    tables = (cos[:N], sin[:N])
+    return rope_uncast(qkv[:, :, 0], tables), rope_uncast(qkv[:, :, 1], tables), qkv[:, :, 2]
+
+
+def test_long_route_no_fallback_off_the_cpu():
+    """N > 1024 on neither the CPU nor CUDA raises, on both entry points."""
+    x = torch.empty((1, 1100, 3, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no attention path"):
+        fused_qkv_attention(x)
+    with pytest.raises(RuntimeError, match="no attention path"):
+        flash_attention(*x.unbind(dim=2))
+
+
+def test_long_kernel_refuses_cpu_tensors():
+    q, k, v = _long_case(1, 2, 1100, 8, torch.float32, torch.bfloat16, device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        flash_attention_long(q, k, v)
+
+
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16, torch.bfloat16),
+                                    (torch.float16, torch.float16, torch.float16)])
+def test_long_kernel_rejects_dtype_pairs(dtypes):
+    """The kernel takes fp32 q̃, k̃ with bf16 v, all bf16 or all fp32; the
+    wrapper refuses anything else before a launch (checked on CPU tensors)."""
+    q, k, v = (torch.zeros((1, 8, 2, 8), dtype=dt) for dt in dtypes)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _check_flash_input(q, k, v, dtype_pairs=_LONG_DTYPE_PAIRS)
+
+
+LONG_PAIRS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.float32)]
+
+
+def _assert_long_close(got, want, v_dtype):
+    """All fp32: summation order only, 1e-5 max-abs. With bf16 v: 2e-2
+    max-abs, the TPU kernel's tolerance, and 5e-3 relative (Frobenius) error:
+    the kernel and the plain version round P to bf16 against a running and a
+    final row max (about 2e-3 apart), while a dropped tail mask gives about
+    3e-2 at N = 1037 or 1100, under the max-abs limit."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if v_dtype == torch.float32:
+        assert err <= 1e-5
+    else:
+        assert err <= 2e-2
+        assert ((got - want).norm() / want.norm()).item() <= 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_dtype,v_dtype", LONG_PAIRS)
+@pytest.mark.parametrize("B,H,N,D", [(1, 4, 2048, 72), (2, 3, 1100, 64), (1, 2, 1037, 8)])
+def test_cuda_long_kernel_matches_plain_version(B, H, N, D, qk_dtype, v_dtype):
+    # limits as in _assert_long_close
+    _cuda_or_skip()
+    q, k, v = _long_case(B, H, N, D, qk_dtype, v_dtype)
+    before = _all_counts()
+    got = flash_attention_long(q, k, v)
+    torch.cuda.synchronize()
+    assert _all_counts() == (*before[:-1], before[-1] + 1)
+    want = flash_attention_long_reference(q, k, v)
+    assert got.dtype == want.dtype == qk_dtype
+    _assert_long_close(got, want, v_dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_long_kernel_misaligned_v():
+    """A bf16 v whose rows are not 16-byte aligned sends the TF32 kernel to
+    scalar loads, with the same results."""
+    _cuda_or_skip()
+    q, k, v = _long_case(1, 3, 1100, 72, torch.float32, torch.bfloat16, seed=1, offset=1)
+    assert v.data_ptr() % 16 != 0
+    got = flash_attention_long(q, k, v)
+    _assert_long_close(got, flash_attention_long_reference(q, k, v), v.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False])
+def test_cuda_long_route_entry_points(rope):
+    """Both entry points at N > 1024 on bf16 CUDA tensors launch flash_fwd
+    once and no other kernel; with RoPE the output is fp32 (q, k rotated with
+    the fp32 tables), without it bf16. Limits against the route's plain
+    version as in _assert_long_close."""
+    _cuda_or_skip()
+    B, N, H, D = 2, 1100, 4, 72
+    qkv = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(2))
+    qkv = qkv.bfloat16().cuda()
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    tables = (cos[:N], sin[:N]) if rope else None
+    want = long_attention_reference(*qkv.unbind(dim=2), tables)
+    for run in (lambda: fused_qkv_attention(qkv, rope=tables),
+                lambda: flash_attention(*qkv.unbind(dim=2), rope=tables)):
+        before = _all_counts()
+        got = run()
+        torch.cuda.synchronize()
+        assert _all_counts() == (*before[:-1], before[-1] + 1)
+        assert got.dtype == (torch.float32 if rope else torch.bfloat16)
+        _assert_long_close(got, want, qkv.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_long_route_autograd(dtype):
+    """loss.backward() through the long route on the card launches the
+    forward kernel once and no backward kernel (the backward is autograd of
+    the exact op); the gradients on qkv match autograd of the route's plain
+    version (bf16 3e-2 of max|ref|, fp32 1e-4)."""
+    _cuda_or_skip()
+    B, N, H, D = 1, 1100, 4, 72
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((B, N, 3, H, D), generator=gen).to(dtype).cuda().requires_grad_(True)
+    g = torch.randn((B, N, H, D), generator=gen).cuda()
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    tables = (cos[:N], sin[:N])
+    before = _all_counts()
+    out = fused_qkv_attention(x, rope=tables)
+    (out.float() * g).sum().backward()
+    torch.cuda.synchronize()
+    assert _all_counts() == (*before[:-1], before[-1] + 1)
+    xr = x.detach().clone().requires_grad_(True)
+    (long_attention_reference(*xr.unbind(dim=2), tables).float() * g).sum().backward()
+    assert _max_rel(x.grad, xr.grad) <= (3e-2 if dtype == torch.bfloat16 else 1e-4)

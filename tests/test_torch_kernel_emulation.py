@@ -1,17 +1,18 @@
 """The CUDA attention kernels' own sources, run on the CPU.
 
 There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu``,
-``nat_attention_bwd.cu``, ``attn_small_fwd.cu`` and ``attn_small_bwd.cu`` (with
-the ``.cuh`` headers they include inlined) are compiled as host C++ against a
-small emulation of the CUDA features they use
-(below): one std::thread per CUDA thread, std::barrier for
-``__syncthreads``, ``__syncwarp`` and the shuffles, and ``mma.sync`` /
-``ldmatrix`` evaluated per warp from the documented fragment layouts.
-Shared memory starts as NaN, so a read of an element the kernel never
-wrote shows up in the output. The kernels then run blocks one after the
-other on small shapes and are held against their plain versions
-(``fused_qkv_attention_reference``, ``fused_qkv_attention_bwd_reference``,
-``flash_attention_reference``, ``flash_attention_bwd_reference``).
+``nat_attention_bwd.cu``, ``attn_small_fwd.cu``, ``attn_small_bwd.cu`` and
+``flash_fwd.cu`` (with the ``.cuh`` headers they include inlined) are
+compiled as host C++ against a small emulation of the CUDA features they
+use (below): one std::thread per CUDA thread, std::barrier for
+``__syncthreads``, ``__syncwarp`` and the shuffles, ``mma.sync`` (bf16 and
+TF32) and ``ldmatrix`` evaluated per warp from the documented fragment
+layouts, and ``cvt.rna.tf32``. Shared memory starts as NaN, so a read of
+an element the kernel never wrote shows up in the output. The kernels then
+run blocks one after the other on small shapes and are held against their
+plain versions (``fused_qkv_attention_reference``,
+``fused_qkv_attention_bwd_reference``, ``flash_attention_reference``,
+``flash_attention_bwd_reference``, ``flash_attention_long_reference``).
 
 This checks the kernels' indexing, masking, online softmax and fragment
 bookkeeping; whether it compiles for sm_90a and how fast it runs only the
@@ -31,10 +32,12 @@ from vavae_tpu_torch.models.posembed import rope_2d_freqs
 from vavae_tpu_torch.ops.flash_attention import (
     _strides,
     flash_attention_bwd_reference,
+    flash_attention_long_reference,
     flash_attention_reference,
     fold_sin,
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
+    rope_uncast,
 )
 
 CSRC = Path(__file__).resolve().parents[1] / "vavae_tpu_torch/ops/csrc"
@@ -42,6 +45,7 @@ SOURCE = CSRC / "nat_attention_fwd.cu"
 BWD_SOURCE = CSRC / "nat_attention_bwd.cu"
 SMALL_SOURCE = CSRC / "attn_small_fwd.cu"
 SMALL_BWD_SOURCE = CSRC / "attn_small_bwd.cu"
+LONG_SOURCE = CSRC / "flash_fwd.cu"
 
 EMULATION = r"""#include <barrier>
 #include <cmath>
@@ -131,6 +135,37 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2
 }
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+// cvt.rna.tf32.f32: to nearest on the 10-bit mantissa, ties away from zero
+inline float emu_round_tf32(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & 0xffffe000u;
+  return __uint_as_float(u);
+}
+// the tensor cores read only the TF32 bits of each operand
+inline float tf32_of(uint32_t u) { return __uint_as_float(u & 0xffffe000u); }
+inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  int t = threadIdx.x, w = t / 32, base = w * 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  g_warp_bar[w]->arrive_and_wait();
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    int g = l / 4, c = l % 4; const uint32_t* aa = g_mma_a[base + l]; const uint32_t* bb = g_mma_b[base + l];
+    A[g][c] = tf32_of(aa[0]); A[g+8][c] = tf32_of(aa[1]);
+    A[g][c+4] = tf32_of(aa[2]); A[g+8][c+4] = tf32_of(aa[3]);
+    B[c][g] = tf32_of(bb[0]); B[c+4][g] = tf32_of(bb[1]);
+  }
+  int lane = t % 32, g = lane / 4, c = lane % 4;
+  for (int k = 0; k < 8; ++k) {
+    d[0] += A[g][k] * B[k][2*c]; d[1] += A[g][k] * B[k][2*c+1];
+    d[2] += A[g+8][k] * B[k][2*c]; d[3] += A[g+8][k] * B[k][2*c+1];
+  }
+  g_warp_bar[w]->arrive_and_wait();
+}
 inline const void* g_ldm_ptr[1024];
 inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row) {
   int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
@@ -162,19 +197,22 @@ def expand_includes(path: Path, seen=None) -> str:
 
 
 def _host_source(src: str, launches: int = 2) -> str:
-    """The kernel source with shared memory, the two inline-PTX helpers and
+    """The kernel source with shared memory, the four inline-PTX helpers and
     its ``launches`` ``<<<...>>>`` launches routed to the emulation."""
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = src.replace("extern __shared__ __align__(16) unsigned char mma_smem[];",
                       "unsigned char* mma_smem = (unsigned char*)g_smem;")
-    for name, emu, sig in [
-        ("mma_m16n8k16_bf16", "emu_mma(d, a, b)",
+    for ret, name, emu, sig in [
+        ("void", "mma_m16n8k16_bf16", "emu_mma(d, a, b)",
          "float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]"),
-        ("ldmatrix_x2_trans", "emu_ldmatrix_x2_trans(b0, b1, row)",
+        ("void", "mma_m16n8k8_tf32", "emu_mma_tf32(d, a, b)",
+         "float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]"),
+        ("float", "round_tf32", "return emu_round_tf32(x)", "float x"),
+        ("void", "ldmatrix_x2_trans", "emu_ldmatrix_x2_trans(b0, b1, row)",
          "uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row"),
     ]:
-        src, n = re.subn(rf"__device__ __forceinline__ void {name}\(.*?\n}}\n",
-                         f"inline void {name}({sig}) {{ {emu}; }}\n", src, flags=re.S)
+        src, n = re.subn(rf"__device__ __forceinline__ {ret} {name}\(.*?\n}}\n",
+                         f"inline {ret} {name}({sig}) {{ {emu}; }}\n", src, flags=re.S)
         assert n == 1, name
     src, n = re.subn(
         r"(\w+<[^;<>]*>)<<<(.*?)>>>\((.*?)\);",
@@ -500,3 +538,131 @@ def test_small_bwd_emulation_catches_mutations(tmp_path, name):
     q, k, v, g, tables = small_case(1, 64, 1, 72, True, torch.bfloat16, seed=5)
     got = run_small_bwd(fn, q, k, v, g, tables)
     assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) > 3e-2
+
+
+# -- the long route: flash_fwd.cu ---------------------------------------------------
+
+
+def long_function(lib: ctypes.CDLL):
+    fn = lib.flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.fixture(scope="module")
+def long_kernel(tmp_path_factory):
+    src = expand_includes(LONG_SOURCE)
+    return long_function(build_host_library(tmp_path_factory.mktemp("long_emu"), src, 2))
+
+
+def run_long(kernel, q, k, v):
+    B, N, H, D = q.shape
+    out = torch.full((B, N, H, D), float("nan"), dtype=q.dtype)
+    strides = _strides(q, k, v)
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 ctypes.addressof(strides), B, N, H, D, code[q.dtype], code[v.dtype], None)
+    assert err == 0
+    return out
+
+
+def long_case(B, N, H, D, qk_dtype, v_dtype, seed=0, offset=0):
+    """q̃, k̃ and v as the long route hands them to the kernel: v the strided
+    view qkv[:, :, 2] of a (B, N, 3, H, D) projection that starts ``offset``
+    elements into its buffer; q̃, k̃ its q and k rotated with the fp32 tables
+    (fp32, contiguous) or, for bf16 q̃, k̃, its unrotated strided views (a
+    ``use_rope: false`` model)."""
+    gen = torch.Generator().manual_seed(seed + N)
+    buf = torch.randn(offset + B * N * 3 * H * D, generator=gen).to(v_dtype)
+    qkv = buf[offset:].view(B, N, 3, H, D)
+    if qk_dtype == torch.bfloat16:
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    tables = _tables(N, D)
+    q, k = (rope_uncast(qkv[:, :, i], tables) for i in range(2))
+    assert q.dtype == torch.float32
+    return q, k, qkv[:, :, 2]
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+LONG_REL_TOL = 5e-3
+
+
+def long_rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def assert_long_close(got, want, v_dtype):
+    """All fp32: summation order only, 1e-5 max-abs. With bf16 v (TF32 or
+    bf16 q̃·k̃ᵀ, P rounded to bf16 against a running max where the plain
+    version rounds it against the final one): 2e-2 max-abs, the TPU kernel's
+    tolerance, and LONG_REL_TOL relative (Frobenius) error, the limit that
+    the planted faults below must exceed."""
+    err = (got.float() - want.float()).abs().max().item()
+    if v_dtype == torch.float32:
+        assert err <= 1e-5
+    else:
+        assert err <= 2e-2
+        assert long_rel_err(got, want) <= LONG_REL_TOL
+
+
+@pytest.mark.parametrize("B,N,H,D,qk_dtype,v_dtype", [
+    (1, 100, 2, 72, F32, BF16),   # the RoPE models' pair, N not a multiple of 64
+    (2, 130, 1, 16, F32, BF16),   # three query tiles, a ragged last key tile
+    (1, 100, 2, 72, BF16, BF16),  # use_rope: false, q and k strided views
+    (1, 70, 3, 72, F32, F32),     # fp32 models: the FMA kernel
+])
+def test_long_kernel_source_matches_plain_version(long_kernel, B, N, H, D, qk_dtype, v_dtype):
+    q, k, v = long_case(B, N, H, D, qk_dtype, v_dtype)
+    got = run_long(long_kernel, q, k, v)
+    want = flash_attention_long_reference(q, k, v)
+    assert got.dtype == want.dtype == qk_dtype
+    assert not torch.isnan(got.float()).any()
+    assert_long_close(got, want, v_dtype)
+
+
+def test_long_kernel_source_misaligned_input(long_kernel):
+    """A bf16 v whose rows are not 16-byte aligned sends the TF32 kernel to
+    scalar loads for all three inputs."""
+    q, k, v = long_case(1, 90, 2, 72, F32, BF16, seed=1, offset=1)
+    assert v.data_ptr() % 16 != 0
+    got = run_long(long_kernel, q, k, v)
+    assert_long_close(got, flash_attention_long_reference(q, k, v), v.dtype)
+
+
+def test_long_emulation_catches_mutation(tmp_path):
+    """A TF32 B fragment read from the wrong column (kt[0] for kt[4]) must
+    fail the check above: the emulation runs the TF32 path's fragments."""
+    old = "__float_as_uint(kt[4])"
+    source = expand_includes(LONG_SOURCE)
+    assert source.count(old) == 1
+    fn = long_function(build_host_library(tmp_path, source.replace(old, "__float_as_uint(kt[0])"), 2))
+    q, k, v = long_case(1, 100, 2, 72, F32, BF16)
+    got = run_long(fn, q, k, v)
+    assert (got - flash_attention_long_reference(q, k, v)).abs().max().item() > 2e-2
+
+
+LONG_MUTATIONS = {
+    # the zero-filled keys past N enter the softmax with logit 0
+    "no_tail_mask": ("s[j][e] = valid ? s[j][e] * scale : -INFINITY;",
+                     "s[j][e] = s[j][e] * scale + 0.f * valid;"),
+    # the running sums and the accumulator are not rescaled when the row max grows
+    "no_rescale": ("    const float alpha0 = expf(m0 - mn0);\n    const float alpha1 = expf(m1 - mn1);",
+                   "    const float alpha0 = 1.f;\n    const float alpha1 = 1.f;"),
+}
+
+
+@pytest.mark.parametrize("qk_dtype", [F32, BF16])
+@pytest.mark.parametrize("name", list(LONG_MUTATIONS))
+def test_long_emulation_catches_planted_faults(tmp_path, name, qk_dtype):
+    """A dropped tail mask or a dropped rescale in the shared mma.sync body
+    must exceed LONG_REL_TOL, for the TF32 and the bf16 q̃·k̃ᵀ, at an N
+    whose last key tile holds one key (the chip check's N = 4,033 case)."""
+    old, new = LONG_MUTATIONS[name]
+    source = expand_includes(LONG_SOURCE)
+    assert source.count(old) == 1, name
+    fn = long_function(build_host_library(tmp_path, source.replace(old, new), 2))
+    q, k, v = long_case(1, 129, 2, 72, qk_dtype, BF16)
+    got = run_long(fn, q, k, v)
+    assert long_rel_err(got, flash_attention_long_reference(q, k, v)) > LONG_REL_TOL

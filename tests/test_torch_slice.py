@@ -1,7 +1,8 @@
 """The whole first slice on the CPU: tiny DiT → split-CFG euler sampling →
 un-normalisation → tiny VA-VAE decode to uint8, through the port and
 through the JAX package's own ``build_sample_fn`` and ``VA_VAE``; once with
-the production block and once with qk-norm.
+the production block and once with qk-norm, and once at 48×48 latents
+(N = 2,304 tokens, the port's long route).
 
 The JAX sampler draws its noise inside ``generate``; the test draws the
 same noise from the same key split and hands it to the port's
@@ -27,33 +28,36 @@ CFG = {
 }
 
 
-def _check_slice(tmp_path, **dit_kw):
+def _check_slice(tmp_path, cfg=CFG, labels=(1, 5, 9), **dit_kw):
     from vavae_tpu.pipelines.sample import build_sample_fn as jax_build_sample_fn
     from vavae_tpu.utils.config import Config as JaxConfig
     from vavae_tpu_torch.pipelines.sample import build_sample_fn
     from vavae_tpu_torch.utils.config import Config
 
-    jm, params, tm = tiny_dit_pair(seed=6, patch_size=2, **dit_kw)
-    jv, tv = tiny_vae_pair(tmp_path, seed=7)
+    S = cfg["data"]["image_size"]
+    s = S // cfg["vae"]["downsample_ratio"]
+    jm, params, tm = tiny_dit_pair(seed=6, **{"patch_size": 2, "input_size": s, **dit_kw})
+    jv, tv = tiny_vae_pair(tmp_path, seed=7, img_size=S)
     rs = np.random.default_rng(8)
     stats = (rs.standard_normal((1, 4, 1, 1)).astype(np.float32),
              rs.uniform(0.5, 2.0, (1, 4, 1, 1)).astype(np.float32))
-    labels = np.array([1, 5, 9], np.int32)
+    labels = np.array(labels, np.int32)
+    B = len(labels)
 
     rng = jax.random.PRNGKey(11)
-    jgen = jax_build_sample_fn(JaxConfig(CFG), jm, params, stats)
+    jgen = jax_build_sample_fn(JaxConfig(cfg), jm, params, stats)
     want = np.asarray(jgen(rng, jnp.asarray(labels)))
     _, z_rng = jax.random.split(rng)  # generate's own draw of the initial noise
-    z = np.array(jax.random.normal(z_rng, (3, 8, 8, 4), jnp.float32))
+    z = np.array(jax.random.normal(z_rng, (B, s, s, 4), jnp.float32))
 
-    gen = build_sample_fn(Config(CFG), tm, stats, device="cpu")
+    gen = build_sample_fn(Config(cfg), tm, stats, device="cpu")
     got = gen(labels, z=z).numpy()
-    assert got.shape == want.shape == (3, 8, 8, 4)
+    assert got.shape == want.shape == (B, s, s, 4)
     assert max_rel(got, want) < 1e-4
 
     want_img = jv.decode_to_images(jnp.asarray(want))
     got_img = tv.decode_to_images(got)
-    assert got_img.dtype == np.uint8 and got_img.shape == (3, 16, 16, 3)
+    assert got_img.dtype == np.uint8 and got_img.shape == (B, S, S, 3)
     assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
 
 
@@ -65,6 +69,23 @@ def test_slice_qknorm_sampling_and_decode_match_jax(tmp_path):
     """The same with RMSNorm q/k norms: attention goes through the port's
     ``dot_product_attention`` (on the card, ``flash_attention``)."""
     _check_slice(tmp_path, use_qknorm=True)
+
+
+def test_slice_long_sequence_sampling_and_decode_match_jax(tmp_path, monkeypatch):
+    """The same at N > 1024, as at 1024² on the f16 VAE: a DiT of depth 2,
+    hidden 64, 2 heads, patch 1 on 48×48 latents (N = 2,304 tokens, the
+    port's long route), 96² images from the f2 VAE, whose 8×8 attention level
+    is gone so only its mid-block attention runs. Every DiT attention call
+    takes the long route."""
+    from vavae_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    original = fa._long_forward
+    monkeypatch.setattr(fa, "_long_forward", lambda *a: calls.append(1) or original(*a))
+    cfg = {**CFG, "data": {**CFG["data"], "image_size": 96},
+           "sample": {**CFG["sample"], "num_sampling_steps": 6}}
+    _check_slice(tmp_path, cfg, labels=(2, 7), patch_size=1, hidden_size=64, num_heads=2)
+    assert len(calls) == 2 * (6 - 1)  # depth 2, one forward per step
 
 
 def test_demo_sampling_writes_grid(tmp_path, monkeypatch):

@@ -29,6 +29,21 @@ def test_vae_decode_matches_jax(tmp_path):
     assert any(k.startswith("decoder.up.1.attn.0") for k in tv.model.state_dict())
 
 
+def test_vae_decode_without_level_attention_matches_jax(tmp_path):
+    """At 32² the 8×8 attention level of ``attn_resolutions`` matches no
+    level of the f2 VAE, as the f16d32 VAE's 16×16 level matches none at
+    1024²: only the mid-block attention (over 16×16 = 256 tokens) runs."""
+    jv, tv = tiny_vae_pair(tmp_path, seed=8, img_size=32)
+    z = np.random.default_rng(9).standard_normal((2, 16, 16, 4)).astype(np.float32)
+    want = np.asarray(jv.decode(jnp.asarray(z)))
+    got = tv.decode(torch.from_numpy(z)).numpy()
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    assert max_rel(got, want) < TOL
+    keys = tv.model.state_dict()
+    assert any(k.startswith("decoder.mid.attn_1") for k in keys)
+    assert not any(".attn." in k for k in keys if k.startswith(("decoder.up", "encoder.down")))
+
+
 def test_vae_encode_moments_match_jax(tmp_path):
     jv, tv = tiny_vae_pair(tmp_path, seed=2)
     x = np.random.default_rng(3).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)

@@ -167,7 +167,9 @@ class Attention(nn.Module):
     normalises q and k and hands them, with the strided view of v, to
     ``dot_product_attention``, which runs ``flash_attention`` on the card.
     Both run hand-written kernels on the card and the plain versions on the
-    CPU."""
+    CPU. Beyond 1024 tokens both reach the long route, whose output is fp32
+    for RoPE models (q, k rotated with the fp32 tables, as in JAX); ``proj``
+    casts it to the compute dtype, as the JAX ``nn.Dense`` does."""
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
                  use_rmsnorm: bool = False, dtype: torch.dtype = torch.float32):

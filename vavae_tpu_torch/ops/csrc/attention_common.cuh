@@ -1,6 +1,6 @@
 // Pieces shared by the attention kernels (attention_fwd.cuh, attention_bwd.cuh):
-// strided tensor views, rounding to the input dtype, the mma.sync and ldmatrix
-// wrappers, and the tile loads into shared memory.
+// strided tensor views, rounding to the input dtype, the mma.sync (bf16 and
+// TF32) and ldmatrix wrappers, and the tile loads into shared memory.
 //
 // Every tensor reaches a kernel as a View: a base pointer and element strides
 // over (batch, token, head), the head dim contiguous. The fused-qkv entries
@@ -40,10 +40,12 @@ inline View contiguous_view(const void* ptr, int N, int H, int D) {
   return View{ptr, (long long)N * H * D, (long long)H * D, (long long)D};
 }
 
-// 16-byte loads need every row start of a bf16 tensor on a 16-byte boundary
-inline bool rows_aligned16(const View& v, int D) {
-  return D % 8 == 0 && reinterpret_cast<uintptr_t>(v.ptr) % 16 == 0 && v.sb % 8 == 0 &&
-         v.sn % 8 == 0 && v.sh % 8 == 0;
+// 16-byte loads need every row start of the tensor (elements of elem_bytes
+// bytes: 2 for bf16, 4 for fp32) on a 16-byte boundary
+inline bool rows_aligned16(const View& v, int D, int elem_bytes = 2) {
+  const int per = 16 / elem_bytes;
+  return D % per == 0 && reinterpret_cast<uintptr_t>(v.ptr) % 16 == 0 && v.sb % per == 0 &&
+         v.sn % per == 0 && v.sh % per == 0;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -110,6 +112,26 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// x rounded to TF32 (10-bit mantissa, to nearest, ties away from zero), as
+// an fp32 bit pattern that the TF32 tensor-core product reads exactly
+__device__ __forceinline__ float round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d += a (16x8 TF32, row-major fragment) * b (8x8 TF32, col-major fragment):
+// a0 (row g, col c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4);
+// b0 (row c, col g), b1 (c + 4, g), for g = lane / 4, c = lane % 4
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // B fragments of two 8x8 bf16 blocks, transposed on the way (ldmatrix):
 // lanes 0-7 address the rows of the first block, lanes 8-15 the second.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
@@ -139,6 +161,30 @@ __device__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* base, lo
       *reinterpret_cast<uint4*>(dst + r * LD + d) = v;
     } else {
       dst[r * LD + d] = in ? *src : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// One 64-row fp32 tile into shared memory as TF32-rounded fp32, row-major
+// with stride LD, zero past N and past D. VEC = elements per load: 4 (16
+// bytes) when rows_aligned16(., D, 4) holds, else 1.
+template <int DP, int LD, int VEC>
+__device__ void load_tile_tf32(float* dst, const float* base, long long row_stride, int n0, int N,
+                               int D) {
+  constexpr int kChunks = DP / VEC;
+  for (int idx = threadIdx.x; idx < kBlockM * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks;
+    const int d = (idx - r * kChunks) * VEC;
+    const int n = n0 + r;
+    const bool in = n < N && d < D;
+    const float* src = base + n * row_stride + d;
+    if constexpr (VEC == 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) v = *reinterpret_cast<const float4*>(src);
+      *reinterpret_cast<float4*>(dst + r * LD + d) =
+          make_float4(round_tf32(v.x), round_tf32(v.y), round_tf32(v.z), round_tf32(v.w));
+    } else {
+      dst[r * LD + d] = in ? round_tf32(*src) : 0.f;
     }
   }
 }

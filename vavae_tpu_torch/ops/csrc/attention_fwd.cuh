@@ -1,17 +1,19 @@
 // Attention forward with in-kernel split-half RoPE, for sm_90a: the device
-// body of nat_attention_fwd.cu (fused qkv) and attn_small_fwd.cu (separate
-// q, k, v). Each reads q, k and v through their Views, in place, and writes
+// body of nat_attention_fwd.cu (fused qkv), attn_small_fwd.cu (separate
+// q, k, v) and flash_fwd.cu (the long route: q, k rotated beforehand, no
+// tables). Each reads q, k and v through their Views, in place, and writes
 // a contiguous (B, N, H, D) output.
 //
 // Numerics follow the TPU kernels (_nat_fwd_kernel, _attn_kernel_small_rope,
-// _attn_kernel_small):
+// _attn_kernel_small, _flash_kernel):
 //   q~ = q*cos + roll(q, D/2)*sin'   in the input dtype (sin' sign-folded,
 //                                    equal to q*cos + rot_half(q)*sin)
 //   s  = (q~ . k~^T) * D^-0.5       fp32 accumulation
-//   p  = exp(s - rowmax)            fp32, rounded to the input dtype for P.V
-//   o  = (P . V) / rowsum(p)        fp32 accumulation, division last
+//   p  = exp(s - rowmax)            fp32, rounded to v's dtype for P.V
+//   o  = (P . V) / rowsum(p)        fp32 accumulation, division last, in q's dtype
 // The softmax is one-pass online over 64-key tiles (running max and sum in
-// fp32), which equals the full softmax of the TPU kernels to rounding.
+// fp32), which equals the full softmax of the small TPU kernels to rounding
+// and is _flash_kernel's own scheme over smaller tiles.
 //
 // Design. Each block owns one (batch, head, 64-query) tile and streams K/V
 // tiles of 64 keys through shared memory; nothing but the output leaves the
@@ -24,6 +26,11 @@
 //    in shared memory, one (d, d + D/2) pair per item. The scores stay in
 //    registers: the fp32 accumulator of Q.K^T is rounded in place into the A
 //    operand of P.V, whose V operand comes through ldmatrix.trans.
+//  - fp32 q, k with bf16 v (flash_fwd.cu on the RoPE models, whose q, k
+//    reach it rotated with fp32 tables, hence fp32): the same kernel with
+//    q, k held as TF32-rounded fp32 in shared memory and q.k^T on TF32
+//    mma.sync m16n8k8 (fp32 accumulate); P.V and the softmax as for bf16;
+//    the output in fp32.
 //  - fp32 (tests and checks): 256 threads run both products as fp32 FMAs,
 //    4x4 register-blocked.
 // What keeps it off its bound (bytes, at the main paths' shapes): K/V are
@@ -176,17 +183,34 @@ attn_fwd_kernel(View q, View k, View v, View out, const float* __restrict__ cos_
   }
 }
 
-// DP = head dim padded to a multiple of 16; VEC as in load_tile_bf16
-template <int DP, int VEC>
+// two neighbouring output columns of a row, as T
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  dst[0] = x;
+  dst[1] = y;
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
+
+// TQK = dtype of q, k and the output: __nv_bfloat16 (q.k^T on bf16
+// m16n8k16, optional RoPE) or float (q.k^T on TF32 m16n8k8 over
+// TF32-rounded q, k; no RoPE; the fp32 output of flash_fwd.cu). v is bf16
+// either way. DP = head dim padded to a multiple of 16; VEC as in
+// load_tile_bf16 (8: every input's rows are 16-byte aligned).
+template <typename TQK, int DP, int VEC>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ cos_t,
                     const float* __restrict__ sin_t, int N, int D, float scale, int use_rope) {
-  constexpr int LD = DP + 8;  // row stride (bf16) of q_s, k_s, v_s: conflict-free fragments
+  constexpr bool kTf32 = sizeof(TQK) == 4;
+  constexpr int LD = DP + 8;  // row stride (bf16) of v_s (and q_s, k_s): conflict-free fragments
+  // row stride of q_s, k_s: fp32 rows of DP + 4 put the eight fragment rows
+  // of a TF32 load on distinct bank quads
+  constexpr int LDQ = kTf32 ? DP + 4 : LD;
   constexpr int NT = DP / 8;  // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* k_s = q_s + kBlockM * LD;
-  __nv_bfloat16* v_s = k_s + kBlockN * LD;
+  TQK* q_s = reinterpret_cast<TQK*>(mma_smem);
+  TQK* k_s = q_s + kBlockM * LDQ;
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(k_s + kBlockN * LDQ);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -196,15 +220,19 @@ attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   using T = __nv_bfloat16;
-  const T* __restrict__ qb = head_base<const T>(q, b, h);
-  const T* __restrict__ kb = head_base<const T>(k, b, h);
+  const TQK* __restrict__ qb = head_base<const TQK>(q, b, h);
+  const TQK* __restrict__ kb = head_base<const TQK>(k, b, h);
   const T* __restrict__ vb = head_base<const T>(v, b, h);
-  const bool rope = use_rope != 0;
+  const bool rope = !kTf32 && use_rope != 0;
 
-  load_tile_bf16<DP, LD, VEC>(q_s, qb, q.sn, q0, N, D);
-  if (rope) {
-    __syncthreads();
-    rotate_tile_bf16<LD>(q_s, q0, N, D, cos_t, sin_t);
+  if constexpr (kTf32) {
+    load_tile_tf32<DP, LDQ, VEC == 8 ? 4 : 1>(q_s, qb, q.sn, q0, N, D);
+  } else {
+    load_tile_bf16<DP, LD, VEC>(q_s, qb, q.sn, q0, N, D);
+    if (rope) {
+      __syncthreads();
+      rotate_tile_bf16<LD>(q_s, q0, N, D, cos_t, sin_t);
+    }
   }
 
   float o[NT][4];
@@ -213,14 +241,22 @@ attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ 
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;              // running sums
 
-  const __nv_bfloat16* q_warp = q_s + (warp * 16 + g) * LD + 2 * c;
+  // this lane's first A-fragment element: row g, column c (TF32) or the
+  // column pair 2c (bf16)
+  const TQK* q_warp = q_s + (warp * 16 + g) * LDQ + (kTf32 ? c : 2 * c);
   for (int k0 = 0; k0 < N; k0 += kBlockN) {
     __syncthreads();  // the previous tile's readers are done with k_s, v_s
-    load_tile_bf16<DP, LD, VEC>(k_s, kb, k.sn, k0, N, D);
+    if constexpr (kTf32) {
+      load_tile_tf32<DP, LDQ, VEC == 8 ? 4 : 1>(k_s, kb, k.sn, k0, N, D);
+    } else {
+      load_tile_bf16<DP, LD, VEC>(k_s, kb, k.sn, k0, N, D);
+    }
     load_tile_bf16<DP, LD, VEC>(v_s, vb, v.sn, k0, N, D);
-    if (rope) {
-      __syncthreads();
-      rotate_tile_bf16<LD>(k_s, k0, N, D, cos_t, sin_t);
+    if constexpr (!kTf32) {
+      if (rope) {
+        __syncthreads();
+        rotate_tile_bf16<LD>(k_s, k0, N, D, cos_t, sin_t);
+      }
     }
     __syncthreads();
 
@@ -228,16 +264,31 @@ attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ 
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (kTf32) {
 #pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const __nv_bfloat16* qa = q_warp + ks * 16;
-      const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * LD), ld_pair(qa + 8),
-                             ld_pair(qa + 8 * LD + 8)};
+      for (int ks = 0; ks < DP / 8; ++ks) {
+        const float* qa = q_warp + ks * 8;
+        const uint32_t a[4] = {__float_as_uint(qa[0]), __float_as_uint(qa[8 * LDQ]),
+                               __float_as_uint(qa[4]), __float_as_uint(qa[8 * LDQ + 4])};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* kt = k_s + (j * 8 + g) * LD + ks * 16 + 2 * c;
-        const uint32_t bb[2] = {ld_pair(kt), ld_pair(kt + 8)};
-        mma_m16n8k16_bf16(s[j], a, bb);
+        for (int j = 0; j < 8; ++j) {
+          const float* kt = k_s + (j * 8 + g) * LDQ + ks * 8 + c;
+          const uint32_t bb[2] = {__float_as_uint(kt[0]), __float_as_uint(kt[4])};
+          mma_m16n8k8_tf32(s[j], a, bb);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const T* qa = q_warp + ks * 16;
+        const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * LD), ld_pair(qa + 8),
+                               ld_pair(qa + 8 * LD + 8)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const T* kt = k_s + (j * 8 + g) * LD + ks * 16 + 2 * c;
+          const uint32_t bb[2] = {ld_pair(kt), ld_pair(kt + 8)};
+          mma_m16n8k16_bf16(s[j], a, bb);
+        }
       }
     }
 
@@ -305,27 +356,25 @@ attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ 
     }
   }
 
-  T* ob = head_base<T>(out, b, h);
+  TQK* ob = head_base<TQK>(out, b, h);
   const int r0 = q0 + warp * 16 + g;
 #pragma unroll
   for (int half_row = 0; half_row < 2; ++half_row) {
     const int n = r0 + 8 * half_row;
     if (n >= N) continue;
     const float l = half_row ? l1 : l0;
-    __nv_bfloat16* dst = ob + n * out.sn;
+    TQK* dst = ob + n * out.sn;
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int d = t * 8 + 2 * c;  // even, and D is even: d < D covers d + 1
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(dst + d) =
-            __floats2bfloat162_rn(o[t][2 * half_row] / l, o[t][2 * half_row + 1] / l);
+      if (d < D) store_pair(dst + d, o[t][2 * half_row] / l, o[t][2 * half_row + 1] / l);
     }
   }
 }
 
 // q, k, v: inputs; out: a (B, N, H, D) output with 4-byte aligned rows (the
 // wrappers allocate it contiguous); cos, sin: (N, D) fp32 tables (sin
-// sign-folded), read only when use_rope.
+// sign-folded), read only when use_rope (never by the TF32 kernel).
 struct FwdArgs {
   View q, k, v, out;
   const float* cos_t;
@@ -334,26 +383,27 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-template <int DP, int VEC>
+template <typename TQK, int DP, int VEC>
 cudaError_t launch_fwd_mma(const FwdArgs& a) {
-  const size_t smem = sizeof(__nv_bfloat16) * 3 * kBlockM * (DP + 8);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma_kernel<DP, VEC>,
+  constexpr int LDQ = sizeof(TQK) == 4 ? DP + 4 : DP + 8;  // as in the kernel
+  const size_t smem = sizeof(TQK) * 2 * kBlockM * LDQ + sizeof(__nv_bfloat16) * kBlockN * (DP + 8);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma_kernel<TQK, DP, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + kBlockM - 1) / kBlockM, a.H, a.B);
   const float scale = 1.0f / sqrtf((float)a.D);
-  attn_fwd_mma_kernel<DP, VEC><<<grid, kMmaThreads, smem, a.stream>>>(
+  attn_fwd_mma_kernel<TQK, DP, VEC><<<grid, kMmaThreads, smem, a.stream>>>(
       a.q, a.k, a.v, a.out, a.cos_t, a.sin_t, a.N, a.D, scale, a.use_rope);
   return cudaGetLastError();
 }
 
-template <int VEC>
+template <typename TQK, int VEC>
 cudaError_t dispatch_fwd_mma_dp(const FwdArgs& a) {
-  if (a.D <= 32) return launch_fwd_mma<32, VEC>(a);
-  if (a.D <= 64) return launch_fwd_mma<64, VEC>(a);
-  if (a.D <= 80) return launch_fwd_mma<80, VEC>(a);
-  if (a.D <= 128) return launch_fwd_mma<128, VEC>(a);
-  return launch_fwd_mma<256, VEC>(a);
+  if (a.D <= 32) return launch_fwd_mma<TQK, 32, VEC>(a);
+  if (a.D <= 64) return launch_fwd_mma<TQK, 64, VEC>(a);
+  if (a.D <= 80) return launch_fwd_mma<TQK, 80, VEC>(a);
+  if (a.D <= 128) return launch_fwd_mma<TQK, 128, VEC>(a);
+  return launch_fwd_mma<TQK, 256, VEC>(a);
 }
 
 template <int NJ>
@@ -371,11 +421,14 @@ cudaError_t launch_fwd_f32(const FwdArgs& a) {
   return cudaGetLastError();
 }
 
+inline bool valid_shape(const FwdArgs& a) {
+  return a.B >= 1 && a.N >= 1 && a.H >= 1 && a.D >= 2 && a.D <= 256 && !(a.D & 1);
+}
+
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). Needs
 // B, N, H >= 1 and an even D <= 256.
 cudaError_t attention_fwd(const FwdArgs& a, int dtype) {
-  if (a.B < 1 || a.N < 1 || a.H < 1 || a.D < 2 || a.D > 256 || (a.D & 1))
-    return cudaErrorInvalidValue;
+  if (!valid_shape(a)) return cudaErrorInvalidValue;
   if (dtype == 0) {
     const int nj = (a.D + 15) / 16;
     if (nj <= 4) return launch_fwd_f32<4>(a);
@@ -386,7 +439,8 @@ cudaError_t attention_fwd(const FwdArgs& a, int dtype) {
   if (dtype != 1) return cudaErrorInvalidValue;
   const bool vec8 =
       rows_aligned16(a.q, a.D) && rows_aligned16(a.k, a.D) && rows_aligned16(a.v, a.D);
-  return vec8 ? dispatch_fwd_mma_dp<8>(a) : dispatch_fwd_mma_dp<1>(a);
+  using T = __nv_bfloat16;
+  return vec8 ? dispatch_fwd_mma_dp<T, 8>(a) : dispatch_fwd_mma_dp<T, 1>(a);
 }
 
 }  // namespace

@@ -16,17 +16,28 @@ tensors of any batch, token and head strides (the head dim contiguous), so
 For CUDA tensors it runs ``_FlashAttention``: the forward launches
 ``csrc/attn_small_fwd.cu`` and the backward ``csrc/attn_small_bwd.cu``.
 
+Sequences longer than ``SMALL_SEQ_MAX = 1024`` tokens take the long route
+on both entry points and on both devices, as ``_forward`` does for them on
+the TPU (``fused_qkv_attention`` first unbinds q, k and the strided v, as
+the JAX function hands them to ``dot_product_attention``):
+``long_attention`` rotates q and k outside the kernel with the fp32 tables
+uncast (``layers.apply_rope``, so bf16 q, k become fp32 q̃, k̃), then
+launches ``csrc/flash_fwd.cu``, the port of ``_flash_kernel``, on CUDA
+tensors or runs its plain version ``flash_attention_long_reference`` on CPU
+tensors. The output takes q̃'s dtype: fp32 for the RoPE models. The
+backward (``_LongAttention``) is torch autograd of the exact op, as the JAX
+``_bwd`` takes ``jax.vjp`` of ``_xla_rope_attention``: no backward kernel,
+and it holds the (B, H, N, N) fp32 scores. The kernel takes any N; the JAX
+package sends an N that is not a multiple of 256 to ``_xla_attention``
+instead, which differs only in not rounding P to v's dtype before P·V. The
+other JAX threshold (``_FLASH_MIN_SEQ`` = 256) keeps tiny CPU dry runs off
+the TPU kernels and has no counterpart: for N ≤ 1024 the CUDA kernels take
+any N ≥ 1.
+
 Each kernel is built at first use; a failed build or launch raises. CPU
 tensors run the plain versions (``*_reference``, the kernels' numerics)
 under torch autograd, as the JAX package differentiates its XLA fallback off
 the TPU. There is no fallback from a kernel to a plain version.
-
-Unlike the JAX entry points there is no sequence-length routing: the JAX
-thresholds (256 ≤ N ≤ 1024) keep tiny CPU dry runs off the TPU kernels,
-while the CUDA kernels take any N ≥ 1 and any even D ≤ 256 (forward) or
-D ≤ 128 (backward). So on the card N > 1024, where the JAX package runs
-``_flash_kernel``, also goes through ``attn_small_fwd`` until that kernel is
-ported.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from vavae_tpu_torch.ops.build import load_library
 
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128
+SMALL_SEQ_MAX = 1024  # longer sequences take the long route (JAX SMALL_SEQ_MAX)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -289,9 +301,12 @@ def fused_qkv_attention(qkv5: torch.Tensor, rope=None) -> torch.Tensor:
     CUDA tensors go through the hand-written kernels (the forward counted
     in ``fused_qkv_attention.launches``, the backward in
     ``fused_qkv_attention.bwd_launches``); CPU tensors through the plain
-    version. Any other device raises."""
+    version. Any other device raises. N > ``SMALL_SEQ_MAX``: q, k and v are
+    unbound (v a strided view) and take ``long_attention``."""
     if qkv5.dim() != 5 or qkv5.shape[2] != 3:
         raise ValueError(f"qkv5 must be (B, N, 3, H, D), got {tuple(qkv5.shape)}")
+    if qkv5.shape[1] > SMALL_SEQ_MAX:
+        return long_attention(*qkv5.unbind(dim=2), rope=rope)
     if qkv5.device.type == "cuda":
         _check_kernel_input(qkv5)
         if torch.is_grad_enabled() and qkv5.requires_grad:
@@ -313,8 +328,14 @@ fused_qkv_attention.bwd_launches = 0
 #    _attn_bwd_kernel_small ----------------------------------------------------
 
 
+# (q and k, v) dtypes the separate-q/k/v kernels take; the long route's adds
+# the RoPE models' fp32 q̃, k̃ with bf16 v
+_DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16))
+_LONG_DTYPE_PAIRS = _DTYPE_PAIRS + ((torch.float32, torch.bfloat16),)
+
+
 def _check_flash_input(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       max_head_dim: int = MAX_HEAD_DIM) -> None:
+                       max_head_dim: int = MAX_HEAD_DIM, dtype_pairs=_DTYPE_PAIRS) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, N, H, D) alike, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -323,9 +344,9 @@ def _check_flash_input(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"empty attention input {tuple(q.shape)}")
     if D < 2 or D % 2 or D > max_head_dim:
         raise ValueError(f"head dim must be even and <= {max_head_dim}, got {D}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one dtype, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != q.dtype or (q.dtype, v.dtype) not in dtype_pairs:
+        raise TypeError(f"kernel takes float32 or bfloat16 q, k, v with (q and k, v) dtypes in "
+                        f"{dtype_pairs}, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -431,7 +452,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rope=None
     CUDA tensors go through the hand-written kernels (the forward counted in
     ``flash_attention.rope_launches`` with RoPE and ``flash_attention.launches``
     without, the backward in ``flash_attention.bwd_launches``); CPU tensors
-    through the plain version. Any other device raises."""
+    through the plain version. Any other device raises. N > ``SMALL_SEQ_MAX``
+    takes ``long_attention`` instead."""
+    if q.shape[1] > SMALL_SEQ_MAX:
+        return long_attention(q, k, v, rope)
     if q.device.type == "cuda":
         _check_flash_input(q, k, v)
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -448,3 +472,133 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rope=None
 flash_attention.rope_launches = 0
 flash_attention.launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.long_launches = 0
+
+
+# -- the long route (N > SMALL_SEQ_MAX): _flash_kernel -------------------------
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_xla_attention``: fp32 logits and softmax, the normalised
+    probabilities cast to q's dtype before P·V, which runs in the promoted
+    dtype of q and v (as ``jnp.einsum``). (B, N, H, D) → (B, N, H, D)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    probs = torch.softmax(logits * scale, dim=-1).to(q.dtype)
+    dtype = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), v.to(dtype))
+
+
+def rope_uncast(x: torch.Tensor, rope) -> torch.Tensor:
+    """``layers.apply_rope`` with the tables uncast, as ``_forward`` rotates
+    q and k before ``_flash_kernel``: bf16 x and fp32 tables give fp32."""
+    cos, sin = (torch.as_tensor(t, device=x.device)[None, :, None, :] for t in rope)
+    return x * cos + rotate_half(x) * sin
+
+
+def xla_rope_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       rope=None) -> torch.Tensor:
+    """The JAX ``_xla_rope_attention``, the exact op the long route's
+    backward differentiates: RoPE with the tables cast to q's dtype, then
+    ``plain_attention``."""
+    if rope is not None:
+        cos, sin = _table_pair(rope, q.dtype, q.device)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+    return plain_attention(q, k, v)
+
+
+def flash_attention_long_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``_flash_kernel`` on q̃, k̃ rotated beforehand, op for
+    op: fp32 ``q̃·k̃ᵀ·D^-0.5`` from q̃, k̃ in their own dtype; fp32 softmax
+    numerator; P rounded to v's dtype before P·V with fp32 accumulation;
+    division by the row sum last; the result in q̃'s dtype.
+
+    q, k, v: (B, N, H, D) → (B, N, H, D)."""
+    D = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype).transpose(1, 2)
+
+
+def long_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             rope=None) -> torch.Tensor:
+    """Plain version of the whole long route: ``rope_uncast``, then
+    ``flash_attention_long_reference``."""
+    if rope is not None:
+        q, k = rope_uncast(q, rope), rope_uncast(k, rope)
+    return flash_attention_long_reference(q, k, v)
+
+
+def flash_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``csrc/flash_fwd.cu`` on CUDA tensors (raises on any other device):
+    q̃, k̃ (rotated beforehand) and v (B, N, H, D) of any N → (B, N, H, D) in
+    q̃'s dtype. Counted in ``flash_attention.long_launches``."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"the long-route kernel needs CUDA tensors, got {q.device}")
+    _check_flash_input(q, k, v, dtype_pairs=_LONG_DTYPE_PAIRS)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    fn = load_library("flash_fwd").flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = _strides(q, k, v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+             B, N, H, D, _DTYPE_CODES[q.dtype], _DTYPE_CODES[v.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+    flash_attention.long_launches += 1
+    return out
+
+
+def _long_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_attention_long(q, k, v)
+    return flash_attention_long_reference(q, k, v)
+
+
+class _LongAttention(torch.autograd.Function):
+    """The long route under autograd, as the JAX ``flash_attention`` custom
+    VJP for N > 1024: the forward rotates (tables uncast) and runs
+    ``_flash_kernel``'s port; it saves q, k, v and the tables (``_fwd``
+    saves ``(q, k, v, rope)``), and the backward is torch autograd of
+    ``xla_rope_attention`` (``_bwd``: ``jax.vjp`` of
+    ``_xla_rope_attention``). The tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin):
+        ctx.save_for_backward(q, k, v, cos, sin)
+        if cos is not None:
+            q, k = rope_uncast(q, (cos, sin)), rope_uncast(k, (cos, sin))
+        return _long_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sin = ctx.saved_tensors
+        rope = None if cos is None else (cos, sin)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = xla_rope_attention(*leaves, rope)
+            grads = torch.autograd.grad(out, leaves, g.to(out.dtype))
+        return (*grads, None, None)
+
+
+def long_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rope=None) -> torch.Tensor:
+    """``_forward``'s long route, for N > ``SMALL_SEQ_MAX``: q, k, v (B, N, H,
+    D) → (B, N, H, D) in the rotated q's dtype. ``rope``: optional (cos, sin)
+    split-half tables of shape (N, D), applied outside the kernel in their
+    own dtype. CUDA tensors launch the kernel, CPU tensors run its plain
+    version; any other device raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"no attention path for device {q.device}")
+    cos = sin = None
+    if rope is not None:
+        cos, sin = (torch.as_tensor(t, device=q.device) for t in rope)
+        N, D = q.shape[1], q.shape[-1]
+        if cos.shape != (N, D) or sin.shape != (N, D):
+            raise ValueError(f"rope tables must be ({N}, {D}), got {tuple(cos.shape)}")
+    return _LongAttention.apply(q, k, v, cos, sin)

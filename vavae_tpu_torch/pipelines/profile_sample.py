@@ -1,11 +1,14 @@
 """Where the time of the sampling path goes, on the card.
 
-    python -m vavae_tpu_torch.pipelines.profile_sample [--qknorm] [--out FILE.json]
+    python -m vavae_tpu_torch.pipelines.profile_sample [--qknorm] [--image_size S]
+        [--batch B] [--out FILE.json]
 
 Profiles (torch.profiler, CUDA activity) the LightningDiT-XL/1 bf16 forward
-at the two batch sizes of the split-CFG euler program (16 in the CFG phase,
-8 in the cond-only phase) and the f16d32 VA-VAE decode at batch 8, with
-seeded random weights. For each it prints the device time per forward by
+at the two batch sizes of the split-CFG euler program (2B in the CFG phase,
+B in the cond-only phase; B = 8 by default) and the f16d32 VA-VAE decode at
+batch B, with seeded random weights, at ``--image_size`` (256 by default:
+16×16 latents; 1024 gives 64×64 latents, N = 4,096 tokens, where attention
+takes the long route). For each it prints the device time per forward by
 kernel class (the attention kernel, matrix products, everything else), the
 wall time of the window and the device's busy share of it. ``--qknorm``
 profiles the production model with ``use_qknorm: true`` instead.
@@ -76,23 +79,27 @@ def profile(fn, reps: int = 5) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--qknorm", action="store_true", help="the model with use_qknorm: true")
+    ap.add_argument("--image_size", type=int, default=256, help="data.image_size (f16 VAE)")
+    ap.add_argument("--batch", type=int, default=8, help="the sampler's per-batch size")
     ap.add_argument("--out", help="also write the results to this JSON file")
     args = ap.parse_args(argv)
     seed = 0
     dev = resolve_device("cuda")
-    model = create_dit(dict(XL1, use_qknorm=args.qknorm), 16, 1000, device=dev).eval()
+    s = args.image_size // 16
+    model = create_dit(dict(XL1, use_qknorm=args.qknorm), s, 1000, device=dev).eval()
     randomize_(model, seed)
-    vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device=dev)
+    vae = VA_VAE(embed_dim=32, img_size=args.image_size, seed=seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    results = {"device": torch.cuda.get_device_name(0), "qknorm": args.qknorm}
+    results = {"device": torch.cuda.get_device_name(0), "qknorm": args.qknorm,
+               "image_size": args.image_size, "tokens": s * s}
     with torch.inference_mode():
-        for B in (16, 8):
-            x = torch.randn((B, 16, 16, 32), generator=gen, device=dev)
+        for B in (2 * args.batch, args.batch):
+            x = torch.randn((B, s, s, 32), generator=gen, device=dev)
             t = torch.rand((B,), generator=gen, device=dev)
             y = torch.randint(0, 1000, (B,), generator=gen, device=dev)
             results[f"dit_forward_b{B}"] = profile(lambda: model(x, t, y))
-        z = torch.randn((8, 16, 16, 32), generator=gen, device=dev)
-        results["vae_decode_b8"] = profile(lambda: vae.decode(z))
+        z = torch.randn((args.batch, s, s, 32), generator=gen, device=dev)
+        results[f"vae_decode_b{args.batch}"] = profile(lambda: vae.decode(z))
     for key, r in results.items():
         print(key, json.dumps(r) if isinstance(r, dict) else r, flush=True)
     if args.out:
