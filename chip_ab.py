@@ -1,0 +1,123 @@
+"""A/B of checkouts on one card, in turns within one process tree.
+
+    python3 chip_ab.py --out DIR --order parent,change,change,parent \\
+        parent=PATH change=. [--train parent,change] [--profile-train parent,change]
+
+Each label names a checkout of this repository. For each entry of
+``--order`` the script runs, in that checkout's directory and in a process
+of its own, ``chip_smoke.py``'s build and kernel phases (``phase_build``,
+``phase_kernels``, ``phase_bwd_kernel``, ``phase_small_kernels``,
+``phase_long_kernel``) and, for the labels in ``--train``, its XL/1 train
+steps at batch 32 on both attention branches (``phase_train_steps``); for
+the labels in ``--profile-train``, ``vavae_tpu_torch.pipelines.profile_train``
+of that checkout (production branch). Every checkout builds and runs its own
+kernels and modules, but all are timed by this tree's
+``vavae_tpu_torch/utils/device_timing.py``, loaded into each run in place of
+the checkout's own timing functions, so that every reading has one
+definition. Writes ``DIR/ab_<label><n>.json`` (and ``.log``) per run and
+prints a summary: each kernel's device ms at the main paths' shapes, the
+backward's device ms by launch, ms/step and the profiler's split.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+TIMING = HERE / "vavae_tpu_torch" / "utils" / "device_timing.py"
+KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd_rope", "attn_small_fwd",
+           "attn_small_bwd", "flash_fwd")
+
+RUNNER = """
+import importlib.util, json, sys
+import torch
+import chip_smoke as c
+spec = importlib.util.spec_from_file_location("_ab_device_timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+for name in ("time_ms", "device_kernels", "device_ms"):
+    setattr(c, name, getattr(timing, name))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+r = {"device": c.phase_device(), "build_s": c.phase_build()}
+for phase in ("phase_kernels", "phase_bwd_kernel", "phase_small_kernels", "phase_long_kernel"):
+    r.update(getattr(c, phase)(c.SEED))
+if sys.argv[3] == "1":
+    for branch in ("production", "qknorm"):
+        r["train_" + branch] = c.phase_train_steps(c.SEED, r["device"], branch)
+with open(sys.argv[2], "w") as f:
+    json.dump(r, f, indent=1)
+"""
+
+
+def run(label: str, checkout: Path, out: Path, train: bool, profile: bool) -> int:
+    env = dict(os.environ, PYTHONPATH=str(checkout))
+    with open(out.with_suffix(".log"), "w") as log:
+        rc = subprocess.run([sys.executable, "-c", RUNNER, str(TIMING), str(out), str(int(train))],
+                            cwd=checkout, env=env, stdout=log, stderr=subprocess.STDOUT).returncode
+        if rc == 0 and profile:
+            prof = out.with_name(out.stem + "_profile_train.json")
+            rc = subprocess.run([sys.executable, "-m", "vavae_tpu_torch.pipelines.profile_train",
+                                 "--out", str(prof)], cwd=checkout, env=env, stdout=log,
+                                stderr=subprocess.STDOUT).returncode
+    print(f"{out.stem}: rc={rc}", flush=True)
+    return rc
+
+
+def summary(out: Path) -> None:
+    r = json.loads(out.read_text())
+    parts = [f"{n} {r[n]['rows'][0]['device_ms']:.4f}" for n in KERNELS if n in r]
+    print(f"{out.stem} device ms: " + " | ".join(parts))
+    for n in ("nat_attention_bwd", "attn_small_bwd"):
+        by = r.get(n, {}).get("rows", [{}])[0].get("device_ms_by_kernel")
+        if by:
+            print(f"{out.stem} {n} by launch: " + ", ".join(
+                f"{k[:40]} {v:.4f}" for k, v in sorted(by.items())))
+    for branch in ("production", "qknorm"):
+        t = r.get("train_" + branch)
+        if t:
+            print(f"{out.stem} train {branch}: {t['ms_per_step']:.2f} ms/step, "
+                  f"{t['img_per_s']:.2f} img/s")
+    prof = out.with_name(out.stem + "_profile_train.json")
+    if prof.exists():
+        p = json.loads(prof.read_text())["train_step"]
+        print(f"{out.stem} profile_train: wall {p['wall_ms']:.2f} ms, device "
+              f"{p['device_ms']:.2f} ms, busy {p['busy_share']:.3f}, by class "
+              + ", ".join(f"{k} {v:.2f}" for k, v in p["by_class_ms"].items()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="+", help="LABEL=PATH of each checkout")
+    ap.add_argument("--order", required=True, help="comma-separated labels, run in this order")
+    ap.add_argument("--out", required=True, help="directory for each run's JSON and log")
+    ap.add_argument("--train", default="", help="labels whose runs also take the train steps")
+    ap.add_argument("--profile-train", default="",
+                    help="labels whose runs also run profile_train")
+    args = ap.parse_args(argv)
+    paths = dict(c.split("=", 1) for c in args.checkouts)
+    paths = {k: Path(v).resolve() for k, v in paths.items()}
+    train, profile = set(filter(None, args.train.split(","))), set(
+        filter(None, args.profile_train.split(",")))
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    seen: dict = {}
+    outs, failed = [], 0
+    for label in args.order.split(","):
+        seen[label] = seen.get(label, 0) + 1
+        out = (out_dir / f"ab_{label}{seen[label]}.json").resolve()
+        if run(label, paths[label], out, label in train, label in profile) != 0:
+            failed += 1
+            continue
+        outs.append(out)
+    for out in outs:
+        summary(out)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,11 @@ Phases, each fatal on failure:
      max|ref|); times (CUDA events, median of 30 after warm-up) of the
      kernel, the plain version and one PyTorch library call computing the
      same function, beside the card's bound for the same work, and the
-     kernel's device time alone (torch.profiler);
+     device time alone (torch.profiler) of the kernel and of the library
+     call; the backward kernels also at N = 1,024 (the longest sequence of
+     the in-kernel-RoPE route), with the device time of each launch of
+     their body, and each backward wrapper must give bit-identical
+     gradients on a second call;
   4. sampling path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
      non-zero weights from the seed) → 250-step euler split-CFG sampling
      (cfg 10, interval 0.11, shift 0.3) at batch 8 → f16d32 VA-VAE decode to
@@ -70,7 +74,6 @@ import contextlib
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -105,6 +108,7 @@ from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.transport import build_transport
 from vavae_tpu_torch.utils.config import Config
+from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
 from vavae_tpu_torch.utils.safetensors_io import write_safetensors
 from vavae_tpu_torch.utils.weights import randomize_
 
@@ -252,36 +256,31 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+def _short_kernel_name(key: str) -> str:
+    """``void (anonymous namespace)::attn_bwd_main_kernel<80, 8>(...)`` ->
+    ``attn_bwd_main_kernel<80, 8>``."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+    return name[len("void "):] if name.startswith("void ") else name
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn`` in ms: the summed time of the kernels
-    it runs, from torch.profiler (CUDA activity). Unlike ``time_ms`` it
-    leaves out the host's share of a call that the device waits for."""
-    fn()
+def backward_times(fn) -> dict:
+    """A backward wrapper call's device time, in all and by kernel: the
+    launches of its body (``attention_bwd.cuh``) and anything else the call
+    runs, such as the wrapper's folding of the RoPE tables."""
+    by_kernel = {_short_kernel_name(k): v for k, v in device_kernels(fn).items()}
+    return {"device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel}
+
+
+def check_deterministic(fn, what: str) -> None:
+    """Two calls of a backward wrapper on the same inputs give bit-identical
+    gradients."""
+    first = fn()
+    first = [first] if isinstance(first, torch.Tensor) else list(first)
+    second = fn()
+    second = [second] if isinstance(second, torch.Tensor) else list(second)
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if getattr(ev, "device_type", None) == cuda)
-    return us / 1e3 / reps
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{what}: two calls on the same inputs differ")
 
 
 def phase_device() -> dict:
@@ -368,13 +367,16 @@ def phase_kernels(seed: int) -> dict:
             "plain_ms": time_ms(lambda: fused_qkv_attention_reference(qkv, rope=tables)),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+            "library_device_ms": device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
         }
         row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
         rows.append(row)
         log(f"[kernels] nat_attention_fwd B={B} H={H} N={N} D={D} rope={rope}: "
             f"max-abs {err:.3e}, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
-            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
+            f"{row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bound_by']})")
     return {"nat_attention_fwd": {"worst_err": worst, "rows": rows}}
 
 
@@ -388,17 +390,25 @@ def _bwd_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# backward cases: the training shape (B = 32), half of it, the microdoppler
+# DiT head dim at a ragged N, and N = 1,024, the longest sequence of the
+# in-kernel-RoPE route (512² latents)
+BWD_CASES = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
+             (16, 16, 256, 72, True), (16, 16, 256, 72, False),
+             (4, 16, 200, 64, True), (4, 16, 200, 64, False),
+             (4, 16, 1024, 72, True)]
+
+
 def phase_bwd_kernel(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
-    cases = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
-             (16, 16, 256, 72, True), (16, 16, 256, 72, False),
-             (4, 16, 200, 64, True), (4, 16, 200, 64, False)]
     worst, rows = 0.0, []
-    for B, H, N, D, rope in cases:
+    for B, H, N, D, rope in BWD_CASES:
         qkv, tables = _attention_case(B, H, N, D, rope, gen)
         g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
         got = fused_qkv_attention_bwd(qkv, g, rope=tables)
         torch.cuda.synchronize()
+        check_deterministic(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables),
+                            f"nat_attention_bwd at {(B, H, N, D, rope)}")
         ref = fused_qkv_attention_bwd_reference(qkv, g, rope=tables)
         abs_err = (got.float() - ref.float()).abs().max().item()
         err = abs_err / ref.float().abs().max().item()
@@ -417,22 +427,34 @@ def phase_bwd_kernel(seed: int) -> dict:
                    for t in (rot(qkv[:, :, 0]), rot(qkv[:, :, 1]), qkv[:, :, 2]))
         out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
         gt = g.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True)  # noqa: E731
         row = {
             "shape": [B, H, N, D], "rope": rope, "max_rel_err": err, "max_abs_err": abs_err,
             "ms": time_ms(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
-            "device_ms": device_ms(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
-            "plain_ms": time_ms(lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables)),
-            "library_ms": time_ms(
-                lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True)),
+            **backward_times(lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)),
+            "plain_ms": time_ms(lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables),
+                                reps=10 if N > 256 else 30),
+            "library_ms": time_ms(sdpa_bwd),
+            "library_device_ms": device_ms(sdpa_bwd),
         }
         row["bound_ms"], row["bound_by"] = _bwd_bound(B, H, N, D, rope)
         rows.append(row)
-        log(f"[kernels] nat_attention_bwd B={B} H={H} N={N} D={D} rope={rope}: "
-            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms (device "
-            f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
-            f"SDPA backward {row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({row['bound_by']})")
+        _log_bwd_row("nat_attention_bwd", row)
+        del out, q, k, v, got, ref
+        torch.cuda.empty_cache()
     return {"nat_attention_bwd": {"worst_err": worst, "rows": rows}}
+
+
+def _log_bwd_row(name: str, row: dict, note: str = "") -> None:
+    B, H, N, D = row["shape"]
+    log(f"[kernels] {name} B={B} H={H} N={N} D={D} rope={row['rope']}{note}: max-rel "
+        f"{row['max_rel_err']:.3e} (max-abs {row['max_abs_err']:.3e}), bit-identical on a second "
+        f"call, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms (device "
+        f"{row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']})")
+    log(f"[kernels] {name} B={B} N={N} rope={row['rope']} device ms by launch: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(row["device_ms_by_kernel"].items())))
 
 
 def _small_case(B: int, H: int, N: int, D: int, rope: bool, gen: torch.Generator):
@@ -475,21 +497,26 @@ def phase_small_kernels(seed: int) -> dict:
             "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, rope=tables)),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+            "library_device_ms": device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
         }
         row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
         result[name] = {"worst_err": err, "rows": [row]}
         log(f"[kernels] {name} B={B} H={H} N={N} D={D} (v strided): max-abs {err:.3e}, "
             f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
+            f"{row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bound_by']})")
 
     worst, rows = 0.0, []
-    for rope in (True, False):
-        B, H, N, D = 32, 16, 256, 72
+    for B, H, N, D, rope in [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
+                             (4, 16, 1024, 72, True)]:
         q, k, v, tables = _small_case(B, H, N, D, rope, gen)
         g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
         got = flash_attention_bwd(q, k, v, g, rope=tables)
         torch.cuda.synchronize()
+        check_deterministic(lambda: flash_attention_bwd(q, k, v, g, rope=tables),
+                            f"attn_small_bwd at {(B, H, N, D, rope)}")
         ref = flash_attention_bwd_reference(q, k, v, g, rope=tables)
         abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
         err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -500,21 +527,21 @@ def phase_small_kernels(seed: int) -> dict:
         qt, kt, vt = (t.requires_grad_(True) for t in _rotated_bhnd(q, k, v, tables))
         sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
         gt = g.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
         row = {
             "shape": [B, H, N, D], "rope": rope, "max_rel_err": err, "max_abs_err": abs_err,
             "ms": time_ms(lambda: flash_attention_bwd(q, k, v, g, rope=tables)),
-            "device_ms": device_ms(lambda: flash_attention_bwd(q, k, v, g, rope=tables)),
-            "plain_ms": time_ms(lambda: flash_attention_bwd_reference(q, k, v, g, rope=tables)),
-            "library_ms": time_ms(
-                lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)),
+            **backward_times(lambda: flash_attention_bwd(q, k, v, g, rope=tables)),
+            "plain_ms": time_ms(lambda: flash_attention_bwd_reference(q, k, v, g, rope=tables),
+                                reps=10 if N > 256 else 30),
+            "library_ms": time_ms(sdpa_bwd),
+            "library_device_ms": device_ms(sdpa_bwd),
         }
         row["bound_ms"], row["bound_by"] = _bwd_bound(B, H, N, D, rope)
         rows.append(row)
-        log(f"[kernels] attn_small_bwd B={B} H={H} N={N} D={D} rope={rope} (v strided): "
-            f"max-rel {err:.3e} (max-abs {abs_err:.3e}), kernel {row['ms']:.4f} ms (device "
-            f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, SDPA backward "
-            f"{row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+        _log_bwd_row("attn_small_bwd", row, " (v strided)")
+        del sdpa, qt, kt, vt, got, ref
+        torch.cuda.empty_cache()
     result["attn_small_bwd"] = {"worst_err": worst, "rows": rows}
     return result
 
@@ -629,13 +656,16 @@ def phase_long_kernel(seed: int) -> dict:
             "plain_ms": time_ms(lambda: flash_attention_long_reference(q, k, v), reps=10),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+            "library_device_ms": device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
         }
         row["bound_ms"], row["bound_by"] = _long_bound(B, H, N, D, qk_dtype, v_dtype)
         rows.append(row)
         log(f"[kernels] flash_fwd B={B} H={H} N={N} D={D} q/k {qk_dtype} v {v_dtype}: max-abs "
             f"{err:.3e}, relative {rel:.3e}, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f} ms, SDPA (q, k in v's dtype) {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['plain_ms']:.4f} ms, SDPA (q, k in v's dtype) {row['library_ms']:.4f} ms "
+            f"(device {row['library_device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return {"flash_fwd": {"worst_err": worst, "worst_rel_err": worst_rel, "rows": rows}}
@@ -932,8 +962,9 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary:
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
             "replaces": f"vavae_tpu/ops/pallas/flash_attention.py:{replaces}",
             "launches": launches, "max_abs_err": summary["worst_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"]}
 
 
 def main(argv=None) -> int:

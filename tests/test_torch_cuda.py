@@ -94,7 +94,8 @@ def _max_rel(got, want) -> float:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8)])
+@pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8),
+                                     (4, 16, 1024, 72), (2, 3, 200, 128)])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref|: bf16 3e-2, the TPU backward kernel's tolerance
@@ -202,7 +203,8 @@ def test_cuda_flash_kernel_matches_plain_version(B, H, N, D, rope, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8)])
+@pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8),
+                                     (4, 16, 1024, 72), (2, 3, 200, 128)])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_flash_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref| of each of dq, dk, dv: bf16 3e-2, the TPU backward
@@ -216,6 +218,24 @@ def test_cuda_flash_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     want = flash_attention_bwd_reference(q, k, v, g, rope=tables)
     for a, b in zip(got, want):
         assert _max_rel(a, b) <= (3e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [256, 1024])
+@pytest.mark.parametrize("entry", ["fused_qkv", "separate"])
+def test_cuda_bwd_kernels_are_deterministic(entry, N):
+    """Two calls of a backward wrapper on the same inputs give bit-identical
+    gradients: no atomics, and the dq partials are summed in a fixed order."""
+    _cuda_or_skip()
+    if entry == "fused_qkv":
+        x, g, tables = _bwd_case(4, 16, N, 72, True, torch.bfloat16, seed=7)
+        run = lambda: [fused_qkv_attention_bwd(x, g, rope=tables)]  # noqa: E731
+    else:
+        q, k, v, g, tables = _flash_case(4, 16, N, 72, True, torch.bfloat16, seed=7)
+        run = lambda: list(flash_attention_bwd(q, k, v, g, rope=tables))  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

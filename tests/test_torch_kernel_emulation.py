@@ -7,7 +7,12 @@ compiled as host C++ against a small emulation of the CUDA features they
 use (below): one std::thread per CUDA thread, std::barrier for
 ``__syncthreads``, ``__syncwarp`` and the shuffles, ``mma.sync`` (bf16 and
 TF32) and ``ldmatrix`` evaluated per warp from the documented fragment
-layouts, and ``cvt.rna.tf32``. Shared memory starts as NaN, so a read of
+layouts, ``cvt.rna.tf32``, ``cp.async`` as an immediate copy (so its wait
+and the proxy fence are no-ops), and ``wgmma`` evaluated for each thread's
+own accumulator elements from the PTX ISA's layouts: operands in shared
+memory decoded from the matrix descriptor (start address, leading and stride
+byte offsets, no swizzle; K-major, or MN-major with the transpose bit), an A
+operand in registers gathered from the warp's fragments. Shared memory starts as NaN, so a read of
 an element the kernel never wrote shows up in the output. The kernels then
 run blocks one after the other on small shapes and are held against their
 plain versions (``fused_qkv_attention_reference``,
@@ -23,6 +28,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -53,6 +59,7 @@ EMULATION = r"""#include <barrier>
 #include <cstring>
 #include <functional>
 #include <limits>
+#include <map>
 #include <thread>
 #include <vector>
 #define __global__
@@ -63,14 +70,23 @@ EMULATION = r"""#include <barrier>
 #define __restrict__
 #define __shared__
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-inline size_t g_max_smem = 0;
-template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) { g_max_smem = v; return v > 232448 ? 1 : 0; }
+// the dynamic shared memory each kernel may take: 48 KB, or what was set for it
+inline std::map<const void*, size_t> g_max_smem;
+template <class F> cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int v) {
+  g_max_smem[reinterpret_cast<const void*>(f)] = v; return v > 232448 ? 1 : 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
+// a card of one SM holding one block: a persistent kernel's block walks every item
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum { cudaErrorInvalidConfiguration = 9 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
 inline __nv_bfloat16 __float2bfloat16(float f) {
@@ -89,8 +105,8 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   int t = threadIdx.x; g_xchg[t] = v; g_warp_bar[t / 32]->arrive_and_wait();
   float r = g_xchg[t ^ m]; g_warp_bar[t / 32]->arrive_and_wait(); return r;
 }
-inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()> body) {
-  if (smem > g_max_smem) throw 1;
+inline void emu_launch(const void* fn, dim3 grid, int threads, size_t smem, std::function<void()> body) {
+  if (smem > 48 * 1024 && smem > g_max_smem[fn]) throw 1;
   std::vector<float> buf(smem / 4 + 1, std::numeric_limits<float>::quiet_NaN());
   for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y) for (unsigned x = 0; x < grid.x; ++x) {
     std::fill(buf.begin(), buf.end(), std::numeric_limits<float>::quiet_NaN());
@@ -99,7 +115,7 @@ inline void emu_launch(dim3 grid, int threads, size_t smem, std::function<void()
     std::vector<std::barrier<>*> wb; for (int w = 0; w < threads / 32; ++w) wb.push_back(new std::barrier<>(32));
     g_warp_bar = wb;
     std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx = dim3(t, 0, 0); blockIdx = dim3(x, y, z); body(); });
+    for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx = dim3(t, 0, 0); blockIdx = dim3(x, y, z); gridDim = grid; body(); });
     for (auto& t : ts) t.join();
     for (auto* b : wb) delete b;
   }
@@ -133,6 +149,55 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2
   }
   g_warp_bar[w]->arrive_and_wait();
 }
+// cp.async: the copy happens at once (src_bytes < 16 zero-fills the rest)
+inline void emu_cp_async16(void* dst, const void* src, int src_bytes) {
+  memset(dst, 0, 16); if (src_bytes > 0) memcpy(dst, src, src_bytes);
+}
+struct float2 { float x, y; };
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)((const char*)p - (const char*)g_smem); }
+// element (mn, k) of a wgmma operand in shared memory: core matrices of 8x16
+// bytes without swizzle, sbo bytes apart along M/N and lbo bytes along K;
+// K-major rows run along k, MN-major rows along mn
+inline float emu_gmma_el(uint64_t desc, int mn, int k, int mn_major) {
+  if (desc >> 62) throw 2;  // only the layout without swizzle is emulated
+  const size_t lbo = ((desc >> 16) & 0x3fff) << 4, sbo = ((desc >> 32) & 0x3fff) << 4;
+  size_t off = ((desc & 0x3fff) << 4) + (mn / 8) * sbo + (k / 8) * lbo;
+  off += mn_major ? (k % 8) * 16 + (mn % 8) * 2 : (mn % 8) * 16 + (k % 8) * 2;
+  __nv_bfloat16 v; memcpy(&v, (const char*)g_smem + off, 2); return __bfloat162float(v);
+}
+inline uint32_t g_wg_a[1024][4];
+// wgmma m64nNk16 (f32 += bf16 . bf16) for the calling thread's elements: rows
+// 16*(warp % 4) + lane/4 (+8) and columns 8j + 2*(lane % 4) (+1) of the
+// warpgroup's 64 x N, as d[4j .. 4j + 3]. a: the A fragment in registers
+// (the m16n8k16 layout of the warp's 16 rows), else A from shared memory.
+inline void emu_wgmma(float* d, int N, int ta, int tb, uint64_t da, const uint32_t* a, uint64_t db, int acc) {
+  const int t = threadIdx.x, w = (t / 32) % 4, l = t % 32;
+  float A[2][16];
+  if (a) {
+    for (int i = 0; i < 4; ++i) g_wg_a[t][i] = a[i];
+    g_warp_bar[t / 32]->arrive_and_wait();
+    const int quad = (t / 32) * 32 + (l / 4) * 4;
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t* f = g_wg_a[quad + c];
+      A[0][2*c] = bf_lo(f[0]); A[0][2*c+1] = bf_hi(f[0]);
+      A[1][2*c] = bf_lo(f[1]); A[1][2*c+1] = bf_hi(f[1]);
+      A[0][2*c+8] = bf_lo(f[2]); A[0][2*c+9] = bf_hi(f[2]);
+      A[1][2*c+8] = bf_lo(f[3]); A[1][2*c+9] = bf_hi(f[3]);
+    }
+    g_warp_bar[t / 32]->arrive_and_wait();
+  } else {
+    for (int h = 0; h < 2; ++h) for (int k = 0; k < 16; ++k) A[h][k] = emu_gmma_el(da, w * 16 + l / 4 + 8 * h, k, ta);
+  }
+  for (int j = 0; j < N / 8; ++j) for (int e = 0; e < 4; ++e) {
+    const int col = j * 8 + 2 * (l % 4) + (e & 1);
+    float sum = 0.f;
+    for (int k = 0; k < 16; ++k) sum += A[e >> 1][k] * emu_gmma_el(db, col, k, tb);
+    d[4 * j + e] = (acc ? d[4 * j + e] : 0.f) + sum;
+  }
+}
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct float4 { float x, y, z, w; };
@@ -197,8 +262,10 @@ def expand_includes(path: Path, seen=None) -> str:
 
 
 def _host_source(src: str, launches: int = 2) -> str:
-    """The kernel source with shared memory, the four inline-PTX helpers and
-    its ``launches`` ``<<<...>>>`` launches routed to the emulation."""
+    """The kernel source with shared memory, its inline-PTX helpers (those of
+    ``attention_common.cuh`` in every source, the ``cp.async``, fence and
+    ``wgmma`` ones where the backward header defines them) and its
+    ``launches`` ``<<<...>>>`` launches routed to the emulation."""
     src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
     src = src.replace("extern __shared__ __align__(16) unsigned char mma_smem[];",
                       "unsigned char* mma_smem = (unsigned char*)g_smem;")
@@ -210,13 +277,29 @@ def _host_source(src: str, launches: int = 2) -> str:
         ("float", "round_tf32", "return emu_round_tf32(x)", "float x"),
         ("void", "ldmatrix_x2_trans", "emu_ldmatrix_x2_trans(b0, b1, row)",
          "uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row"),
+        ("void", "cp_async16", "emu_cp_async16(dst, src, src_bytes)",
+         "void* dst, const void* src, int src_bytes"),
+        ("void", "cp_async_wait_all", "(void)0", ""),
+        ("void", "cp_async_commit", "(void)0", ""),
+        ("void", "cp_async_wait", "(void)0", ""),
+        ("void", "fence_async_smem", "(void)0", ""),
+        ("void", "wgmma_fence", "(void)0", ""),
+        ("void", "wgmma_commit", "(void)0", ""),
+        ("void", "wgmma_wait_all", "(void)0", ""),
+    ] + [
+        ("void", f"wgmma_ss_n{n}", f"emu_wgmma(d, {n}, TA, TB, da, nullptr, db, acc)",
+         "float* d, uint64_t da, uint64_t db, int acc") for n in (64, 40, 32, 16)
+    ] + [
+        ("void", f"wgmma_rs_n{n}", f"emu_wgmma(d, {n}, 0, TB, 0, a, db, acc)",
+         "float* d, const uint32_t* a, uint64_t db, int acc") for n in (128, 80, 64, 32)
     ]:
         src, n = re.subn(rf"__device__ __forceinline__ {ret} {name}\(.*?\n}}\n",
                          f"inline {ret} {name}({sig}) {{ {emu}; }}\n", src, flags=re.S)
-        assert n == 1, name
+        assert n == 1 or (n == 0 and f"{name}(" not in src), name
     src, n = re.subn(
         r"(\w+<[^;<>]*>)<<<(.*?)>>>\((.*?)\);",
-        lambda m: (f"{{ auto* kfn = &{m.group(1)}; emu_launch({m.group(2).rsplit(',', 1)[0]}, "
+        lambda m: (f"{{ auto* kfn = &{m.group(1)}; emu_launch(reinterpret_cast<const void*>(kfn), "
+                   f"{m.group(2).rsplit(',', 1)[0]}, "
                    f"[=] {{ kfn({m.group(3)}); }}); }}"),
         src, flags=re.S)
     assert n == launches, n
@@ -240,11 +323,30 @@ def build_host_library(d: Path, source: str, launches: int) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+# launches in a backward source: prep, stats, main and dq for bf16, two for fp32
+BWD_LAUNCHES = 6
+
+
+def _with_scratch_size(lib: ctypes.CDLL, name: str, fn):
+    """``fn`` and the library's ``<name>_scratch_bytes`` together."""
+    size = getattr(lib, f"{name}_scratch_bytes")
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return SimpleNamespace(run=fn, scratch_bytes=size)
+
+
+def scratch_for(kernel, B, N, H, D, dtype) -> torch.Tensor:
+    """The kernel's scratch, NaN-filled: a read of a byte it never wrote
+    shows up in the output."""
+    n = kernel.scratch_bytes(B, N, H, D, {torch.float32: 0, torch.bfloat16: 1}[dtype])
+    return torch.full((n // 4 + 64,), float("nan"), dtype=torch.float32)
+
+
 def bwd_function(lib: ctypes.CDLL):
     fn = lib.nat_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return _with_scratch_size(lib, "nat_attention_bwd", fn)
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +359,8 @@ def kernel(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def bwd_kernel(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), expand_includes(BWD_SOURCE), 4)
+    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), expand_includes(BWD_SOURCE),
+                             BWD_LAUNCHES)
     return bwd_function(lib)
 
 
@@ -321,15 +424,15 @@ def test_kernel_source_misaligned_input(kernel):
 def run_bwd(kernel, qkv: torch.Tensor, g: torch.Tensor, rope):
     B, N, _, H, D = qkv.shape
     dqkv = torch.full_like(qkv, float("nan"))
-    stats = torch.empty((3, B, H, N), dtype=torch.float32)
+    scratch = scratch_for(kernel, B, N, H, D, qkv.dtype)
     if rope is not None:
         cos, sinf = fold_sin(rope)
         ptrs = (cos.data_ptr(), sinf.data_ptr())
     else:
         ptrs = (None, None)
     code = {torch.float32: 0, torch.bfloat16: 1}[qkv.dtype]
-    err = kernel(qkv.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], dqkv.data_ptr(),
-                 stats.data_ptr(), B, N, H, D, int(rope is not None), code, None)
+    err = kernel.run(qkv.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], dqkv.data_ptr(),
+                     scratch.data_ptr(), B, N, H, D, int(rope is not None), code, None)
     assert err == 0
     return dqkv
 
@@ -351,6 +454,10 @@ def bwd_error(got: torch.Tensor, want: torch.Tensor) -> float:
     (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
     (1, 100, 2, 8, True),    # N not a multiple of 64: ragged query and key tiles
     (2, 70, 1, 72, False),   # no RoPE, two batches
+    (1, 256, 1, 72, True),   # four streamed tiles through the two-stage ring, two key blocks
+    (1, 50, 2, 18, True),    # D % 4 != 0: one column per item in the prep and dq passes
+    (1, 100, 1, 128, True),  # the widest head dim (DP = 128)
+    (1, 70, 1, 96, False),   # D = 96 padded to 128
 ])
 def test_bwd_kernel_source_matches_plain_version(bwd_kernel, B, N, H, D, rope, dtype):
     # fp32: summation order only (and the kernel's P = exp(s - m)·(1/l));
@@ -379,12 +486,12 @@ def test_bwd_kernel_source_misaligned_input(bwd_kernel):
 
 
 # Two faults that the test above must catch, each applied to a copy of the
-# source: delta (rowsum(dP∘P)) left out of dS, and dq/dk written without the
-# transposed RoPE.
+# source's bf16 body: delta (rowsum(dP∘P)) left out of dS in the main pass,
+# and dq/dk written without the transposed RoPE.
 MUTATIONS = {
-    "no_delta": ("p * (dp[j][e] - delta) * scale", "p * dp[j][e] * scale"),
-    "no_transposed_rope": ("      val = val * cos_t[n * D + d] + tile[r * ld + p] * sin_t[n * D + p];",
-                           "      val = val + 0.f * p;"),
+    "no_delta": ("p * (dpt[j][e] - dl_s[c]) * scale", "p * dpt[j][e] * scale"),
+    "no_transposed_rope": ("  return make_float2(x0 * c0 + x1 * s1, x1 * c1 + x0 * s0);",
+                           "  return make_float2(x0 + 0.f * (c0 + s1), x1 + 0.f * (c1 + s0));"),
 }
 
 
@@ -393,7 +500,7 @@ def test_bwd_emulation_catches_mutations(tmp_path, name):
     old, new = MUTATIONS[name]
     source = expand_includes(BWD_SOURCE)
     assert source.count(old) >= 1, name
-    fn = bwd_function(build_host_library(tmp_path, source.replace(old, new), 4))
+    fn = bwd_function(build_host_library(tmp_path, source.replace(old, new), BWD_LAUNCHES))
     qkv, g, tables = bwd_case(1, 64, 1, 72, True, torch.bfloat16)
     got = run_bwd(fn, qkv, g, tables)
     assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) > 3e-2
@@ -415,13 +522,14 @@ def small_bwd_function(lib: ctypes.CDLL):
     fn = lib.attn_small_bwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return _with_scratch_size(lib, "attn_small_bwd", fn)
 
 
 @pytest.fixture(scope="module")
 def small_bwd_kernel(tmp_path_factory):
     src = expand_includes(SMALL_BWD_SOURCE)
-    return small_bwd_function(build_host_library(tmp_path_factory.mktemp("small_bwd_emu"), src, 4))
+    return small_bwd_function(build_host_library(tmp_path_factory.mktemp("small_bwd_emu"), src,
+                                                 BWD_LAUNCHES))
 
 
 def _table_ptrs(rope):
@@ -446,13 +554,13 @@ def run_small(kernel, q, k, v, rope):
 def run_small_bwd(kernel, q, k, v, g, rope):
     B, N, H, D = q.shape
     grads = [torch.full((B, N, H, D), float("nan"), dtype=q.dtype) for _ in range(3)]
-    stats = torch.empty((3, B, H, N), dtype=torch.float32)
+    scratch = scratch_for(kernel, B, N, H, D, q.dtype)
     cos, sinf, keep = _table_ptrs(rope)
     strides = _strides(q, k, v, g)
     code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
-    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos, sinf,
-                 *(t.data_ptr() for t in grads), stats.data_ptr(), ctypes.addressof(strides),
-                 B, N, H, D, int(rope is not None), code, None)
+    err = kernel.run(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos, sinf,
+                     *(t.data_ptr() for t in grads), scratch.data_ptr(), ctypes.addressof(strides),
+                     B, N, H, D, int(rope is not None), code, None)
     assert err == 0
     return grads
 
@@ -507,6 +615,10 @@ def _small_bwd_error(got, want) -> float:
     (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
     (1, 100, 2, 8, True),    # ragged query and key tiles
     (2, 70, 1, 72, False),   # no RoPE: no tables are passed
+    (1, 256, 1, 72, True),   # four streamed tiles through the two-stage ring, two key blocks
+    (1, 40, 2, 12, True),    # D % 8 != 0: column pairs in the prep and dq passes, scalar tiles
+    (1, 100, 1, 128, True),  # the widest head dim (DP = 128)
+    (1, 70, 1, 96, False),   # D = 96 padded to 128
 ])
 def test_small_bwd_kernel_source_matches_plain_version(small_bwd_kernel, B, N, H, D, rope, dtype):
     # fp32 1e-5 max-abs; bf16 3e-2 of max|ref| for each of dq, dk, dv
@@ -534,7 +646,7 @@ def test_small_bwd_emulation_catches_mutations(tmp_path, name):
     old, new = MUTATIONS[name]
     source = expand_includes(SMALL_BWD_SOURCE)
     assert source.count(old) >= 1, name
-    fn = small_bwd_function(build_host_library(tmp_path, source.replace(old, new), 4))
+    fn = small_bwd_function(build_host_library(tmp_path, source.replace(old, new), BWD_LAUNCHES))
     q, k, v, g, tables = small_case(1, 64, 1, 72, True, torch.bfloat16, seed=5)
     got = run_small_bwd(fn, q, k, v, g, tables)
     assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) > 3e-2

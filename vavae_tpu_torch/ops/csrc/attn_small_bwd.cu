@@ -24,12 +24,13 @@
 // (batch, token, head) for i = q, k, v, g, and stride 1 over D; g is the
 // gradient of the forward's output; cos, sin: (N, D) fp32 (sin sign-folded),
 // read only when use_rope; dq, dk, dv: (B, N, H, D) contiguous, written
-// whole; stats: (3, B, H, N) fp32 scratch. dtype: 0 = float32,
-// 1 = bfloat16. Returns the CUDA error code of the launches (0 on success).
-// Shapes are checked by the Python wrapper: N >= 1, even D <= 128.
+// whole; scratch: attn_small_bwd_scratch_bytes(B, N, H, D, dtype) bytes,
+// 256-byte aligned. dtype: 0 = float32, 1 = bfloat16. Returns the CUDA
+// error code of the launches (0 on success). Shapes are checked by the
+// Python wrapper: N >= 1, even D <= 128.
 extern "C" int attn_small_bwd(const void* q, const void* k, const void* v, const void* g,
                               const void* cos_t, const void* sin_t, void* dq, void* dk, void* dv,
-                              void* stats, const long long* strides, int B, int N, int H, int D,
+                              void* scratch, const long long* strides, int B, int N, int H, int D,
                               int use_rope, int dtype, void* stream) {
   const long long* s = strides;
   const BwdArgs a{View{q, s[0], s[1], s[2]},
@@ -41,8 +42,13 @@ extern "C" int attn_small_bwd(const void* q, const void* k, const void* v, const
                   contiguous_view(dv, N, H, D),
                   static_cast<const float*>(cos_t),
                   static_cast<const float*>(sin_t),
-                  static_cast<float*>(stats),
+                  scratch,
                   B, N, H, D, use_rope,
                   static_cast<cudaStream_t>(stream)};
   return (int)attention_bwd(a, dtype);
+}
+
+// bytes of scratch attn_small_bwd needs for these shapes and dtype
+extern "C" long long attn_small_bwd_scratch_bytes(int B, int N, int H, int D, int dtype) {
+  return (long long)bwd_scratch_bytes(B, N, H, D, dtype);
 }

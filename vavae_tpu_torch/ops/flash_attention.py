@@ -52,6 +52,35 @@ MAX_BWD_HEAD_DIM = 128
 SMALL_SEQ_MAX = 1024  # longer sequences take the long route (JAX SMALL_SEQ_MAX)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each C entry's (argument types, result type); ``_entry`` binds them once
+_SIGNATURES = {
+    "nat_attention_fwd": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "nat_attention_bwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "attn_small_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "attn_small_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
+    "flash_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
+}
+_ENTRIES: dict = {}
+
+
+def _entry(library: str, scratch_bytes: bool = False):
+    """The C entry ``<library>`` of ``csrc/<library>.cu`` (or, with
+    ``scratch_bytes``, its ``<library>_scratch_bytes``), its argument and
+    result types set on first use."""
+    key = (library, scratch_bytes)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        lib = load_library(library)
+        if scratch_bytes:
+            fn = getattr(lib, f"{library}_scratch_bytes")
+            fn.argtypes, fn.restype = [_I] * 5, ctypes.c_longlong
+        else:
+            fn = getattr(lib, library)
+            fn.argtypes, fn.restype = _SIGNATURES[library]
+        _ENTRIES[key] = fn
+    return fn
+
 
 def fold_sin(rope, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) split-half tables → (cos, sign-folded sin) as (N, D) fp32,
@@ -226,9 +255,7 @@ def _table_ptrs(tables) -> tuple:
 def _launch_fwd(qkv5: torch.Tensor, tables) -> torch.Tensor:
     B, N, _, H, D = qkv5.shape
     out = torch.empty((B, N, H, D), dtype=qkv5.dtype, device=qkv5.device)
-    fn = load_library("nat_attention_fwd").nat_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("nat_attention_fwd")
     stream = torch.cuda.current_stream(qkv5.device).cuda_stream
     cos, sinf = _table_ptrs(tables)
     err = fn(qkv5.data_ptr(), cos, sinf, out.data_ptr(),
@@ -239,8 +266,17 @@ def _launch_fwd(qkv5: torch.Tensor, tables) -> torch.Tensor:
     return out
 
 
+def _bwd_scratch(name: str, B: int, N: int, H: int, D: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """The scratch a backward kernel needs for these shapes, as the library
+    computes it (``<name>_scratch_bytes``): row statistics and, for bf16, the
+    rotated q̃, k̃ and the per-key-block dq partials."""
+    size = _entry(name, scratch_bytes=True)(B, N, H, D, _DTYPE_CODES[dtype])
+    return torch.empty(size, dtype=torch.uint8, device=device)
+
+
 def _launch_bwd(qkv5: torch.Tensor, g: torch.Tensor, tables) -> torch.Tensor:
-    """dqkv (B, N, 3, H, D) through ``csrc/nat_attention_bwd.cu``: its two
+    """dqkv (B, N, 3, H, D) through ``csrc/nat_attention_bwd.cu``: its
     passes are one launch of the wrapper, counted in
     ``fused_qkv_attention.bwd_launches``."""
     _check_kernel_input(qkv5, MAX_BWD_HEAD_DIM)
@@ -250,13 +286,11 @@ def _launch_bwd(qkv5: torch.Tensor, g: torch.Tensor, tables) -> torch.Tensor:
                          f"got {tuple(g.shape)} {g.dtype} on {g.device}")
     g = g.contiguous()
     dqkv = torch.empty_like(qkv5)
-    stats = torch.empty((3, B, H, N), dtype=torch.float32, device=qkv5.device)
-    fn = load_library("nat_attention_bwd").nat_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch = _bwd_scratch("nat_attention_bwd", B, N, H, D, qkv5.dtype, qkv5.device)
+    fn = _entry("nat_attention_bwd")
     stream = torch.cuda.current_stream(qkv5.device).cuda_stream
     cos, sinf = _table_ptrs(tables)
-    err = fn(qkv5.data_ptr(), g.data_ptr(), cos, sinf, dqkv.data_ptr(), stats.data_ptr(),
+    err = fn(qkv5.data_ptr(), g.data_ptr(), cos, sinf, dqkv.data_ptr(), scratch.data_ptr(),
              B, N, H, D, int(tables is not None), _DTYPE_CODES[qkv5.dtype], stream)
     if err != 0:
         raise RuntimeError(f"nat_attention_bwd launch failed: CUDA error {err}")
@@ -365,9 +399,7 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables)
     ``flash_attention.launches``."""
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    fn = load_library("attn_small_fwd").attn_small_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("attn_small_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     cos, sinf = _table_ptrs(tables)
     strides = _strides(q, k, v)
@@ -386,7 +418,7 @@ def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables)
 def _launch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                       tables) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), each (B, N, H, D), through ``csrc/attn_small_bwd.cu``:
-    its two passes are one launch of the wrapper, counted in
+    its passes are one launch of the wrapper, counted in
     ``flash_attention.bwd_launches``."""
     _check_flash_input(q, k, v, MAX_BWD_HEAD_DIM)
     B, N, H, D = q.shape
@@ -396,15 +428,13 @@ def _launch_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torc
     if g.stride(-1) != 1:
         g = g.contiguous()
     dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
-    stats = torch.empty((3, B, H, N), dtype=torch.float32, device=q.device)
-    fn = load_library("attn_small_bwd").attn_small_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch = _bwd_scratch("attn_small_bwd", B, N, H, D, q.dtype, q.device)
+    fn = _entry("attn_small_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     cos, sinf = _table_ptrs(tables)
     strides = _strides(q, k, v, g)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos, sinf,
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
              ctypes.addressof(strides), B, N, H, D, int(tables is not None),
              _DTYPE_CODES[q.dtype], stream)
     if err != 0:
@@ -541,9 +571,7 @@ def flash_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     _check_flash_input(q, k, v, dtype_pairs=_LONG_DTYPE_PAIRS)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    fn = load_library("flash_fwd").flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = _strides(q, k, v)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
