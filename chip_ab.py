@@ -10,13 +10,18 @@ of its own, ``chip_smoke.py``'s build and kernel phases (``phase_build``,
 ``phase_long_kernel``) and, for the labels in ``--train``, its XL/1 train
 steps at batch 32 on both attention branches (``phase_train_steps``); for
 the labels in ``--profile-train``, ``vavae_tpu_torch.pipelines.profile_train``
-of that checkout (production branch). Every checkout builds and runs its own
+of that checkout (production branch). Every run also times the checkout's
+two small-route forward wrappers, with and without RoPE, at the shapes in
+``FWD_SHAPES``, so that checkouts whose ``chip_smoke.py`` measures other
+shapes are read at the same ones. Every checkout builds and runs its own
 kernels and modules, but all are timed by this tree's
 ``vavae_tpu_torch/utils/device_timing.py``, loaded into each run in place of
 the checkout's own timing functions, so that every reading has one
 definition. Writes ``DIR/ab_<label><n>.json`` (and ``.log``) per run and
 prints a summary: each kernel's device ms at the main paths' shapes, the
-backward's device ms by launch, ms/step and the profiler's split.
+forward kernels' at every shape measured (with SDPA's), the backward's
+device ms by launch, the registers and spills of the forward's wgmma body
+where the checkout has one, ms/step and the profiler's split.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ HERE = Path(__file__).resolve().parent
 TIMING = HERE / "vavae_tpu_torch" / "utils" / "device_timing.py"
 KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd_rope", "attn_small_fwd",
            "attn_small_bwd", "flash_fwd")
+FWD_KERNELS = ("nat_attention_fwd", "attn_small_fwd_rope", "attn_small_fwd")
+FWD_SHAPES = [(16, 16, 256, 72), (4, 16, 1024, 72)]  # the 256² paths' and N = 1,024
 
 RUNNER = """
 import importlib.util, json, sys
@@ -46,6 +53,21 @@ torch.backends.cudnn.allow_tf32 = False
 r = {"device": c.phase_device(), "build_s": c.phase_build()}
 for phase in ("phase_kernels", "phase_bwd_kernel", "phase_small_kernels", "phase_long_kernel"):
     r.update(getattr(c, phase)(c.SEED))
+from vavae_tpu_torch.models.posembed import rope_2d_freqs
+from vavae_tpu_torch.ops.flash_attention import flash_attention, fused_qkv_attention
+gen = torch.Generator(device="cuda").manual_seed(c.SEED + 40)
+r["forward_shapes"] = {}
+for B, H, N, D in json.loads(sys.argv[4]):
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda").bfloat16()
+    q, k = (torch.randn((B, N, H, D), generator=gen, device="cuda").bfloat16() for _ in range(2))
+    cos, sin = rope_2d_freqs(D, int(N ** 0.5))
+    for tables in ((torch.as_tensor(cos[:N], device="cuda"), torch.as_tensor(sin[:N], device="cuda")),
+                   None):
+        tag = f"({B}, {H}, {N}, {D}){' rope' if tables else ''}"
+        r["forward_shapes"]["nat_attention_fwd " + tag] = c.device_ms(
+            lambda: fused_qkv_attention(qkv, rope=tables))
+        r["forward_shapes"]["attn_small_fwd " + tag] = c.device_ms(
+            lambda: flash_attention(q, k, qkv[:, :, 2], rope=tables))
 if sys.argv[3] == "1":
     for branch in ("production", "qknorm"):
         r["train_" + branch] = c.phase_train_steps(c.SEED, r["device"], branch)
@@ -57,7 +79,8 @@ with open(sys.argv[2], "w") as f:
 def run(label: str, checkout: Path, out: Path, train: bool, profile: bool) -> int:
     env = dict(os.environ, PYTHONPATH=str(checkout))
     with open(out.with_suffix(".log"), "w") as log:
-        rc = subprocess.run([sys.executable, "-c", RUNNER, str(TIMING), str(out), str(int(train))],
+        rc = subprocess.run([sys.executable, "-c", RUNNER, str(TIMING), str(out), str(int(train)),
+                             json.dumps(FWD_SHAPES)],
                             cwd=checkout, env=env, stdout=log, stderr=subprocess.STDOUT).returncode
         if rc == 0 and profile:
             prof = out.with_name(out.stem + "_profile_train.json")
@@ -72,6 +95,17 @@ def summary(out: Path) -> None:
     r = json.loads(out.read_text())
     parts = [f"{n} {r[n]['rows'][0]['device_ms']:.4f}" for n in KERNELS if n in r]
     print(f"{out.stem} device ms: " + " | ".join(parts))
+    for n in FWD_KERNELS:
+        print(f"{out.stem} {n} device ms by shape: " + ", ".join(
+            f"{tuple(row['shape'])}{' rope' if row['rope'] else ''} {row['device_ms']:.4f} "
+            f"(SDPA {row['library_device_ms']:.4f})" for row in r.get(n, {}).get("rows", [])))
+    if "forward_shapes" in r:
+        print(f"{out.stem} forward wrappers, device ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["forward_shapes"].items()))
+    for source, kernels in r["build_s"].get("resources", {}).items():
+        for kernel, res in sorted(kernels.items()):
+            if kernel.startswith("attn_fwd_wgmma_kernel"):
+                print(f"{out.stem} {source}.cu {kernel}: {res}")
     for n in ("nat_attention_bwd", "attn_small_bwd"):
         by = r.get(n, {}).get("rows", [{}])[0].get("device_ms_by_kernel")
         if by:

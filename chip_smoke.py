@@ -6,17 +6,21 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
   1. device: name and power limit (nvidia-smi), torch's device name;
   2. build: every CUDA kernel (the fused-qkv attention forward and backward,
-     the separate-q/k/v attention forward and backward), from ``ops/csrc``,
-     one nvcc per source, all started together;
+     the separate-q/k/v attention forward and backward, the long-route
+     forward), from ``ops/csrc``, one nvcc per source, all started together;
+     each kernel instance's registers and spills from the compiler's report
+     (``-Xptxas -v``), where an instance of the forward's wgmma body at a
+     head dim of at most 80 must not spill;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes, bf16 (forward 2e-2 max-abs, backward 3e-2 of
      max|ref|); times (CUDA events, median of 30 after warm-up) of the
      kernel, the plain version and one PyTorch library call computing the
      same function, beside the card's bound for the same work, and the
      device time alone (torch.profiler) of the kernel and of the library
-     call; the backward kernels also at N = 1,024 (the longest sequence of
-     the in-kernel-RoPE route), with the device time of each launch of
-     their body, and each backward wrapper must give bit-identical
+     call; the forward and backward kernels also at N = 1,024 (the longest
+     sequence of the in-kernel-RoPE route), with the device time of each
+     launch of their body; each forward wrapper call must run one kernel,
+     its wgmma body, and each backward wrapper must give bit-identical
      gradients on a second call;
   4. sampling path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
      non-zero weights from the seed) → 250-step euler split-CFG sampling
@@ -298,6 +302,9 @@ def phase_device() -> dict:
 KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd", "attn_small_bwd", "flash_fwd")
 
 
+WGMMA_FWD = "attn_fwd_wgmma_kernel"  # the forward body of the small route's bf16 calls
+
+
 def phase_build() -> dict:
     def timed_build(name):
         t0 = time.perf_counter()
@@ -309,10 +316,28 @@ def phase_build() -> dict:
         built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
     for name in KERNELS:
         build.load_library(name)
+    resources = {}
     for name, (path, seconds) in built.items():
         log(f"[build] {path.name}: {seconds:.1f} s")
+        resources[name] = build.kernel_resources(name)
+        for kernel, r in sorted(resources[name].items()):
+            log(f"[build] {name}.cu {kernel}: {r.get('registers')} registers, spills "
+                f"{r.get('spill_stores')} bytes stored / {r.get('spill_loads')} loaded")
+            dp = int(kernel.split("<")[1].split(">")[0]) if kernel.startswith(WGMMA_FWD) else 0
+            if 0 < dp <= 80 and (r.get("spill_stores") or r.get("spill_loads")):
+                fail(f"{name}.cu {kernel} spills: {r}")
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
-    return {name: seconds for name, (_, seconds) in built.items()}
+    return {"seconds": {name: seconds for name, (_, seconds) in built.items()},
+            "resources": resources}
+
+
+def forward_times(fn) -> dict:
+    """A forward wrapper call's device time, and the kernels it runs: the
+    small route's bf16 calls must run the wgmma body and nothing else."""
+    by_kernel = {_short_kernel_name(k): v for k, v in device_kernels(fn).items()}
+    if len(by_kernel) != 1 or not next(iter(by_kernel)).startswith(WGMMA_FWD):
+        fail(f"a forward wrapper call ran {sorted(by_kernel)}, expected {WGMMA_FWD} alone")
+    return {"device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel}
 
 
 def _attention_case(B: int, H: int, N: int, D: int, rope: bool, gen: torch.Generator):
@@ -338,7 +363,8 @@ def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [(16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (8, 16, 256, 72, True), (8, 16, 256, 72, False),
-             (4, 16, 200, 64, True), (4, 16, 200, 64, False)]
+             (4, 16, 200, 64, True), (4, 16, 200, 64, False),
+             (4, 16, 1024, 72, True), (4, 16, 1024, 72, False)]
     worst, rows = 0.0, []
     for B, H, N, D, rope in cases:
         qkv, tables = _attention_case(B, H, N, D, rope, gen)
@@ -363,8 +389,9 @@ def phase_kernels(seed: int) -> dict:
         row = {
             "shape": [B, H, N, D], "rope": rope, "max_abs_err": err,
             "ms": time_ms(lambda: fused_qkv_attention(qkv, rope=tables)),
-            "device_ms": device_ms(lambda: fused_qkv_attention(qkv, rope=tables)),
-            "plain_ms": time_ms(lambda: fused_qkv_attention_reference(qkv, rope=tables)),
+            **forward_times(lambda: fused_qkv_attention(qkv, rope=tables)),
+            "plain_ms": time_ms(lambda: fused_qkv_attention_reference(qkv, rope=tables),
+                                reps=10 if N > 256 else 30),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
             "library_device_ms": device_ms(
@@ -372,6 +399,8 @@ def phase_kernels(seed: int) -> dict:
         }
         row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
         rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
         log(f"[kernels] nat_attention_fwd B={B} H={H} N={N} D={D} rope={rope}: "
             f"max-abs {err:.3e}, kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
             f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
@@ -476,37 +505,44 @@ def _rotated_bhnd(q, k, v, tables):
 
 def phase_small_kernels(seed: int) -> dict:
     """The separate-q/k/v kernels (the qk-norm branch) at the sampling (B=16)
-    and training (B=32) shapes, with v a strided view of the projection."""
+    and training (B=32) shapes and at N = 1,024, with v a strided view of the
+    projection."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 20)
     result = {}
     for rope in (True, False):
         name = "attn_small_fwd_rope" if rope else "attn_small_fwd"
-        B, H, N, D = 16, 16, 256, 72
-        q, k, v, tables = _small_case(B, H, N, D, rope, gen)
-        out = flash_attention(q, k, v, rope=tables)
-        torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v, rope=tables)
-        err = (out.float() - ref.float()).abs().max().item()
-        if not (err <= ATTN_TOL):
-            fail(f"{name} vs plain at {(B, H, N, D)}: max-abs {err} > {ATTN_TOL}")
-        qt, kt, vt = _rotated_bhnd(q, k, v, tables)
-        row = {
-            "shape": [B, H, N, D], "rope": rope, "max_abs_err": err,
-            "ms": time_ms(lambda: flash_attention(q, k, v, rope=tables)),
-            "device_ms": device_ms(lambda: flash_attention(q, k, v, rope=tables)),
-            "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, rope=tables)),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
-            "library_device_ms": device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
-        }
-        row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
-        result[name] = {"worst_err": err, "rows": [row]}
-        log(f"[kernels] {name} B={B} H={H} N={N} D={D} (v strided): max-abs {err:.3e}, "
-            f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
-            f"{row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({row['bound_by']})")
+        worst, rows = 0.0, []
+        for B, H, N, D in [(16, 16, 256, 72), (4, 16, 1024, 72)]:
+            q, k, v, tables = _small_case(B, H, N, D, rope, gen)
+            out = flash_attention(q, k, v, rope=tables)
+            torch.cuda.synchronize()
+            ref = flash_attention_reference(q, k, v, rope=tables)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not (err <= ATTN_TOL):
+                fail(f"{name} vs plain at {(B, H, N, D)}: max-abs {err} > {ATTN_TOL}")
+            worst = max(worst, err)
+            qt, kt, vt = _rotated_bhnd(q, k, v, tables)
+            row = {
+                "shape": [B, H, N, D], "rope": rope, "max_abs_err": err,
+                "ms": time_ms(lambda: flash_attention(q, k, v, rope=tables)),
+                **forward_times(lambda: flash_attention(q, k, v, rope=tables)),
+                "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, rope=tables),
+                                    reps=10 if N > 256 else 30),
+                "library_ms": time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+                "library_device_ms": device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+            }
+            row["bound_ms"], row["bound_by"] = _attention_bound(B, H, N, D, rope)
+            rows.append(row)
+            log(f"[kernels] {name} B={B} H={H} N={N} D={D} (v strided): max-abs {err:.3e}, "
+                f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
+                f"{row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
+                f"({row['bound_by']})")
+            del out, ref, qt, kt, vt
+            torch.cuda.empty_cache()
+        result[name] = {"worst_err": worst, "rows": rows}
 
     worst, rows = 0.0, []
     for B, H, N, D, rope in [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
@@ -1004,7 +1040,7 @@ def main(argv=None) -> int:
     ]}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": device, "build_s": builds, "kernels": kernels,
+            json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires},
                       f, indent=1)

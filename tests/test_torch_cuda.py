@@ -3,6 +3,8 @@ the wrappers' refusal to fall back off them. Imports nothing of JAX, so it
 runs on the GPU machine: ``python -m pytest tests/test_torch_cuda.py -q``.
 The ``gpu`` tests skip where torch sees no CUDA device.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -199,6 +201,69 @@ def test_cuda_flash_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     want = flash_attention_reference(q, k, v, rope=tables)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# the main paths' forward shapes, which the wgmma body takes: 256² sampling
+# (B = 16) and the longest sequence of the small route (N = 1,024)
+WGMMA_SHAPES = [(16, 16, 256, 72), (4, 16, 1024, 72)]
+
+
+def _device_tables(N, D):
+    """The split-half tables as the model holds them: fp32 buffers on the card."""
+    cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+    return torch.as_tensor(cos[:N], device="cuda"), torch.as_tensor(sin[:N], device="cuda")
+
+
+def _fwd_call(entry, B, H, N, D, rope, seed=0):
+    """One forward wrapper call on bf16 inputs (separate: v the strided view
+    of the projection), and its plain version."""
+    tables = _device_tables(N, D) if rope else None
+    if entry == "fused_qkv":
+        x = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(seed))
+        x = x.bfloat16().cuda()
+        return (lambda: fused_qkv_attention(x, rope=tables),
+                lambda: fused_qkv_attention_reference(x, rope=tables))
+    q, k, v, _, _ = _flash_case(B, H, N, D, False, torch.bfloat16, seed=seed)
+    return (lambda: flash_attention(q, k, v, rope=tables),
+            lambda: flash_attention_reference(q, k, v, rope=tables))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("B,H,N,D", WGMMA_SHAPES)
+@pytest.mark.parametrize("entry", ["fused_qkv", "separate"])
+def test_cuda_wgmma_fwd_matches_plain_version(entry, B, H, N, D, rope):
+    # bf16: 2e-2 max-abs, the TPU kernel's tolerance
+    _cuda_or_skip()
+    run, plain = _fwd_call(entry, B, H, N, D, rope, seed=4)
+    got = run()
+    torch.cuda.synchronize()
+    assert (got.float() - plain().float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("entry", ["fused_qkv", "separate"])
+def test_cuda_fwd_wrappers_launch_one_kernel(entry, rope):
+    """A forward wrapper call on the model's device tables launches its
+    kernel and nothing else (no table folding, no copies): one CUDA kernel
+    per call in a profiler trace, the wgmma body."""
+    _cuda_or_skip()
+    run, _ = _fwd_call(entry, 16, 16, 256, 72, rope)
+    run()
+    torch.cuda.synchronize()
+    reps = 5
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # a trace's first moments may lose kernel records
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    cuda = torch.autograd.DeviceType.CUDA
+    counts = {ev.key: ev.count for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == cuda}
+    assert len(counts) == 1 and "attn_fwd_wgmma_kernel" in next(iter(counts)), counts
+    assert next(iter(counts.values())) <= reps, counts
 
 
 @pytest.mark.gpu

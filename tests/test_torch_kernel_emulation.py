@@ -61,12 +61,13 @@ EMULATION = r"""#include <barrier>
 #include <limits>
 #include <map>
 #include <thread>
+#include <tuple>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -81,11 +82,12 @@ template <class F> cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int 
   g_max_smem[reinterpret_cast<const void*>(f)] = v; return v > 232448 ? 1 : 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
-// a card of one SM holding one block: a persistent kernel's block walks every item
+// a card of three SMs holding one block each: a persistent kernel's three
+// blocks stride over the items
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 enum { cudaErrorInvalidConfiguration = 9 };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 3; return 0; }
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
@@ -95,36 +97,90 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(uint16_t)(u >> 16)};
 }
-inline float* g_smem = nullptr;
-inline std::barrier<>* g_block_bar = nullptr;
-inline std::vector<std::barrier<>*> g_warp_bar;
-inline float g_xchg[1024];
-inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+// one block's state: shared memory (NaN at the start), its barriers and the
+// per-thread exchange slots of shuffles, mma.sync, wgmma and ldmatrix; each
+// emulated thread points at its block's
+struct EmuBlock {
+  std::vector<float> smem;
+  std::barrier<> bar;
+  std::vector<std::barrier<>*> warps;
+  float xchg[1024];
+  uint32_t mma_a[1024][4], mma_b[1024][2], wg_a[1024][4];
+  const void* ldm[1024];
+  EmuBlock(size_t bytes, int threads)
+      : smem(bytes / 4 + 1, std::numeric_limits<float>::quiet_NaN()), bar(threads) {
+    for (int w = 0; w < threads / 32; ++w) warps.push_back(new std::barrier<>(32));
+  }
+  ~EmuBlock() { for (auto* w : warps) delete w; }
+};
+inline thread_local EmuBlock* g_block = nullptr;
+inline thread_local float* g_smem = nullptr;
+inline thread_local std::barrier<>* g_cluster_bar = nullptr;
+#define g_warp_bar (g_block->warps)
+#define g_xchg (g_block->xchg)
+#define g_mma_a (g_block->mma_a)
+#define g_mma_b (g_block->mma_b)
+#define g_wg_a (g_block->wg_a)
+#define g_ldm_ptr (g_block->ldm)
+inline void __syncthreads() { g_block->bar.arrive_and_wait(); }
 inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   int t = threadIdx.x; g_xchg[t] = v; g_warp_bar[t / 32]->arrive_and_wait();
   float r = g_xchg[t ^ m]; g_warp_bar[t / 32]->arrive_and_wait(); return r;
 }
-inline void emu_launch(const void* fn, dim3 grid, int threads, size_t smem, std::function<void()> body) {
+// the blocks of a cluster (cluster consecutive blocks along x) run together,
+// each with its own shared memory; clusters one after the other
+inline void emu_launch(const void* fn, dim3 grid, int threads, size_t smem, std::function<void()> body,
+                       unsigned cluster = 1) {
   if (smem > 48 * 1024 && smem > g_max_smem[fn]) throw 1;
-  std::vector<float> buf(smem / 4 + 1, std::numeric_limits<float>::quiet_NaN());
-  for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y) for (unsigned x = 0; x < grid.x; ++x) {
-    std::fill(buf.begin(), buf.end(), std::numeric_limits<float>::quiet_NaN());
-    g_smem = buf.data();
-    std::barrier<> bb(threads); g_block_bar = &bb;
-    std::vector<std::barrier<>*> wb; for (int w = 0; w < threads / 32; ++w) wb.push_back(new std::barrier<>(32));
-    g_warp_bar = wb;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx = dim3(t, 0, 0); blockIdx = dim3(x, y, z); gridDim = grid; body(); });
-    for (auto& t : ts) t.join();
-    for (auto* b : wb) delete b;
-  }
+  for (unsigned z = 0; z < grid.z; ++z) for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
+      std::vector<EmuBlock*> blocks;
+      for (unsigned c = 0; c < cluster; ++c) blocks.push_back(new EmuBlock(smem, threads));
+      std::barrier<> cbar(cluster * threads);
+      std::vector<std::thread> ts;
+      for (unsigned c = 0; c < cluster; ++c)
+        for (int t = 0; t < threads; ++t)
+          ts.emplace_back([=, &cbar] {
+            g_block = blocks[c]; g_smem = blocks[c]->smem.data(); g_cluster_bar = &cbar;
+            threadIdx = dim3(t, 0, 0); blockIdx = dim3(x0 + c, y, z); gridDim = grid; body();
+          });
+      for (auto& t : ts) t.join();
+      for (auto* b : blocks) delete b;
+    }
+}
+// cudaLaunchKernelEx with a cluster dimension along x
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; struct { struct { unsigned x, y, z; } clusterDim; } val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...), A&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension) cluster = c->attrs[i].val.clusterDim.x;
+  if (cluster < 1 || cluster > 8 || c->gridDim.x % cluster) return 1;
+  std::tuple<P...> a(args...);
+  emu_launch(reinterpret_cast<const void*>(k), c->gridDim, c->blockDim.x, c->dynamicSmemBytes,
+             [=] { std::apply(k, a); }, cluster);
+  return 0;
 }
 #define __align__(x)
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
-inline uint32_t g_mma_a[1024][4];
-inline uint32_t g_mma_b[1024][2];
+// bf16x2 arithmetic, one rounding per operation (a product or sum of two bf16
+// is exact in fp32, or its rounding to bf16 is unaffected)
+inline __nv_bfloat162 emu_bf162(float a, float b) { return __floats2bfloat162_rn(a, b); }
+inline __nv_bfloat162 __hmul2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return emu_bf162(__bfloat162float(a.x) * __bfloat162float(b.x), __bfloat162float(a.y) * __bfloat162float(b.y));
+}
+inline __nv_bfloat162 __hadd2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return emu_bf162(__bfloat162float(a.x) + __bfloat162float(b.x), __bfloat162float(a.y) + __bfloat162float(b.y));
+}
+inline __nv_bfloat162 __hsub2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return emu_bf162(__bfloat162float(a.x) - __bfloat162float(b.x), __bfloat162float(a.y) - __bfloat162float(b.y));
+}
 inline float bf_lo(uint32_t u) { return __bfloat162float({(uint16_t)(u & 0xffff)}); }
 inline float bf_hi(uint32_t u) { return __bfloat162float({(uint16_t)(u >> 16)}); }
 inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
@@ -167,7 +223,6 @@ inline float emu_gmma_el(uint64_t desc, int mn, int k, int mn_major) {
   off += mn_major ? (k % 8) * 16 + (mn % 8) * 2 : (mn % 8) * 16 + (k % 8) * 2;
   __nv_bfloat16 v; memcpy(&v, (const char*)g_smem + off, 2); return __bfloat162float(v);
 }
-inline uint32_t g_wg_a[1024][4];
 // wgmma m64nNk16 (f32 += bf16 . bf16) for the calling thread's elements: rows
 // 16*(warp % 4) + lane/4 (+8) and columns 8j + 2*(lane % 4) (+1) of the
 // warpgroup's 64 x N, as d[4j .. 4j + 3]. a: the A fragment in registers
@@ -231,7 +286,6 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (
   }
   g_warp_bar[w]->arrive_and_wait();
 }
-inline const void* g_ldm_ptr[1024];
 inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row) {
   int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
   g_ldm_ptr[t] = row;
@@ -286,6 +340,7 @@ def _host_source(src: str, launches: int = 2) -> str:
         ("void", "wgmma_fence", "(void)0", ""),
         ("void", "wgmma_commit", "(void)0", ""),
         ("void", "wgmma_wait_all", "(void)0", ""),
+        ("void", "cluster_sync", "g_cluster_bar->arrive_and_wait()", ""),
     ] + [
         ("void", f"wgmma_ss_n{n}", f"emu_wgmma(d, {n}, TA, TB, da, nullptr, db, acc)",
          "float* d, uint64_t da, uint64_t db, int acc") for n in (64, 40, 32, 16)
@@ -325,6 +380,18 @@ def build_host_library(d: Path, source: str, launches: int) -> ctypes.CDLL:
 
 # launches in a backward source: prep, stats, main and dq for bf16, two for fp32
 BWD_LAUNCHES = 6
+# <<<...>>> launches in a small-route forward source: the mma.sync and the
+# fp32 FMA bodies (the wgmma body goes through cudaLaunchKernelEx)
+FWD_LAUNCHES = 2
+
+
+def _raw_table_ptrs(rope):
+    """The forward entries' tables: the split-half (cos, sin) as the model
+    holds them, fp32 and contiguous, and the tensors to keep alive."""
+    if rope is None:
+        return None, None, ()
+    cos, sin = (torch.as_tensor(t, dtype=torch.float32).contiguous() for t in rope)
+    return cos.data_ptr(), sin.data_ptr(), (cos, sin)
 
 
 def _with_scratch_size(lib: ctypes.CDLL, name: str, fn):
@@ -351,7 +418,8 @@ def bwd_function(lib: ctypes.CDLL):
 
 @pytest.fixture(scope="module")
 def kernel(tmp_path_factory):
-    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), expand_includes(SOURCE), 2).nat_attention_fwd
+    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), expand_includes(SOURCE),
+                            FWD_LAUNCHES).nat_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -365,13 +433,12 @@ def bwd_kernel(tmp_path_factory):
 
 
 def _run(kernel, qkv: torch.Tensor, rope):
+    """The forward entry on the model's raw split-half tables (the kernel
+    folds the sign of sin)."""
     B, N, _, H, D = qkv.shape
-    out = torch.empty((B, N, H, D), dtype=qkv.dtype)
-    if rope is not None:
-        cos, sinf = fold_sin(rope)
-        ptrs = (cos.data_ptr(), sinf.data_ptr())
-    else:
-        ptrs = (None, None)
+    out = torch.full((B, N, H, D), float("nan"), dtype=qkv.dtype)
+    cos, sin, keep = _raw_table_ptrs(rope)
+    ptrs = (cos, sin)
     code = {torch.float32: 0, torch.bfloat16: 1}[qkv.dtype]
     err = kernel(qkv.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), B, N, H, D,
                  int(rope is not None), code, None)
@@ -419,6 +486,68 @@ def test_kernel_source_misaligned_input(kernel):
     got = _run(kernel, qkv, tables)
     want = fused_qkv_attention_reference(qkv, tables)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# Calls that the wgmma body (attention_fwd_wgmma.cuh) takes: bf16, D <= 128,
+# every row 16-byte aligned, N <= 1024. The cases above with D > 128, D % 8
+# != 0, fp32 or a misaligned view stay on the first bodies (attention_fwd.cuh).
+WGMMA_CASES = [
+    (1, 256, 2, 72, True),   # the XL head dim at the main paths' N: two query blocks, four key tiles
+    (1, 200, 2, 72, True),   # ragged N: the last key tile holds 8 keys and 56 masked ones
+    (1, 700, 1, 72, True),   # eleven key tiles: the three-stage ring wraps three times
+    (2, 130, 1, 64, False),  # D = 64 without RoPE, a ragged second query block
+    (1, 150, 1, 128, True),  # the widest head dim the body takes (DP = 128)
+]
+
+
+@pytest.mark.parametrize("B,N,H,D,rope", WGMMA_CASES)
+def test_wgmma_fwd_source_matches_plain_version(kernel, B, N, H, D, rope):
+    # bf16 2e-2 max-abs, the TPU kernel's tolerance, as above
+    qkv = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(N)).bfloat16()
+    tables = _tables(N, D) if rope else None
+    got = _run(kernel, qkv, tables)
+    assert not torch.isnan(got.float()).any()
+    assert (got.float() - fused_qkv_attention_reference(qkv, tables).float()).abs().max() <= 2e-2
+
+
+# Four faults planted in copies of the wgmma body, which the bf16 check must
+# catch: the running sum and accumulator not rescaled when the row max grows,
+# the keys past N left unmasked, the k tiles not rotated, and the sign of sin
+# not folded. The cases that stay on the first bodies must pass all the same.
+FWD_MUTATIONS = {
+    "no_rescale": ("    const float alpha0 = exp2f(m0 - mn0);\n    const float alpha1 = exp2f(m1 - mn1);",
+                   "    const float alpha0 = 1.f;\n    const float alpha1 = 1.f;"),
+    "no_tail_mask": ("if (k0 + j * 8 + 2 * cq + (e & 1) >= N) s[j][e] = -INFINITY;",
+                     "if (k0 + j * 8 + 2 * cq + (e & 1) >= N) s[j][e] += 0.f;"),
+    "k_not_rotated": ("      rope_bf16x2(yl.x, yh.x, c0, c1, s0, s1);\n      rope_bf16x2(yl.y, yh.y, c0 + 2, c1 + 2, s0 + 2, s1 + 2);\n", ""),
+    "sign_not_folded": ("lo = as_u32(__hsub2(", "lo = as_u32(__hadd2("),
+}
+
+
+def _mutated_fwd(tmp_path, source: Path, name: str) -> ctypes.CDLL:
+    old, new = FWD_MUTATIONS[name]
+    text = expand_includes(source)
+    assert text.count(old) == 1, name
+    return build_host_library(tmp_path, text.replace(old, new), FWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("name", list(FWD_MUTATIONS))
+def test_wgmma_fwd_emulation_catches_mutations(tmp_path, name):
+    fn = _mutated_fwd(tmp_path, SOURCE, name).nat_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    qkv = torch.randn((1, 200, 3, 2, 72), generator=torch.Generator().manual_seed(3)).bfloat16()
+    tables = _tables(200, 72)
+    err = (_run(fn, qkv, tables).float() - fused_qkv_attention_reference(qkv, tables).float())
+    assert err.abs().max().item() > 2e-2
+    # fp32, and a bf16 view that is not 16-byte aligned: the first bodies
+    B, N, H, D = 1, 70, 2, 72
+    buf = torch.randn(B * N * 3 * H * D + 1, generator=torch.Generator().manual_seed(0))
+    tables = _tables(N, D)
+    for qkv, tol in ((buf[1:].view(B, N, 3, H, D), 1e-5),
+                     (buf.bfloat16()[1:].view(B, N, 3, H, D), 2e-2)):
+        want = fused_qkv_attention_reference(qkv, tables)
+        assert (_run(fn, qkv, tables).float() - want.float()).abs().max().item() <= tol
 
 
 def run_bwd(kernel, qkv: torch.Tensor, g: torch.Tensor, rope):
@@ -511,7 +640,8 @@ def test_bwd_emulation_catches_mutations(tmp_path, name):
 
 @pytest.fixture(scope="module")
 def small_kernel(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory.mktemp("small_emu"), expand_includes(SMALL_SOURCE), 2)
+    lib = build_host_library(tmp_path_factory.mktemp("small_emu"), expand_includes(SMALL_SOURCE),
+                             FWD_LAUNCHES)
     fn = lib.attn_small_fwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -533,6 +663,7 @@ def small_bwd_kernel(tmp_path_factory):
 
 
 def _table_ptrs(rope):
+    """The backward entries' tables: cos and the sign-folded sin."""
     if rope is None:
         return None, None, ()
     cos, sinf = fold_sin(rope)
@@ -542,7 +673,7 @@ def _table_ptrs(rope):
 def run_small(kernel, q, k, v, rope):
     B, N, H, D = q.shape
     out = torch.full((B, N, H, D), float("nan"), dtype=q.dtype)
-    cos, sinf, keep = _table_ptrs(rope)
+    cos, sinf, keep = _raw_table_ptrs(rope)
     strides = _strides(q, k, v)
     code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
     err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos, sinf, out.data_ptr(),
@@ -604,6 +735,31 @@ def test_small_kernel_source_misaligned_input(small_kernel):
     got = run_small(small_kernel, q, k, v, tables)
     want = flash_attention_reference(q, k, v, tables)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("B,N,H,D,rope", WGMMA_CASES)
+def test_small_wgmma_fwd_source_matches_plain_version(small_kernel, B, N, H, D, rope):
+    """The wgmma body through the separate-q/k/v entry, v a strided view."""
+    q, k, v, _, tables = small_case(B, N, H, D, rope, torch.bfloat16, seed=2)
+    got = run_small(small_kernel, q, k, v, tables)
+    assert not torch.isnan(got.float()).any()
+    assert (got.float() - flash_attention_reference(q, k, v, tables).float()).abs().max() <= 2e-2
+
+
+@pytest.mark.parametrize("name", list(FWD_MUTATIONS))
+def test_small_wgmma_fwd_emulation_catches_mutations(tmp_path, name):
+    """The same four faults through attn_small_fwd.cu; its misaligned view
+    and fp32 inputs stay on the first bodies and pass."""
+    fn = _mutated_fwd(tmp_path, SMALL_SOURCE, name).attn_small_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    q, k, v, _, tables = small_case(1, 200, 2, 72, True, torch.bfloat16, seed=3)
+    err = run_small(fn, q, k, v, tables).float() - flash_attention_reference(q, k, v, tables).float()
+    assert err.abs().max().item() > 2e-2
+    for dtype, offset, tol in ((torch.float32, 0, 1e-5), (torch.bfloat16, 1, 2e-2)):
+        q, k, v, _, tables = small_case(1, 70, 2, 72, True, dtype, offset=offset)
+        want = flash_attention_reference(q, k, v, tables)
+        assert (run_small(fn, q, k, v, tables).float() - want.float()).abs().max().item() <= tol
 
 
 def _small_bwd_error(got, want) -> float:

@@ -108,6 +108,14 @@ def test_demo_sampling_writes_grid(tmp_path, monkeypatch):
                                           ema_params=params, opt_state=None))
     data = tmp_path / "latents"
     data.mkdir()
+    # a dump: one shard (the dataset, as the JAX one, needs shards) and the
+    # reference-format stats cache, which it reads instead of computing them
+    from vavae_tpu_torch.utils.safetensors_io import write_safetensors
+
+    lat = np.random.default_rng(0).standard_normal((2, 4, 8, 8)).astype(np.float32)
+    write_safetensors(str(data / "shard_000.safetensors"), {
+        "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+        "labels": np.zeros((2,), np.int32)})
     torch.save({"mean": torch.zeros(1, 4, 1, 1), "std": torch.ones(1, 4, 1, 1)},
                data / "latents_stats.pt")
 

@@ -355,11 +355,11 @@ def test_kernel_autograd_function_under_remat(remat, qknorm, monkeypatch):
 
     want = grads()
 
-    # the launchers take sign-folded tables, the plain versions raw (cos,
-    # sin); folding is its own inverse
+    # the forward launchers take the raw (cos, sin), as the plain versions do;
+    # the backward launchers sign-folded tables (folding is its own inverse)
     def fwd(qkv5, tables):
         fa.fused_qkv_attention.launches += 1
-        return fa.fused_qkv_attention_reference(qkv5, fa.fold_sin(tables))
+        return fa.fused_qkv_attention_reference(qkv5, tables)
 
     def bwd(qkv5, g, tables):
         fa.fused_qkv_attention.bwd_launches += 1
@@ -367,7 +367,7 @@ def test_kernel_autograd_function_under_remat(remat, qknorm, monkeypatch):
 
     def flash_fwd(q, k, v, tables):
         fa.flash_attention.rope_launches += 1
-        return fa.flash_attention_reference(q, k, v, fa.fold_sin(tables))
+        return fa.flash_attention_reference(q, k, v, tables)
 
     def flash_bwd(q, k, v, g, tables):
         fa.flash_attention.bwd_launches += 1
@@ -378,13 +378,13 @@ def test_kernel_autograd_function_under_remat(remat, qknorm, monkeypatch):
         monkeypatch.setattr(fa, "_launch_flash_fwd", flash_fwd)
         monkeypatch.setattr(fa, "_launch_flash_bwd", flash_bwd)
         monkeypatch.setattr(layers, "dot_product_attention", lambda q, k, v, rope: (
-            fa._FlashAttention.apply(q, k, v, *fa.fold_sin(rope))))
+            fa._FlashAttention.apply(q, k, v, *rope)))
     else:
         counter, attr = fa.fused_qkv_attention, "launches"
         monkeypatch.setattr(fa, "_launch_fwd", fwd)
         monkeypatch.setattr(fa, "_launch_bwd", bwd)
         monkeypatch.setattr(layers, "fused_qkv_attention",
-                            lambda qkv5, rope: fa._FusedQKVAttention.apply(qkv5, *fa.fold_sin(rope)))
+                            lambda qkv5, rope: fa._FusedQKVAttention.apply(qkv5, *rope))
     monkeypatch.setattr(counter, attr, 0)
     monkeypatch.setattr(counter, "bwd_launches", 0)
     got = grads()

@@ -5,7 +5,9 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 (beside the package, listed in ``.gitignore``) at first use, named by the
 hash of its source and of every header it includes from ``csrc/`` (so an
 edited source or header is rebuilt), and loaded with ctypes. Nothing is
-compiled when a module is imported.
+compiled when a module is imported. The compiler's report (``-Xptxas -v``:
+each kernel's registers and spills) is kept beside the library and read by
+``kernel_resources``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vavae_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -63,7 +65,7 @@ def build(name: str) -> Path:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{name}.{digest}.so"
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
@@ -73,7 +75,42 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a reader never loads a half-written file
+    return out
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGISTERS = re.compile(r"Used (\d+) registers")
+_KERNEL = re.compile(r"\d([a-z_]+_kernel)I(.*?)EEv")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``..._GLOBAL__N_...attn_fwd_wgmma_kernelILi80EEEv...`` ->
+    ``attn_fwd_wgmma_kernel<80>`` (integer template arguments; a type
+    argument as its mangled name)."""
+    m = _KERNEL.search(mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(-?\d+)E|\d+(\w+?)(?=L|$)|^([a-z])", m.group(2))
+    return f"{m.group(1)}<{', '.join(next(a for a in g if a) for g in args)}>"
+
+
+def kernel_resources(name: str) -> dict:
+    """Registers and spill bytes of each kernel in ``csrc/<name>.cu``, from
+    the ``-Xptxas -v`` report of its build: ``{kernel: {"registers": r,
+    "spill_stores": s, "spill_loads": l}}``."""
+    report = build(name).with_suffix(".log").read_text()
+    out, kernel = {}, None
+    for line in report.splitlines():
+        if m := _ENTRY.search(line):
+            kernel = _kernel_name(m.group(1))
+            out[kernel] = {}
+        elif kernel and (m := _SPILLS.search(line)):
+            out[kernel].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif kernel and (m := _REGISTERS.search(line)):
+            out[kernel]["registers"] = int(m.group(1))
     return out
 
 

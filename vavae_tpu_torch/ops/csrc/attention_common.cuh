@@ -72,7 +72,10 @@ __device__ __forceinline__ int rope_partner(int d, int half) {
 
 // One 64-row tile (rows n0.. of a head with row stride row_stride) into shared
 // memory as fp32 with stride ld, zero past N. With rotate, applies the RoPE
-// roll form x*cos + roll(x, D/2)*sin'.
+// roll form x*cos + roll(x, D/2)*sin', where sin' is sin_t (kRawSin false:
+// the table comes sign-folded) or sin_t negated for d < D/2 (kRawSin true:
+// the split-half table as the model holds it; the negation is exact).
+template <bool kRawSin = false>
 __device__ void load_tile_f32(float* dst, int ld, const float* base, long long row_stride, int n0,
                               int N, int D, bool rotate, const float* cos_t, const float* sin_t) {
   const int half = D / 2;
@@ -84,7 +87,10 @@ __device__ void load_tile_f32(float* dst, int ld, const float* base, long long r
     if (n < N) {
       const float* src = base + n * row_stride;
       val = src[d];
-      if (rotate) val = val * cos_t[n * D + d] + src[rope_partner(d, half)] * sin_t[n * D + d];
+      if (rotate) {
+        const float s = kRawSin && d < half ? -sin_t[n * D + d] : sin_t[n * D + d];
+        val = val * cos_t[n * D + d] + src[rope_partner(d, half)] * s;
+      }
     }
     dst[r * ld + d] = val;
   }
@@ -191,7 +197,9 @@ __device__ void load_tile_tf32(float* dst, const float* base, long long row_stri
 
 // Split-half RoPE in place on a tile loaded by load_tile_bf16: each item owns
 // the pair (d, d + D/2), so reading the partner before writing is safe.
-// Rounds after each operation in bf16, as the TPU kernels do.
+// Rounds after each operation in bf16, as the TPU kernels do. sin_t is the
+// split-half table as the model holds it: its sign is folded here (negated
+// for d < D/2, which is exact), so x*cos + rot_half(x)*sin.
 template <int LD>
 __device__ void rotate_tile_bf16(__nv_bfloat16* buf, int n0, int N, int D, const float* cos_t,
                                  const float* sin_t) {
@@ -208,7 +216,7 @@ __device__ void rotate_tile_bf16(__nv_bfloat16* buf, int n0, int N, int D, const
     const float* st = sin_t + n * D;
     using T = __nv_bfloat16;
     row[d] = __float2bfloat16(round_to<T>(x * round_to<T>(ct[d])) +
-                              round_to<T>(xr * round_to<T>(st[d])));
+                              round_to<T>(xr * round_to<T>(-st[d])));
     row[d + half] = __float2bfloat16(round_to<T>(xr * round_to<T>(ct[d + half])) +
                                      round_to<T>(x * round_to<T>(st[d + half])));
   }

@@ -1,13 +1,16 @@
-// Attention forward with in-kernel split-half RoPE, for sm_90a: the device
-// body of nat_attention_fwd.cu (fused qkv), attn_small_fwd.cu (separate
-// q, k, v) and flash_fwd.cu (the long route: q, k rotated beforehand, no
-// tables). Each reads q, k and v through their Views, in place, and writes
-// a contiguous (B, N, H, D) output.
+// Attention forward with in-kernel split-half RoPE, for sm_90a: the first
+// device bodies (mma.sync and fp32 FMA) of nat_attention_fwd.cu (fused qkv)
+// and attn_small_fwd.cu (separate q, k, v), which send bf16 calls with D <=
+// 128, 16-byte aligned rows and N <= 1024 to attention_fwd_wgmma.cuh
+// instead, and the whole body of flash_fwd.cu (the long route: q, k rotated
+// beforehand, no tables). Each reads q, k and v through their Views, in
+// place, and writes a contiguous (B, N, H, D) output.
 //
 // Numerics follow the TPU kernels (_nat_fwd_kernel, _attn_kernel_small_rope,
 // _attn_kernel_small, _flash_kernel):
-//   q~ = q*cos + roll(q, D/2)*sin'   in the input dtype (sin' sign-folded,
-//                                    equal to q*cos + rot_half(q)*sin)
+//   q~ = q*cos + roll(q, D/2)*sin'   in the input dtype (sin' = sin negated
+//                                    for d < D/2, folded in the kernel:
+//                                    q*cos + rot_half(q)*sin)
 //   s  = (q~ . k~^T) * D^-0.5       fp32 accumulation
 //   p  = exp(s - rowmax)            fp32, rounded to v's dtype for P.V
 //   o  = (P . V) / rowsum(p)        fp32 accumulation, division last, in q's dtype
@@ -18,7 +21,8 @@
 // Design. Each block owns one (batch, head, 64-query) tile and streams K/V
 // tiles of 64 keys through shared memory; nothing but the output leaves the
 // block, so the (N, N) scores never reach device memory.
-//  - bf16 (the sampling and training paths): four warps, 16 query rows each,
+//  - bf16 (flash_fwd.cu with use_rope: false, and the small route's calls
+//    that attention_fwd_wgmma.cuh does not take): four warps, 16 query rows each,
 //    run both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
 //    fp32 accumulate); the head dim is zero-padded to a multiple of 16 inside
 //    shared memory (72 -> 80). Tiles arrive with 16-byte loads when every
@@ -33,10 +37,10 @@
 //    the output in fp32.
 //  - fp32 (tests and checks): 256 threads run both products as fp32 FMAs,
 //    4x4 register-blocked.
-// What keeps it off its bound (bytes, at the main paths' shapes): K/V are
+// What kept the bf16 kernel at 10x its bound on the small route (bytes): K/V
 // re-read (and K re-rotated) for every 64-query tile, N/64 times per head,
-// loads and compute do not overlap, and mma.sync reaches a fraction of the
-// wgmma rate. wgmma/TMA tiles are the redesign.
+// loads and compute that do not overlap, and mma.sync at a fraction of the
+// wgmma rate; attention_fwd_wgmma.cuh is the redesign of that route.
 
 #ifndef VAVAE_ATTENTION_FWD_CUH
 #define VAVAE_ATTENTION_FWD_CUH
@@ -72,7 +76,7 @@ attn_fwd_kernel(View q, View k, View v, View out, const float* __restrict__ cos_
   const float* __restrict__ vb = head_base<const float>(v, b, h);
   const bool rope = use_rope != 0;
 
-  load_tile_f32(q_s, ld, qb, q.sn, q0, N, D, rope, cos_t, sin_t);
+  load_tile_f32<true>(q_s, ld, qb, q.sn, q0, N, D, rope, cos_t, sin_t);
   if (tid < kBlockM) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -86,7 +90,7 @@ attn_fwd_kernel(View q, View k, View v, View out, const float* __restrict__ cos_
 
   for (int k0 = 0; k0 < N; k0 += kBlockN) {
     __syncthreads();  // the previous tile's readers are done with k_s, v_s, p_s
-    load_tile_f32(k_s, ld, kb, k.sn, k0, N, D, rope, cos_t, sin_t);
+    load_tile_f32<true>(k_s, ld, kb, k.sn, k0, N, D, rope, cos_t, sin_t);
     load_tile_f32(v_s, ld, vb, v.sn, k0, N, D, false, cos_t, sin_t);
     __syncthreads();
 
@@ -373,8 +377,9 @@ attn_fwd_mma_kernel(View q, View k, View v, View out, const float* __restrict__ 
 }
 
 // q, k, v: inputs; out: a (B, N, H, D) output with 4-byte aligned rows (the
-// wrappers allocate it contiguous); cos, sin: (N, D) fp32 tables (sin
-// sign-folded), read only when use_rope (never by the TF32 kernel).
+// wrappers allocate it contiguous); cos, sin: (N, D) fp32 split-half tables
+// as the model holds them (the kernels fold the sign of sin), read only when
+// use_rope (never by the TF32 kernel).
 struct FwdArgs {
   View q, k, v, out;
   const float* cos_t;
@@ -425,9 +430,9 @@ inline bool valid_shape(const FwdArgs& a) {
   return a.B >= 1 && a.N >= 1 && a.H >= 1 && a.D >= 2 && a.D <= 256 && !(a.D & 1);
 }
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel). Needs
-// B, N, H >= 1 and an even D <= 256.
-cudaError_t attention_fwd(const FwdArgs& a, int dtype) {
+// The first bodies: dtype 0 = float32 (FMA kernel), 1 = bfloat16 (mma.sync
+// kernel). Needs B, N, H >= 1 and an even D <= 256.
+cudaError_t attention_fwd_mma_sync(const FwdArgs& a, int dtype) {
   if (!valid_shape(a)) return cudaErrorInvalidValue;
   if (dtype == 0) {
     const int nj = (a.D + 15) / 16;

@@ -54,7 +54,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                   nullptr,
                   B, N, H, D, 0,
                   static_cast<cudaStream_t>(stream)};
-  if (qk_dtype == v_dtype) return (int)attention_fwd(a, qk_dtype);
+  // the first bodies, as before the wgmma body: this kernel is not redesigned yet
+  if (qk_dtype == v_dtype) return (int)attention_fwd_mma_sync(a, qk_dtype);
   if (qk_dtype == 0 && v_dtype == 1) return (int)attention_fwd_tf32(a);
   return (int)cudaErrorInvalidValue;
 }

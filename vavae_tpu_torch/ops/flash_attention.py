@@ -34,10 +34,14 @@ other JAX threshold (``_FLASH_MIN_SEQ`` = 256) keeps tiny CPU dry runs off
 the TPU kernels and has no counterpart: for N ≤ 1024 the CUDA kernels take
 any N ≥ 1.
 
-Each kernel is built at first use; a failed build or launch raises. CPU
-tensors run the plain versions (``*_reference``, the kernels' numerics)
-under torch autograd, as the JAX package differentiates its XLA fallback off
-the TPU. There is no fallback from a kernel to a plain version.
+The forward kernels take the split-half (cos, sin) tables as the model
+holds them and fold the sign of sin themselves, so a forward call launches
+its kernel and nothing else; the backward kernels take sin sign-folded
+(``fold_sin``, once per backward call). Each kernel is built at first use;
+a failed build or launch raises. CPU tensors run the plain versions
+(``*_reference``, the kernels' numerics) under torch autograd, as the JAX
+package differentiates its XLA fallback off the TPU. There is no fallback
+from a kernel to a plain version.
 """
 from __future__ import annotations
 
@@ -239,13 +243,22 @@ def _check_kernel_input(qkv5: torch.Tensor, max_head_dim: int = MAX_HEAD_DIM) ->
         raise ValueError("qkv5 must be contiguous")
 
 
-def _kernel_tables(rope, N: int, D: int, device) -> tuple[torch.Tensor, torch.Tensor] | None:
+def _raw_tables(rope, N: int, D: int, device) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """The split-half (cos, sin) as (N, D) fp32 contiguous tensors on
+    ``device``, the forward kernels' tables (they fold the sign of sin
+    themselves): the model's own buffers, so nothing is launched."""
     if rope is None:
         return None
-    cos, sinf = fold_sin(rope, device=device)
-    if cos.shape != (N, D) or sinf.shape != (N, D):
+    cos, sin = (torch.as_tensor(t, dtype=torch.float32, device=device).contiguous() for t in rope)
+    if cos.shape != (N, D) or sin.shape != (N, D):
         raise ValueError(f"rope tables must be ({N}, {D}), got {tuple(cos.shape)}")
-    return cos, sinf
+    return cos, sin
+
+
+def _kernel_tables(rope, N: int, D: int, device) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """(cos, sign-folded sin), the backward kernels' tables."""
+    tables = _raw_tables(rope, N, D, device)
+    return None if tables is None else fold_sin(tables)
 
 
 def _table_ptrs(tables) -> tuple:
@@ -253,6 +266,8 @@ def _table_ptrs(tables) -> tuple:
 
 
 def _launch_fwd(qkv5: torch.Tensor, tables) -> torch.Tensor:
+    """(B, N, H, D) through ``csrc/nat_attention_fwd.cu`` on the raw tables
+    (``_raw_tables``): one kernel, counted in ``fused_qkv_attention.launches``."""
     B, N, _, H, D = qkv5.shape
     out = torch.empty((B, N, H, D), dtype=qkv5.dtype, device=qkv5.device)
     fn = _entry("nat_attention_fwd")
@@ -310,21 +325,22 @@ def fused_qkv_attention_bwd(qkv5: torch.Tensor, g: torch.Tensor, rope=None) -> t
 
 class _FusedQKVAttention(torch.autograd.Function):
     """Both kernels under autograd, as ``_natural_attention``'s custom VJP:
-    the forward saves qkv5 and the folded tables (``_nat_fwd_rule`` saves
-    ``(qkv3, tables)``); the backward recomputes P in the backward kernel.
-    The tables get no gradient."""
+    the forward saves qkv5 and the raw tables (``_nat_fwd_rule`` saves
+    ``(qkv3, tables)``) and launches the forward kernel alone; the backward
+    folds the sign of sin once and recomputes P in the backward kernel. The
+    tables get no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv5, cos, sinf):
-        tables = None if cos is None else (cos, sinf)
-        ctx.save_for_backward(qkv5, cos, sinf)
+    def forward(ctx, qkv5, cos, sin):
+        tables = None if cos is None else (cos, sin)
+        ctx.save_for_backward(qkv5, cos, sin)
         ctx.use_rope = tables is not None
         return _launch_fwd(qkv5, tables)
 
     @staticmethod
     def backward(ctx, g):
-        qkv5, cos, sinf = ctx.saved_tensors
-        tables = (cos, sinf) if ctx.use_rope else None
+        qkv5, cos, sin = ctx.saved_tensors
+        tables = fold_sin((cos, sin)) if ctx.use_rope else None
         return _launch_bwd(qkv5, g, tables), None, None
 
 
@@ -346,9 +362,9 @@ def fused_qkv_attention(qkv5: torch.Tensor, rope=None) -> torch.Tensor:
         if torch.is_grad_enabled() and qkv5.requires_grad:
             _check_kernel_input(qkv5, MAX_BWD_HEAD_DIM)  # refuse now, not in the backward
         _, N, _, _, D = qkv5.shape
-        tables = _kernel_tables(rope, N, D, qkv5.device)
-        cos, sinf = (None, None) if tables is None else tables
-        return _FusedQKVAttention.apply(qkv5, cos, sinf)
+        tables = _raw_tables(rope, N, D, qkv5.device)
+        cos, sin = (None, None) if tables is None else tables
+        return _FusedQKVAttention.apply(qkv5, cos, sin)
     if qkv5.device.type == "cpu":
         return fused_qkv_attention_reference(qkv5, rope)
     raise RuntimeError(f"no attention path for device {qkv5.device}")
@@ -394,9 +410,9 @@ def _strides(*tensors: torch.Tensor):
 
 
 def _launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables) -> torch.Tensor:
-    """(B, N, H, D) through ``csrc/attn_small_fwd.cu``: counted in
-    ``flash_attention.rope_launches`` with tables, else in
-    ``flash_attention.launches``."""
+    """(B, N, H, D) through ``csrc/attn_small_fwd.cu`` on the raw tables
+    (``_raw_tables``): one kernel, counted in ``flash_attention.rope_launches``
+    with tables, else in ``flash_attention.launches``."""
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     fn = _entry("attn_small_fwd")
@@ -456,21 +472,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: to
 
 class _FlashAttention(torch.autograd.Function):
     """Both kernels under autograd, as the JAX ``flash_attention`` custom VJP:
-    the forward saves q, k, v and the folded tables (``_fwd`` saves
-    ``(q, k, v, rope)``); the backward recomputes P in the backward kernel.
-    The tables get no gradient."""
+    the forward saves q, k, v and the raw tables (``_fwd`` saves
+    ``(q, k, v, rope)``) and launches the forward kernel alone; the backward
+    folds the sign of sin once and recomputes P in the backward kernel. The
+    tables get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sinf):
-        tables = None if cos is None else (cos, sinf)
-        ctx.save_for_backward(q, k, v, cos, sinf)
+    def forward(ctx, q, k, v, cos, sin):
+        tables = None if cos is None else (cos, sin)
+        ctx.save_for_backward(q, k, v, cos, sin)
         ctx.use_rope = tables is not None
         return _launch_flash_fwd(q, k, v, tables)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, cos, sinf = ctx.saved_tensors
-        tables = (cos, sinf) if ctx.use_rope else None
+        q, k, v, cos, sin = ctx.saved_tensors
+        tables = fold_sin((cos, sin)) if ctx.use_rope else None
         return (*_launch_flash_bwd(q, k, v, g, tables), None, None)
 
 
@@ -491,9 +508,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rope=None
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             _check_flash_input(q, k, v, MAX_BWD_HEAD_DIM)  # refuse now, not in the backward
         _, N, _, D = q.shape
-        tables = _kernel_tables(rope, N, D, q.device)
-        cos, sinf = (None, None) if tables is None else tables
-        return _FlashAttention.apply(q, k, v, cos, sinf)
+        tables = _raw_tables(rope, N, D, q.device)
+        cos, sin = (None, None) if tables is None else tables
+        return _FlashAttention.apply(q, k, v, cos, sin)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, rope)
     raise RuntimeError(f"no attention path for device {q.device}")

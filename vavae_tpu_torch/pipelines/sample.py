@@ -17,18 +17,20 @@ import logging
 import math
 import os
 import sys
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.models.dit import LightningDiT, create_dit
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.transport import Sampler, build_transport
 from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.png import encode_png, write_pngs
-from vavae_tpu_torch.utils.safetensors_io import load_tree, read_safetensors
+from vavae_tpu_torch.utils.safetensors_io import load_tree
 from vavae_tpu_torch.utils.weights import dit_state_from_jax, dit_state_from_reference
 
 
@@ -76,28 +78,54 @@ def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
     # sample.null_class reproduces the reference micro-Doppler quirk
     null_class = sc.get("null_class", cfg.data.num_classes)
     mode = sc.get("mode", "ODE")
+    method = sc.get("sampling_method", "euler").lower()
+    interval_start = sc.get("cfg_interval_start", 0.0)
+    use_split_cfg = (use_cfg and mode.upper() == "ODE" and method in ("euler", "heun", "dopri5")
+                     and interval_start > 0.0)
+    is_split_euler = use_split_cfg and method == "euler"
+    # the euler-only acceleration knobs, which any other program ignores:
+    # warned by name, as the JAX pipeline does
+    euler_only = {
+        "velocity_cache_interval": sc.get("velocity_cache_interval", 1) > 1,
+        "velocity_cache_adaptive": bool(sc.get("velocity_cache_adaptive", False)),
+        "multistep_order": sc.get("multistep_order", 1) > 1,
+    }
+    if any(euler_only.values()) and not is_split_euler:
+        warnings.warn(
+            f"sample.{'/'.join(k for k, v in euler_only.items() if v)} only applies on the "
+            "split-CFG euler path (cfg_scale > 1, mode ODE, sampling_method euler, "
+            f"cfg_interval_start > 0) — sampling will run plain {method} with no acceleration.",
+            stacklevel=2,
+        )
     if mode.upper() != "ODE":
         raise NotImplementedError(
             "SDE sampling is not ported yet (ROADMAP Queue 1 item 6, remaining samplers)"
         )
-    method = sc.get("sampling_method", "euler").lower()
-    interval_start = sc.get("cfg_interval_start", 0.0)
-    use_split_cfg = use_cfg and method in ("euler", "heun", "dopri5") and interval_start > 0.0
     num_steps = sc.get("num_sampling_steps", 250)
     shift = sc.get("timestep_shift", 0.0)
     reverse = sc.get("reverse", False)
     if use_split_cfg:
+        # the JAX pipeline's knobs, names and defaults; the euler ones only on
+        # the split-euler path
+        euler_knobs = dict(
+            cache_interval=sc.get("velocity_cache_interval", 1),
+            cache_order=sc.get("velocity_cache_order", 1),
+            multistep_order=sc.get("multistep_order", 1),
+            cache_adaptive=bool(sc.get("velocity_cache_adaptive", False)),
+            cache_tol=sc.get("velocity_cache_tol", 0.02),
+            cache_max_interval=sc.get("velocity_cache_max_interval", 8),
+        ) if is_split_euler else {}
         cfg_sample_fn = sampler.sample_ode_cfg(
             num_steps=num_steps, timestep_shift=shift, cfg_interval_start=interval_start,
-            reverse=reverse, sampling_method=method,
-            cache_interval=sc.get("velocity_cache_interval", 1),
-            cache_adaptive=bool(sc.get("velocity_cache_adaptive", False)),
-            multistep_order=sc.get("multistep_order", 1),
+            reverse=reverse, sampling_method=method, rtol=sc.get("rtol", 1e-3),
+            atol=sc.get("atol", 1e-6), max_steps=sc.get("dopri5_max_steps", 1000),
+            **euler_knobs,
         )
     else:
         sample_fn = sampler.sample_ode(
-            sampling_method=method, num_steps=num_steps, reverse=reverse,
-            timestep_shift=shift,
+            sampling_method=method, num_steps=num_steps, atol=sc.get("atol", 1e-6),
+            rtol=sc.get("rtol", 1e-3), max_steps=sc.get("dopri5_max_steps", 1000),
+            reverse=reverse, timestep_shift=shift,
         )
 
     latent_size = cfg.data.image_size // cfg.get("vae", {}).get("downsample_ratio", 16)
@@ -144,9 +172,11 @@ def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
 
 def load_latent_stats(cfg: Config):
     """(mean, std), each (1, C, 1, 1), when ``data.latent_norm`` is set, else
-    None. Reads the cache the extraction pipeline writes beside the shards
-    (``latents_stats.safetensors``, or a reference ``latents_stats.pt``);
-    computing the stats from shards waits for the extraction slice."""
+    None: ``ImgLatentDataset(data_path, latent_norm=True).latent_stats``, as
+    the JAX function returns them. The dataset reads the cache beside the
+    shards (``latents_stats.safetensors``, or a reference
+    ``latents_stats.pt``) or computes the stats from the shards and writes
+    the cache."""
     if not cfg.data.get("latent_norm", False):
         return None
     data_path = cfg.data.get("data_path")
@@ -156,18 +186,7 @@ def load_latent_stats(cfg: Config):
             "point it at the extracted-latents dump that holds the stats cache, "
             "or set data.latent_norm: false"
         )
-    np_cache = os.path.join(data_path, "latents_stats.safetensors")
-    pt_cache = os.path.join(data_path, "latents_stats.pt")
-    if os.path.exists(np_cache):
-        tensors, _ = read_safetensors(np_cache)
-        return tensors["mean"], tensors["std"]
-    if os.path.exists(pt_cache):
-        stats = torch.load(pt_cache, map_location="cpu", weights_only=False)
-        return stats["mean"].numpy(), stats["std"].numpy()
-    raise FileNotFoundError(
-        f"no latents_stats.safetensors or latents_stats.pt in {data_path}; computing "
-        "them from the shards is not ported yet (ROADMAP Queue 1 item 8, extraction)"
-    )
+    return ImgLatentDataset(data_path, latent_norm=True).latent_stats
 
 
 def demo_grid(imgs: np.ndarray, cols: int = 4) -> np.ndarray:
