@@ -1,7 +1,8 @@
 """A/B of checkouts on one card, in turns within one process tree.
 
     python3 chip_ab.py --out DIR --order parent,change,change,parent \\
-        parent=PATH change=. [--train parent,change] [--profile-train parent,change]
+        parent=PATH change=. [--train parent,change] [--profile-train parent,change] \\
+        [--profile-sample parent,change]
 
 Each label names a checkout of this repository. For each entry of
 ``--order`` the script runs, in that checkout's directory and in a process
@@ -10,8 +11,11 @@ of its own, ``chip_smoke.py``'s build and kernel phases (``phase_build``,
 ``phase_long_kernel``) and, for the labels in ``--train``, its XL/1 train
 steps at batch 32 on both attention branches (``phase_train_steps``); for
 the labels in ``--profile-train``, ``vavae_tpu_torch.pipelines.profile_train``
-of that checkout (production branch). Every run also times the checkout's
-two small-route forward wrappers, with and without RoPE, at the shapes in
+of that checkout (production branch); for the labels in ``--profile-sample``,
+its ``vavae_tpu_torch.pipelines.profile_sample --image_size 1024 --batch 2``
+(the 1024² sampling forwards, where attention takes the long route). Every
+run also times the checkout's two small-route forward wrappers, with and
+without RoPE, at the shapes in
 ``FWD_SHAPES``, so that checkouts whose ``chip_smoke.py`` measures other
 shapes are read at the same ones. Every checkout builds and runs its own
 kernels and modules, but all are timed by this tree's
@@ -20,8 +24,8 @@ the checkout's own timing functions, so that every reading has one
 definition. Writes ``DIR/ab_<label><n>.json`` (and ``.log``) per run and
 prints a summary: each kernel's device ms at the main paths' shapes, the
 forward kernels' at every shape measured (with SDPA's), the backward's
-device ms by launch, the registers and spills of the forward's wgmma body
-where the checkout has one, ms/step and the profiler's split.
+device ms by launch, the registers and spills of the forward wgmma bodies
+where the checkout has them, ms/step and the profilers' splits.
 """
 from __future__ import annotations
 
@@ -76,7 +80,8 @@ with open(sys.argv[2], "w") as f:
 """
 
 
-def run(label: str, checkout: Path, out: Path, train: bool, profile: bool) -> int:
+def run(label: str, checkout: Path, out: Path, train: bool, profile: bool,
+        profile_sample: bool) -> int:
     env = dict(os.environ, PYTHONPATH=str(checkout))
     with open(out.with_suffix(".log"), "w") as log:
         rc = subprocess.run([sys.executable, "-c", RUNNER, str(TIMING), str(out), str(int(train)),
@@ -86,6 +91,12 @@ def run(label: str, checkout: Path, out: Path, train: bool, profile: bool) -> in
             prof = out.with_name(out.stem + "_profile_train.json")
             rc = subprocess.run([sys.executable, "-m", "vavae_tpu_torch.pipelines.profile_train",
                                  "--out", str(prof)], cwd=checkout, env=env, stdout=log,
+                                stderr=subprocess.STDOUT).returncode
+        if rc == 0 and profile_sample:
+            prof = out.with_name(out.stem + "_profile_sample.json")
+            rc = subprocess.run([sys.executable, "-m", "vavae_tpu_torch.pipelines.profile_sample",
+                                 "--image_size", "1024", "--batch", "2", "--out", str(prof)],
+                                cwd=checkout, env=env, stdout=log,
                                 stderr=subprocess.STDOUT).returncode
     print(f"{out.stem}: rc={rc}", flush=True)
     return rc
@@ -104,7 +115,7 @@ def summary(out: Path) -> None:
             f"{k} {v:.4f}" for k, v in r["forward_shapes"].items()))
     for source, kernels in r["build_s"].get("resources", {}).items():
         for kernel, res in sorted(kernels.items()):
-            if kernel.startswith("attn_fwd_wgmma_kernel"):
+            if kernel.startswith(("attn_fwd_wgmma_kernel", "flash_fwd_wgmma_kernel")):
                 print(f"{out.stem} {source}.cu {kernel}: {res}")
     for n in ("nat_attention_bwd", "attn_small_bwd"):
         by = r.get(n, {}).get("rows", [{}])[0].get("device_ms_by_kernel")
@@ -122,6 +133,14 @@ def summary(out: Path) -> None:
         print(f"{out.stem} profile_train: wall {p['wall_ms']:.2f} ms, device "
               f"{p['device_ms']:.2f} ms, busy {p['busy_share']:.3f}, by class "
               + ", ".join(f"{k} {v:.2f}" for k, v in p["by_class_ms"].items()))
+    prof = out.with_name(out.stem + "_profile_sample.json")
+    if prof.exists():
+        for key, p in json.loads(prof.read_text()).items():
+            if key.startswith("dit_forward"):
+                rope = f", rope_uncast {p['rope_uncast_ms']:.2f}" if "rope_uncast_ms" in p else ""
+                print(f"{out.stem} profile_sample 1024² {key}: wall {p['wall_ms']:.2f} ms, device "
+                      f"{p['device_ms']:.2f} ms, busy {p['busy_share']:.3f}, by class "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in p["by_class_ms"].items()) + rope)
 
 
 def main(argv=None) -> int:
@@ -132,11 +151,13 @@ def main(argv=None) -> int:
     ap.add_argument("--train", default="", help="labels whose runs also take the train steps")
     ap.add_argument("--profile-train", default="",
                     help="labels whose runs also run profile_train")
+    ap.add_argument("--profile-sample", default="",
+                    help="labels whose runs also run profile_sample at 1024²")
     args = ap.parse_args(argv)
     paths = dict(c.split("=", 1) for c in args.checkouts)
     paths = {k: Path(v).resolve() for k, v in paths.items()}
-    train, profile = set(filter(None, args.train.split(","))), set(
-        filter(None, args.profile_train.split(",")))
+    train, profile, profile_sample = (set(filter(None, s.split(","))) for s in (
+        args.train, args.profile_train, args.profile_sample))
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     seen: dict = {}
@@ -144,7 +165,8 @@ def main(argv=None) -> int:
     for label in args.order.split(","):
         seen[label] = seen.get(label, 0) + 1
         out = (out_dir / f"ab_{label}{seen[label]}.json").resolve()
-        if run(label, paths[label], out, label in train, label in profile) != 0:
+        if run(label, paths[label], out, label in train, label in profile,
+               label in profile_sample) != 0:
             failed += 1
             continue
         outs.append(out)

@@ -504,3 +504,50 @@ def test_cuda_long_route_autograd(dtype):
     xr = x.detach().clone().requires_grad_(True)
     (long_attention_reference(*xr.unbind(dim=2), tables).float() * g).sum().backward()
     assert _max_rel(x.grad, xr.grad) <= (3e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def _kernels_launched(fn, reps=3) -> dict:
+    """Launch counts by kernel name of ``reps`` calls of ``fn`` in one
+    profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # a trace's first moments may lose kernel records
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    cuda = torch.autograd.DeviceType.CUDA
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,N,D", [(1, 4, 1025, 72), (2, 3, 4033, 72), (1, 2, 1100, 64)])
+def test_cuda_long_wgmma_body(B, H, N, D, qk_dtype):
+    """Aligned fp32 or bf16 q̃, k̃ with bf16 v (D % 8 == 0, D <= 72) run the
+    wgmma body (flash_fwd_wgmma.cuh) alone; a second call on the same inputs
+    is bit-identical; limits as in _assert_long_close."""
+    _cuda_or_skip()
+    q, k, v = _long_case(B, H, N, D, qk_dtype, torch.bfloat16, seed=5)
+    first = flash_attention_long(q, k, v)
+    second = flash_attention_long(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_long_close(first, flash_attention_long_reference(q, k, v), torch.bfloat16)
+    counts = _kernels_launched(lambda: flash_attention_long(q, k, v))
+    assert len(counts) == 1 and "flash_fwd_wgmma_kernel" in next(iter(counts)), counts
+
+
+@pytest.mark.gpu
+def test_cuda_long_misaligned_v_stays_on_first_body():
+    """A bf16 v whose rows are not 16-byte aligned sends the call to the
+    TF32 mma.sync body (attention_fwd.cuh), with the same limits."""
+    _cuda_or_skip()
+    q, k, v = _long_case(1, 3, 1025, 72, torch.float32, torch.bfloat16, seed=6, offset=1)
+    assert v.data_ptr() % 16 != 0
+    _assert_long_close(flash_attention_long(q, k, v), flash_attention_long_reference(q, k, v),
+                       v.dtype)
+    counts = _kernels_launched(lambda: flash_attention_long(q, k, v))
+    assert len(counts) == 1 and "attn_fwd_mma_kernel" in next(iter(counts)), counts

@@ -11,8 +11,11 @@ layouts, ``cvt.rna.tf32``, ``cp.async`` as an immediate copy (so its wait
 and the proxy fence are no-ops), and ``wgmma`` evaluated for each thread's
 own accumulator elements from the PTX ISA's layouts: operands in shared
 memory decoded from the matrix descriptor (start address, leading and stride
-byte offsets, no swizzle; K-major, or MN-major with the transpose bit), an A
-operand in registers gathered from the warp's fragments. Shared memory starts as NaN, so a read of
+byte offsets, no swizzle; K-major, or MN-major with the transpose bit; TF32
+operands read as their TF32 bits), an A operand in registers gathered from
+the warp's fragments, each product evaluated at issue (so a missing wgmma
+wait does not show here), and mbarriers (init, arrive, parity wait) as a
+counter per barrier. Shared memory starts as NaN, so a read of
 an element the kernel never wrote shows up in the output. The kernels then
 run blocks one after the other on small shapes and are held against their
 plain versions (``fused_qkv_attention_reference``,
@@ -55,6 +58,8 @@ LONG_SOURCE = CSRC / "flash_fwd.cu"
 
 EMULATION = r"""#include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <mutex>
 #include <cstdint>
 #include <cstring>
 #include <functional>
@@ -103,6 +108,12 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 struct EmuBlock {
   std::vector<float> smem;
   std::barrier<> bar;
+  // mbarriers, by byte offset in shared memory: arrivals a phase takes,
+  // arrivals so far, phases completed
+  struct Mbar { int expected = 0, count = 0, phase = 0; };
+  std::map<size_t, Mbar> mbars;
+  std::mutex mbar_m;
+  std::condition_variable mbar_cv;
   std::vector<std::barrier<>*> warps;
   float xchg[1024];
   uint32_t mma_a[1024][4], mma_b[1024][2], wg_a[1024][4];
@@ -123,6 +134,21 @@ inline thread_local std::barrier<>* g_cluster_bar = nullptr;
 #define g_wg_a (g_block->wg_a)
 #define g_ldm_ptr (g_block->ldm)
 inline void __syncthreads() { g_block->bar.arrive_and_wait(); }
+// mbarrier.init / arrive / try_wait.parity on the block's table
+inline EmuBlock::Mbar& emu_mbar(void* bar) { return g_block->mbars[(char*)bar - (char*)g_smem]; }
+inline void emu_mbar_init(void* bar, int count) {
+  std::lock_guard<std::mutex> lk(g_block->mbar_m);
+  emu_mbar(bar) = EmuBlock::Mbar{count, 0, 0};
+}
+inline void emu_mbar_arrive(void* bar) {
+  std::lock_guard<std::mutex> lk(g_block->mbar_m);
+  EmuBlock::Mbar& b = emu_mbar(bar);
+  if (++b.count == b.expected) { b.count = 0; ++b.phase; g_block->mbar_cv.notify_all(); }
+}
+inline void emu_mbar_wait(void* bar, int parity) {
+  std::unique_lock<std::mutex> lk(g_block->mbar_m);
+  g_block->mbar_cv.wait(lk, [&] { return (emu_mbar(bar).phase & 1) != parity; });
+}
 inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   int t = threadIdx.x; g_xchg[t] = v; g_warp_bar[t / 32]->arrive_and_wait();
@@ -297,6 +323,27 @@ inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat1
   b1 = pk(el(1, 2 * c, g), el(1, 2 * c + 1, g));
   g_warp_bar[w]->arrive_and_wait();
 }
+// element (mn, k) of a 32-bit K-major wgmma operand (TF32) in shared memory:
+// core matrices of 8 rows x 4 elements (16 bytes), read as its TF32 bits
+inline float emu_gmma_el32(uint64_t desc, int mn, int k) {
+  if (desc >> 62) throw 2;  // only the layout without swizzle is emulated
+  const size_t lbo = ((desc >> 16) & 0x3fff) << 4, sbo = ((desc >> 32) & 0x3fff) << 4;
+  const size_t off = ((desc & 0x3fff) << 4) + (mn / 8) * sbo + (k / 4) * lbo + (mn % 8) * 16 + (k % 4) * 4;
+  uint32_t u; memcpy(&u, (const char*)g_smem + off, 4); return tf32_of(u);
+}
+// wgmma m64nNk8 (f32 += tf32 . tf32), A and B from shared memory, both
+// K-major (TF32 has no transpose); d as in emu_wgmma
+inline void emu_wgmma_tf32(float* d, int N, uint64_t da, uint64_t db, int acc) {
+  const int t = threadIdx.x, w = (t / 32) % 4, l = t % 32;
+  float A[2][8];
+  for (int h = 0; h < 2; ++h) for (int k = 0; k < 8; ++k) A[h][k] = emu_gmma_el32(da, w * 16 + l / 4 + 8 * h, k);
+  for (int j = 0; j < N / 8; ++j) for (int e = 0; e < 4; ++e) {
+    const int col = j * 8 + 2 * (l % 4) + (e & 1);
+    float sum = 0.f;
+    for (int k = 0; k < 8; ++k) sum += A[e >> 1][k] * emu_gmma_el32(db, col, k);
+    d[4 * j + e] = (acc ? d[4 * j + e] : 0.f) + sum;
+  }
+}
 """
 
 
@@ -329,6 +376,7 @@ def _host_source(src: str, launches: int = 2) -> str:
         ("void", "mma_m16n8k8_tf32", "emu_mma_tf32(d, a, b)",
          "float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]"),
         ("float", "round_tf32", "return emu_round_tf32(x)", "float x"),
+        ("float", "ex2_ftz", "return exp2f(x)", "float x"),
         ("void", "ldmatrix_x2_trans", "emu_ldmatrix_x2_trans(b0, b1, row)",
          "uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row"),
         ("void", "cp_async16", "emu_cp_async16(dst, src, src_bytes)",
@@ -340,13 +388,19 @@ def _host_source(src: str, launches: int = 2) -> str:
         ("void", "wgmma_fence", "(void)0", ""),
         ("void", "wgmma_commit", "(void)0", ""),
         ("void", "wgmma_wait_all", "(void)0", ""),
+        ("void", "mbar_init", "emu_mbar_init(bar, count)", "uint64_t* bar, int count"),
+        ("void", "mbar_arrive", "emu_mbar_arrive(bar)", "uint64_t* bar"),
+        ("void", "mbar_wait", "emu_mbar_wait(bar, parity)", "uint64_t* bar, int parity"),
         ("void", "cluster_sync", "g_cluster_bar->arrive_and_wait()", ""),
+        ("void", "fence_operand", "(void)x", "float& x"),
+        ("void", "wgmma_tf32_n64", "emu_wgmma_tf32(d, 64, da, db, acc)",
+         "float* d, uint64_t da, uint64_t db, int acc"),
     ] + [
         ("void", f"wgmma_ss_n{n}", f"emu_wgmma(d, {n}, TA, TB, da, nullptr, db, acc)",
          "float* d, uint64_t da, uint64_t db, int acc") for n in (64, 40, 32, 16)
     ] + [
         ("void", f"wgmma_rs_n{n}", f"emu_wgmma(d, {n}, 0, TB, 0, a, db, acc)",
-         "float* d, const uint32_t* a, uint64_t db, int acc") for n in (128, 80, 64, 32)
+         "float* d, const uint32_t* a, uint64_t db, int acc") for n in (128, 80, 72, 64, 32)
     ]:
         src, n = re.subn(rf"__device__ __forceinline__ {ret} {name}\(.*?\n}}\n",
                          f"inline {ret} {name}({sig}) {{ {emu}; }}\n", src, flags=re.S)
@@ -811,6 +865,11 @@ def test_small_bwd_emulation_catches_mutations(tmp_path, name):
 # -- the long route: flash_fwd.cu ---------------------------------------------------
 
 
+# <<<...>>> launches in flash_fwd.cu: the wgmma body, the mma.sync and the
+# fp32 FMA bodies
+LONG_LAUNCHES = 3
+
+
 def long_function(lib: ctypes.CDLL):
     fn = lib.flash_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -821,7 +880,8 @@ def long_function(lib: ctypes.CDLL):
 @pytest.fixture(scope="module")
 def long_kernel(tmp_path_factory):
     src = expand_includes(LONG_SOURCE)
-    return long_function(build_host_library(tmp_path_factory.mktemp("long_emu"), src, 2))
+    return long_function(build_host_library(tmp_path_factory.mktemp("long_emu"), src,
+                                            LONG_LAUNCHES))
 
 
 def run_long(kernel, q, k, v):
@@ -901,12 +961,15 @@ def test_long_kernel_source_misaligned_input(long_kernel):
 
 def test_long_emulation_catches_mutation(tmp_path):
     """A TF32 B fragment read from the wrong column (kt[0] for kt[4]) must
-    fail the check above: the emulation runs the TF32 path's fragments."""
+    fail the check above: the emulation runs the TF32 mma.sync path's
+    fragments, which takes a v whose rows are not 16-byte aligned."""
     old = "__float_as_uint(kt[4])"
     source = expand_includes(LONG_SOURCE)
     assert source.count(old) == 1
-    fn = long_function(build_host_library(tmp_path, source.replace(old, "__float_as_uint(kt[0])"), 2))
-    q, k, v = long_case(1, 100, 2, 72, F32, BF16)
+    fn = long_function(build_host_library(tmp_path, source.replace(old, "__float_as_uint(kt[0])"),
+                                          LONG_LAUNCHES))
+    q, k, v = long_case(1, 100, 2, 72, F32, BF16, offset=1)
+    assert v.data_ptr() % 16 != 0
     got = run_long(fn, q, k, v)
     assert (got - flash_attention_long_reference(q, k, v)).abs().max().item() > 2e-2
 
@@ -926,11 +989,68 @@ LONG_MUTATIONS = {
 def test_long_emulation_catches_planted_faults(tmp_path, name, qk_dtype):
     """A dropped tail mask or a dropped rescale in the shared mma.sync body
     must exceed LONG_REL_TOL, for the TF32 and the bf16 q̃·k̃ᵀ, at an N
-    whose last key tile holds one key (the chip check's N = 4,033 case)."""
+    whose last key tile holds one key (the chip check's N = 4,033 case).
+    The inputs' rows are not 16-byte aligned, which keeps the call on that
+    body."""
     old, new = LONG_MUTATIONS[name]
     source = expand_includes(LONG_SOURCE)
     assert source.count(old) == 1, name
-    fn = long_function(build_host_library(tmp_path, source.replace(old, new), 2))
-    q, k, v = long_case(1, 129, 2, 72, qk_dtype, BF16)
+    fn = long_function(build_host_library(tmp_path, source.replace(old, new), LONG_LAUNCHES))
+    q, k, v = long_case(1, 129, 2, 72, qk_dtype, BF16, offset=1)
+    assert v.data_ptr() % 16 != 0
     got = run_long(fn, q, k, v)
     assert long_rel_err(got, flash_attention_long_reference(q, k, v)) > LONG_REL_TOL
+
+
+# Calls that the wgmma body (flash_fwd_wgmma.cuh) takes: fp32 or bf16 q̃, k̃
+# with bf16 v, D % 8 == 0, D <= 72, every row 16-byte aligned, any N.
+LONG_WGMMA_CASES = [
+    (1, 1100, 1, 72, F32, BF16),  # the main path's pair past SMALL_SEQ_MAX: 18 key tiles, 12 in the last
+    (1, 200, 2, 72, F32, BF16),   # two query blocks, the second ragged; 8 keys in the last tile
+    (2, 129, 1, 64, F32, BF16),   # DP = 64; one key in the last tile
+    (1, 70, 1, 16, F32, BF16),    # a narrow head dim, zero-padded to DP = 64
+    (1, 1100, 1, 72, BF16, BF16),  # use_rope: false, q and k strided views, bf16 S
+    (1, 200, 2, 64, BF16, BF16),
+]
+
+
+@pytest.mark.parametrize("B,N,H,D,qk_dtype,v_dtype", LONG_WGMMA_CASES)
+def test_long_wgmma_source_matches_plain_version(long_kernel, B, N, H, D, qk_dtype, v_dtype):
+    # limits as in assert_long_close
+    q, k, v = long_case(B, N, H, D, qk_dtype, v_dtype, seed=4)
+    assert not v.is_contiguous() and v.data_ptr() % 16 == 0
+    got = run_long(long_kernel, q, k, v)
+    want = flash_attention_long_reference(q, k, v)
+    assert got.dtype == want.dtype == qk_dtype
+    assert not torch.isnan(got.float()).any()
+    assert_long_close(got, want, v_dtype)
+
+
+# Faults planted in copies of the wgmma body, which the check must catch:
+# the keys past N left unmasked, no rescale when the row max grows, and the
+# TF32 k-steps' descriptors moved on by one core matrix (16 bytes of a row)
+# instead of two.
+LONG_WGMMA_MUTATIONS = {
+    "no_tail_mask": ("if (k0 + j * 8 + 2 * cq + (e & 1) >= N) s[j][e] = -INFINITY;",
+                     "if (k0 + j * 8 + 2 * cq + (e & 1) >= N) s[j][e] += 0.f;"),
+    "no_rescale": ("    const float alpha0 = ex2_ftz(m0 - mn0);\n    const float alpha1 = ex2_ftz(m1 - mn1);",
+                   "    const float alpha0 = 1.f;\n    const float alpha1 = 1.f;"),
+    "k_step_offset": ("wgmma_tf32_n64(&s[0][0], gmma_step(dq, ks * 256), gmma_step(dk, ks * 256)",
+                      "wgmma_tf32_n64(&s[0][0], gmma_step(dq, ks * 128), gmma_step(dk, ks * 128)"),
+}
+
+
+@pytest.mark.parametrize("name", list(LONG_WGMMA_MUTATIONS))
+def test_long_wgmma_emulation_catches_planted_faults(tmp_path, name):
+    """Each fault exceeds LONG_REL_TOL on the main path's pair at an N whose
+    last key tile holds one key; the all-fp32 pair and a misaligned v stay
+    on the first bodies and pass."""
+    old, new = LONG_WGMMA_MUTATIONS[name]
+    source = expand_includes(LONG_SOURCE)
+    assert source.count(old) == 1, name
+    fn = long_function(build_host_library(tmp_path, source.replace(old, new), LONG_LAUNCHES))
+    q, k, v = long_case(1, 129, 2, 72, F32, BF16, seed=5)
+    assert long_rel_err(run_long(fn, q, k, v), flash_attention_long_reference(q, k, v)) > LONG_REL_TOL
+    for v_dtype, offset in ((F32, 0), (BF16, 1)):
+        q, k, v = long_case(1, 70, 2, 72, F32, v_dtype, seed=6, offset=offset)
+        assert_long_close(run_long(fn, q, k, v), flash_attention_long_reference(q, k, v), v_dtype)

@@ -8,21 +8,24 @@
 // strides (v is the strided view qkv[:, :, 2]) and the output is written as
 // (B, N, H, D) in q~'s dtype. Any N >= 1: keys past N in the last tile are
 // masked, where the JAX package sends an N that is not a multiple of 256 to
-// _xla_attention. The device body is attention_fwd.cuh's, run without tables:
-//   q~, k~ fp32, v bf16 (the RoPE models): TF32 m16n8k8 for q~.k~^T, P
-//                        rounded to bf16 for P.V on m16n8k16, fp32 output;
-//   all bf16 (use_rope: false): bf16 m16n8k16 for both products;
-//   all fp32 (fp32 models):     fp32 FMAs.
+// _xla_attention. The device bodies:
+//   q~, k~ fp32 or bf16 with bf16 v, D % 8 == 0, D <= 72, 16-byte aligned
+//        rows (the RoPE models and use_rope: false at D = 72 or 64):
+//        flash_fwd_wgmma.cuh, TF32 (or bf16) wgmma for q~.k~^T, bf16 wgmma
+//        for P.V, the redesign for Hopper;
+//   other fp32 q~, k~ with bf16 v (misaligned views, other D): the TF32
+//        mma.sync body of attention_fwd.cuh;
+//   other bf16 calls: its bf16 mma.sync body; all fp32 (fp32 models): its
+//        fp32 FMA body.
 //
 // Bound on an H100 SXM at the main-path shape (B=4, H=16, N=4096, D=72, q~,
 // k~ fp32, v bf16, out fp32): 4*B*H*N^2*D = 309 GFLOP -> 0.313 ms at 989
 // TFLOP/s (bf16), 0.469 ms if q~.k~^T, half the work, runs at TF32's 495,
 // against (4 + 4 + 2 + 4)*B*N*H*D = 264 MB of input and output -> 0.079 ms
-// at 3.35 TB/s, so the bound is the operations. What keeps it off that bound:
-// mma.sync at a fraction of the wgmma rate, K/V re-read from L2 for every
-// 64-query tile, and loads that do not overlap the products.
+// at 3.35 TB/s, so the bound is the operations; flash_fwd_wgmma.cuh's note
+// says what its design does about it.
 
-#include "attention_fwd.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
@@ -54,7 +57,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                   nullptr,
                   B, N, H, D, 0,
                   static_cast<cudaStream_t>(stream)};
-  // the first bodies, as before the wgmma body: this kernel is not redesigned yet
+  if (takes_long_wgmma(a, qk_dtype, v_dtype)) return (int)attention_fwd_long(a, qk_dtype);
   if (qk_dtype == v_dtype) return (int)attention_fwd_mma_sync(a, qk_dtype);
   if (qk_dtype == 0 && v_dtype == 1) return (int)attention_fwd_tf32(a);
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the bf16 attention bodies
-// (attention_fwd_wgmma.cuh, attention_bwd.cuh): cp.async copies into shared
-// memory, the core-matrix tile layout, wgmma matrix descriptors and the
-// m64nNk16 products (bf16 in, fp32 accumulate) on it, and the row loader.
+// Hopper building blocks shared by the wgmma attention bodies
+// (attention_fwd_wgmma.cuh, flash_fwd_wgmma.cuh, attention_bwd.cuh):
+// cp.async copies into shared memory, the core-matrix tile layout, wgmma
+// matrix descriptors and the m64nNk16 (bf16 in) and m64n64k8 (TF32 in)
+// products on it, fp32 accumulate, and the row loader.
 
 #ifndef VAVAE_WGMMA_COMMON_CUH
 #define VAVAE_WGMMA_COMMON_CUH
@@ -58,6 +59,40 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// An mbarrier in shared memory: mbar_init sets the arrivals a phase takes
+// (one thread, before a __syncthreads); mbar_arrive counts this thread's
+// (release: its earlier writes are seen by a waiter); mbar_wait returns once
+// the phase of the given parity has completed (acquire)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// pins an accumulator register after a wgmma wait: the compiler may not move
+// a read of it above the wait (cute's warpgroup_fence_operand)
+__device__ __forceinline__ void fence_operand(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
 }
 
 // Shared-memory tiles are held in the core-matrix layout that wgmma reads
@@ -144,6 +179,24 @@ __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// m64n64k8, TF32 in (each operand's raw fp32 bits, of which the tensor
+// cores read the TF32 ones), fp32 accumulate; A and B from shared memory,
+// both K-major (TF32 takes no transpose); d as in the m64nNk16 products
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db, int acc) {
   asm volatile(
@@ -182,6 +235,24 @@ __device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a, uint64
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n72(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
@@ -228,9 +299,11 @@ __device__ __forceinline__ void wgmma_ss(float* acc, uint64_t da, uint64_t db, i
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* acc, const uint32_t* a, uint64_t db,
                                          int accumulate) {
-  static_assert(N == 128 || N == 80 || N == 64 || N == 32, "no m64nNk16 wrapper for this N");
+  static_assert(N == 128 || N == 80 || N == 72 || N == 64 || N == 32,
+                "no m64nNk16 wrapper for this N");
   if constexpr (N == 128) wgmma_rs_n128<TB>(acc, a, db, accumulate);
   if constexpr (N == 80) wgmma_rs_n80<TB>(acc, a, db, accumulate);
+  if constexpr (N == 72) wgmma_rs_n72<TB>(acc, a, db, accumulate);
   if constexpr (N == 64) wgmma_rs_n64<TB>(acc, a, db, accumulate);
   if constexpr (N == 32) wgmma_rs_n32<TB>(acc, a, db, accumulate);
 }

@@ -10,8 +10,12 @@ batch B, with seeded random weights, at ``--image_size`` (256 by default:
 16×16 latents; 1024 gives 64×64 latents, N = 4,096 tokens, where attention
 takes the long route). For each it prints the device time per forward by
 kernel class (the attention kernel, matrix products, everything else), the
-wall time of the window and the device's busy share of it. ``--qknorm``
-profiles the production model with ``use_qknorm: true`` instead.
+wall time of the window and the device's busy share of it. Where attention
+takes the long route (N > 1024), it also times the route's rotation outside
+the kernel alone (``rope_uncast`` of q and k with the fp32 tables, as
+``_LongAttention`` runs it on the strided views of the projection), per
+forward: its share of the "other" class. ``--qknorm`` profiles the
+production model with ``use_qknorm: true`` instead.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import time
 import torch
 
 from vavae_tpu_torch.models.dit import create_dit
+from vavae_tpu_torch.ops.flash_attention import SMALL_SEQ_MAX, rope_uncast
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.weights import randomize_
@@ -33,7 +38,7 @@ _GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "attn_fwd" in low:  # attention_fwd.cuh: the fused-qkv and the qk-norm entries
+    if "attn_fwd" in low or "flash_fwd" in low:  # the forward bodies of every entry
         return "attention_kernel"
     if "attn_bwd" in low:  # attention_bwd.cuh
         return "attention_bwd_kernel"
@@ -97,7 +102,13 @@ def main(argv=None) -> None:
             x = torch.randn((B, s, s, 32), generator=gen, device=dev)
             t = torch.rand((B,), generator=gen, device=dev)
             y = torch.randint(0, 1000, (B,), generator=gen, device=dev)
-            results[f"dit_forward_b{B}"] = profile(lambda: model(x, t, y))
+            fwd = results[f"dit_forward_b{B}"] = profile(lambda: model(x, t, y))
+            if s * s > SMALL_SEQ_MAX and model.use_rope:
+                D = model.rope_cos.shape[-1]  # the head dim
+                qkv = torch.randn((B, s * s, 3, model.num_heads, D), generator=gen, device=dev)
+                qkv = qkv.to(torch.bfloat16)
+                rot = profile(lambda: [rope_uncast(qkv[:, :, i], model.rope()) for i in range(2)])
+                fwd["rope_uncast_ms"] = rot["device_ms"] * model.depth
         z = torch.randn((args.batch, s, s, 32), generator=gen, device=dev)
         results[f"vae_decode_b{args.batch}"] = profile(lambda: vae.decode(z))
     for key, r in results.items():
