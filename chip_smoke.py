@@ -58,8 +58,30 @@ Phases, each fatal on failure:
      XL/1 forward at batch 4 of the production and the qk-norm model against
      plain attention, and the loss gradients of XL/1-width models cut to
      depth 2 at batch 2 against plain attention (the backward is autograd of
-     the exact op; remat "dots" runs the kernel again).
-Phase 3 also holds ``flash_fwd`` against its plain version at the 1024²
+     the exact op; remat "dots" runs the kernel again);
+  16. the fixed-grid samplers on XL/1 at the production ``sample:`` settings
+     cut to ``SAMPLER_STEPS`` steps, batch 8, each decoded: heun, Adams–
+     Bashforth 2 and 3, the velocity cache (k = 3, orders 1 and 2) through
+     ``build_sample_fn``, the adaptive cache through the split-CFG sampler
+     with its stats; model calls from the sampler's evaluation rule (and
+     the stats), held in the launch counts, beside the cost functions;
+  17. SDE sampling (Euler and Heun, ``diffusion_form: sigma``, ``last_step:
+     Mean``) with CFG 10 on the concatenated batch, through
+     ``build_sample_fn``;
+  18. dopri5 split-CFG sampling of the micro-Doppler DiT-S/2
+     (``vavae_tpu/configs/dit_s_microdoppler.yaml``, bf16, N = 64 tokens)
+     with the controller's stats (accepted, rejected, exhausted per phase),
+     decoded;
+  19. ``sample_ode_likelihood``: XL/1 euler at batch 2 with the kernels and
+     with plain attention (relative error), and dopri5 on the DiT-S/2; the
+     Hutchinson term's vector-Jacobian product runs the backward kernel;
+  20. FID: ``do_sample`` on XL/1 (a checkpoint of seeded weights) into two
+     folders of ``FID_NUM`` images from two seeds, one packed into an npz,
+     ``fid_folder_vs_npz`` with random Inception weights on the card:
+     FID(a, b) finite and positive, FID(a, a) below 1% of it.
+Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
+(N = 64, 6 heads of 64, with and without RoPE) and the backward at its
+likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
 shapes (B = 4 and 2, H = 16, N = 4,096, D = 72) in its three dtype pairs
 (fp32 q̃, k̃ with bf16 v; all bf16; all fp32) and at N = 4,033 (the last key
 tile holds one key and 63 masked ones), within 2e-2 max-abs and, tighter,
@@ -107,14 +129,26 @@ from vavae_tpu_torch.ops.flash_attention import (
     rope_uncast,
     rotate_half,
 )
-from vavae_tpu_torch.pipelines.sample import build_sample_fn
+from vavae_tpu_torch.eval.fid import (
+    FIDExtractor,
+    create_npz_from_sample_folder,
+    fid_folder_vs_npz,
+)
+from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample
 from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.tokenizer import VA_VAE
-from vavae_tpu_torch.transport import build_transport
+from vavae_tpu_torch.transport import Sampler, build_transport, create_transport
+from vavae_tpu_torch.transport.cost import (
+    adaptive_cache_cost,
+    dopri5_cost,
+    fixed_grid_cost,
+    split_idx,
+)
 from vavae_tpu_torch.utils.config import Config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
-from vavae_tpu_torch.utils.safetensors_io import write_safetensors
-from vavae_tpu_torch.utils.weights import randomize_
+from vavae_tpu_torch.utils.png import read_png
+from vavae_tpu_torch.utils.safetensors_io import flatten, write_safetensors
+from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -361,12 +395,19 @@ def _attention_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# the micro-Doppler DiT-S/2's forward shapes (N = 64 tokens, 6 heads of 64):
+# its dopri5 CFG phase and a batch of 16, half of one 128-query wgmma block
+MICRO_FWD_CASES = [(16, 6, 64, 64, True), (16, 6, 64, 64, False),
+                   (8, 6, 64, 64, True), (8, 6, 64, 64, False)]
+
+
 def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [(16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (8, 16, 256, 72, True), (8, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
-             (4, 16, 1024, 72, True), (4, 16, 1024, 72, False)]
+             (4, 16, 1024, 72, True), (4, 16, 1024, 72, False),
+             *MICRO_FWD_CASES]
     worst, rows = 0.0, []
     for B, H, N, D, rope in cases:
         qkv, tables = _attention_case(B, H, N, D, rope, gen)
@@ -427,7 +468,8 @@ def _bwd_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float, str]:
 BWD_CASES = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
              (16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
-             (4, 16, 1024, 72, True)]
+             (4, 16, 1024, 72, True),
+             (4, 6, 64, 64, True)]  # the micro-Doppler DiT-S/2 likelihood's
 
 
 def phase_bwd_kernel(seed: int) -> dict:
@@ -1002,6 +1044,382 @@ def phase_hires(seed: int, device: dict) -> dict:
     return out
 
 
+# -- phases 16-20: every sampler, the likelihood and FID -----------------------
+
+SAMPLER_STEPS = 50  # num_sampling_steps of phases 16, 17 and 20 (the production 250, cut)
+# phase 16: the fixed-grid samplers, each a ``sample:`` block over the production one
+SAMPLERS = {
+    "heun": {"sampling_method": "heun"},
+    "ab2": {"multistep_order": 2},
+    "ab3": {"multistep_order": 3},
+    "cache_k3_o1": {"velocity_cache_interval": 3, "velocity_cache_order": 1},
+    "cache_k3_o2": {"velocity_cache_interval": 3, "velocity_cache_order": 2},
+}
+ADAPTIVE = {"cache_adaptive": True, "cache_tol": 0.02, "cache_max_interval": 8}
+SDE_METHODS = ("Euler", "Heun")
+LIKELIHOOD_BATCH, LIKELIHOOD_STEPS = 2, 10
+FID_NUM = 16
+# the micro-Doppler DiT-S/2 (vavae_tpu/configs/dit_s_microdoppler.yaml), its
+# model:, transport: and sample: blocks written out, with ``bf16: true``
+MICRODOPPLER = {
+    "data": {"image_size": 256, "num_classes": 32, "latent_norm": True,
+             "latent_multiplier": 1.0},
+    "vae": {"downsample_ratio": 16},
+    "model": {"model_type": "LightningDiT-S/2", "use_qknorm": False, "use_swiglu": True,
+              "use_rope": True, "use_rmsnorm": True, "wo_shift": False, "in_chans": 32,
+              "use_checkpoint": False, "class_dropout_prob": 0.05, "bf16": True},
+    "transport": {"path_type": "Linear", "prediction": "velocity", "use_lognorm": True,
+                  "use_cosine_loss": True},
+    "sample": {"mode": "ODE", "sampling_method": "dopri5", "atol": 1e-6, "rtol": 1e-3,
+               "reverse": False, "num_sampling_steps": 300, "cfg_scale": 10.0,
+               "per_proc_batch_size": 4, "cfg_interval_start": 0.11, "timestep_shift": 0.1},
+    "train": {"global_seed": 0},
+}
+
+
+def _fixed_grid_calls(name: str, s: int, steps: int) -> tuple[int, int]:
+    """Model calls of the cond-only and the CFG phase of a fixed-grid split
+    sampler over ``steps`` steps, ``s`` of them below the interval: heun
+    evaluates twice a step, Adams–Bashforth once (order 3 adds a Heun first
+    step in a phase of at least two steps), the cache every k-th step."""
+    if name == "heun":
+        return 2 * s, 2 * (steps - s)
+    if name.startswith("ab"):
+        extra = lambda n: int(name == "ab3" and n >= 2)  # noqa: E731
+        return s + extra(s), steps - s + extra(steps - s)
+    k = int(name.split("_k")[1].split("_")[0])
+    return s, -(-(steps - s) // k)
+
+
+def _split_cfg_fns(cfg: Config, model, labels):
+    """The split-CFG program's two model functions, as ``build_sample_fn``
+    makes them: cond-only at batch B, [cond | uncond] guided at 2B."""
+    y_in = torch.cat([labels, torch.full_like(labels, cfg.data.num_classes)])
+    scale = cfg.sample.cfg_scale
+    return (lambda x, t: model(x, t, labels),
+            lambda x, t: model.forward_with_cfg(x, t, y_in, scale))
+
+
+@torch.inference_mode()
+def _sync_ms(fn, n: int = 20, rounds: int = 7) -> float:
+    """Wall ms that one host read of a device value (``.item()``, the
+    adaptive samplers' one sync per step or evaluation) adds between two
+    calls of ``fn``: n calls with a read after each against n calls back
+    to back, the median over ``rounds`` such pairs (the host's own spread
+    between runs of n calls is of the order of the sync)."""
+    def run(sync: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+            if sync:
+                out.flatten()[0].item()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(False), run(True)  # warm-up
+    return float(np.median([(run(True) - run(False)) / n * 1e3 for _ in range(rounds)]))
+
+
+def _sampling_run(what: str, run, vae, batch: int, S: int, want, device_info: dict):
+    """``run() -> (latents, extra)`` timed with the decode after it; the
+    launch counts held to ``want(extra)``; the images checked. Returns the
+    row and ``extra``."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents, extra = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    imgs = vae.decode_to_images(latents)
+    t2 = time.perf_counter()
+    got = counts()
+    expect_counts(got, want(extra), what)
+    if not torch.isfinite(latents).all():
+        fail(f"{what}: non-finite latents")
+    if imgs.shape != (batch, S, S, 3) or imgs.dtype != np.uint8 or len(np.unique(imgs)) < 16:
+        fail(f"{what}: images {imgs.shape} {imgs.dtype} constant or of the wrong shape")
+    result = {"sample_s": t1 - t0, "decode_s": t2 - t1, "samples_per_s": batch / (t2 - t0),
+              "launches": got, "latent_std": latents.float().std().item()}
+    log(f"[samplers] {what}: sampling {result['sample_s']:.3f} s, decode "
+        f"{result['decode_s']:.3f} s, {result['samples_per_s']:.4f} samples/s "
+        f"[{device_info['smi']}]")
+    return result, extra
+
+
+def phase_fixed_grid_samplers(cfg0: Config, model, vae, seed: int, device_info: dict) -> dict:
+    """Phase 16: heun, Adams–Bashforth 2 and 3 and the fixed velocity cache
+    (k = 3, orders 1 and 2) through ``build_sample_fn``, and the adaptive
+    cache through the split-CFG sampler with its stats, on XL/1 at the
+    production settings with ``SAMPLER_STEPS`` steps; each decoded."""
+    sc, depth, S = cfg0.sample, model.depth, cfg0.data.image_size
+    transport = build_transport(cfg0)
+    shift, start = sc.timestep_shift, sc.cfg_interval_start
+    s = split_idx(transport, SAMPLER_STEPS, shift, start)
+    steps = SAMPLER_STEPS - 1
+    C = model.in_channels
+    stats = (np.zeros((1, C, 1, 1), np.float32), np.ones((1, C, 1, 1), np.float32))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    labels = torch.randint(0, cfg0.data.num_classes, (BATCH,), generator=gen, device="cuda")
+    out = {"split_idx": s}
+    for name, knobs in SAMPLERS.items():
+        cfg = Config(cfg0).merged_with({"sample": {"num_sampling_steps": SAMPLER_STEPS, **knobs}})
+        generate = build_sample_fn(cfg, model, stats, device="cuda")
+        n_cond, n_cfg = _fixed_grid_calls(name, s, steps)
+        row, _ = _sampling_run(
+            f"XL/1 {name}-{SAMPLER_STEPS} split-CFG batch {BATCH}",
+            lambda: (generate(labels, generator=gen), None), vae, BATCH, S,
+            lambda _: {"nat_attention_fwd": depth * (n_cond + n_cfg)}, device_info)
+        method = "heun" if name == "heun" else "euler"
+        k = knobs.get("velocity_cache_interval", 1)
+        row.update(model_calls=n_cond + n_cfg, cond_calls=n_cond, cfg_calls=n_cfg,
+                   run_cost=0.5 * n_cond + n_cfg,
+                   fixed_grid_cost=fixed_grid_cost(transport, SAMPLER_STEPS, shift, start,
+                                                   method, k))
+        # the JAX cost counts num_steps - s CFG-phase steps, one more than run
+        if name != "ab3" and not 0 <= row["fixed_grid_cost"] - row["run_cost"] <= (
+                2.0 if name == "heun" else 1.0):
+            fail(f"{name}: {row['model_calls']} model calls cost {row['run_cost']}, "
+                 f"fixed_grid_cost {row['fixed_grid_cost']}")
+        out[name] = row
+        log(f"[samplers] XL/1 {name}: {row['model_calls']} model calls ({n_cond} cond-only, "
+            f"{n_cfg} CFG), cost {row['run_cost']} (fixed_grid_cost {row['fixed_grid_cost']})")
+
+    fn = Sampler(transport).sample_ode_cfg(
+        num_steps=SAMPLER_STEPS, timestep_shift=shift, cfg_interval_start=start,
+        return_stats=True, **ADAPTIVE)
+    cond, guided = _split_cfg_fns(cfg0, model, labels)
+    z = torch.randn((BATCH, model.input_size, model.input_size, C), generator=gen, device="cuda")
+
+    def adaptive():
+        with torch.inference_mode():
+            return fn(z, cond, guided)
+
+    row, st = _sampling_run(f"XL/1 adaptive-cache-{SAMPLER_STEPS} split-CFG batch {BATCH}",
+                            adaptive, vae, BATCH, S,
+                            lambda st: {"nat_attention_fwd": depth * (s + st["cfg_evals"])},
+                            device_info)
+    cost = adaptive_cache_cost(transport, SAMPLER_STEPS, shift, start, st["cfg_evals"])
+    z2 = torch.cat([z, z])
+    t2 = torch.full((2 * BATCH,), 0.5, device="cuda")
+    row.update(model_calls=s + st["cfg_evals"], cfg_evals=st["cfg_evals"],
+               noise_floor=float(st["noise_floor"]), run_cost=0.5 * s + st["cfg_evals"],
+               adaptive_cache_cost=cost, sync_ms=_sync_ms(lambda: guided(z2, t2)))
+    if cost != row["run_cost"]:
+        fail(f"adaptive cache: cost {row['run_cost']} of the run, adaptive_cache_cost {cost}")
+    out["adaptive"] = row
+    log(f"[samplers] XL/1 adaptive cache (tol {ADAPTIVE['cache_tol']}, max "
+        f"{ADAPTIVE['cache_max_interval']}): {row['model_calls']} model calls ({s} cond-only, "
+        f"{st['cfg_evals']} CFG), noise floor {row['noise_floor']:.4e}, cost {cost}; one host "
+        f"sync between two CFG calls adds {row['sync_ms']:.3f} ms")
+    return out
+
+
+def phase_sde(cfg0: Config, model, vae, seed: int, device_info: dict) -> dict:
+    """Phase 17: SDE sampling (Euler and Heun, ``diffusion_form: sigma``,
+    ``last_step: Mean``) with CFG on the concatenated batch, through
+    ``build_sample_fn``."""
+    depth, S, C = model.depth, cfg0.data.image_size, model.in_channels
+    stats = (np.zeros((1, C, 1, 1), np.float32), np.ones((1, C, 1, 1), np.float32))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    labels = torch.randint(0, cfg0.data.num_classes, (BATCH,), generator=gen, device="cuda")
+    out = {}
+    for method in SDE_METHODS:
+        cfg = Config(cfg0).merged_with({"sample": {
+            "mode": "SDE", "sampling_method": method, "diffusion_form": "sigma",
+            "last_step": "Mean", "last_step_size": 0.04, "num_sampling_steps": SAMPLER_STEPS}})
+        generate = build_sample_fn(cfg, model, stats, device="cuda")
+        calls = (SAMPLER_STEPS - 1) * (2 if method == "Heun" else 1) + 1  # + the last step
+        row, _ = _sampling_run(f"XL/1 SDE {method}-{SAMPLER_STEPS} CFG batch {BATCH} (model "
+                               f"batch {2 * BATCH})",
+                               lambda: (generate(labels, generator=gen), None), vae, BATCH, S,
+                               lambda _: {"nat_attention_fwd": depth * calls}, device_info)
+        row["model_calls"] = calls
+        out[method] = row
+    return out
+
+
+def phase_dopri5(seed: int, device_info: dict, vae) -> dict:
+    """Phase 18: the micro-Doppler DiT-S/2's dopri5 split-CFG sampling with
+    the controller's stats, decoded."""
+    cfg = Config(MICRODOPPLER)
+    sc = cfg.sample
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda").eval()
+    randomize_(model, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    B = sc.per_proc_batch_size
+    labels = torch.randint(0, cfg.data.num_classes, (B,), generator=gen, device="cuda")
+    z = torch.randn((B, latent, latent, model.in_channels), generator=gen, device="cuda")
+    fn = Sampler(build_transport(cfg)).sample_ode_cfg(
+        num_steps=sc.num_sampling_steps, timestep_shift=sc.timestep_shift,
+        cfg_interval_start=sc.cfg_interval_start, sampling_method="dopri5", rtol=sc.rtol,
+        atol=sc.atol, return_stats=True)
+    cond, guided = _split_cfg_fns(cfg, model, labels)
+    n_calls = {"cond": 0, "cfg": 0}
+
+    def counted(phase, f):
+        def call(x, t):
+            n_calls[phase] += 1
+            return f(x, t)
+        return call
+
+    def run():
+        with torch.inference_mode():
+            return fn(z, counted("cond", cond), counted("cfg", guided))
+
+    def phase_calls(p):  # 2 evaluations seed a phase, 6 each attempted step
+        return 2 + 6 * (p["naccept"] + p["nreject"]) if p else 0
+
+    def calls(st):
+        return phase_calls(st["cond"]) + phase_calls(st["cfg"])
+
+    row, st = _sampling_run(f"micro-Doppler DiT-S/2 dopri5 split-CFG batch {B}", run, vae, B,
+                            cfg.data.image_size,
+                            lambda st: {"nat_attention_fwd": model.depth * calls(st)},
+                            device_info)
+    z2, t2 = torch.cat([z, z]), torch.full((2 * B,), 0.5, device="cuda")
+    row.update(stats=st, model_calls=calls(st), dopri5_cost=dopri5_cost(st),
+               exhausted=any(p["exhausted"] for p in st.values() if p),
+               sync_ms=_sync_ms(lambda: guided(z2, t2)))
+    if (n_calls["cond"], n_calls["cfg"]) != (phase_calls(st["cond"]), phase_calls(st["cfg"])) \
+            or row["dopri5_cost"] != 0.5 * n_calls["cond"] + n_calls["cfg"]:
+        fail(f"dopri5: model calls {n_calls}, stats {st}, dopri5_cost {row['dopri5_cost']}")
+    log(f"[samplers] DiT-S/2 dopri5 (atol {sc.atol}, rtol {sc.rtol}): cond phase "
+        f"{st['cond']}, CFG phase {st['cfg']}, {row['model_calls']} model calls, dopri5_cost "
+        f"{row['dopri5_cost']}, exhausted {row['exhausted']}; one host sync a step adds "
+        f"{row['sync_ms']:.3f} ms")
+    return row, model
+
+
+def phase_likelihood(model, micro, seed: int) -> dict:
+    """Phase 19: ``sample_ode_likelihood`` on XL/1 (euler) with the kernels
+    and with attention forced through the plain version, and with dopri5
+    on the micro-Doppler DiT-S/2; the Hutchinson term runs the backward
+    kernel (the model's remat runs the forward again)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 70)
+    out = {}
+    for name, m, classes, method, B in (
+            ("XL/1", model, PRODUCTION["data"]["num_classes"], "euler", LIKELIHOOD_BATCH),
+            ("DiT-S/2", micro, MICRODOPPLER["data"]["num_classes"], "dopri5", 4)):
+        s = m.input_size
+        x = torch.randn((B, s, s, m.in_channels), generator=gen, device="cuda")
+        y = torch.randint(0, classes, (B,), generator=gen, device="cuda")
+        eps = torch.randint(0, 2, x.shape, generator=gen, device="cuda").float() * 2 - 1
+        fn = Sampler(create_transport()).sample_ode_likelihood(
+            sampling_method=method, num_steps=LIKELIHOOD_STEPS)
+        n_calls = [0]
+
+        def model_fn(xv, t):
+            n_calls[0] += 1
+            return m(xv, t, y)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logp, zt = fn(x, model_fn, eps=eps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        calls = n_calls[0]
+        remat = 2 if m.use_checkpoint else 1
+        expect_counts(counts(), {"nat_attention_fwd": remat * m.depth * calls,
+                                 "nat_attention_bwd": m.depth * calls}, f"{name} likelihood")
+        if not (torch.isfinite(logp).all() and torch.isfinite(zt).all()):
+            fail(f"{name} likelihood: non-finite result")
+        row = {"method": method, "batch": B, "model_calls": calls, "seconds": seconds,
+               "logp": logp.tolist(), "launches": counts()}
+        if method == "euler":
+            if calls != LIKELIHOOD_STEPS - 1:
+                fail(f"{name} likelihood: {calls} model calls, expected {LIKELIHOOD_STEPS - 1}")
+            with plain_attention("production"):
+                logp_plain, z_plain = fn(x, model_fn, eps=eps)
+            row["rel_err"] = rel_err(logp, logp_plain)
+            row["rel_err_z"] = rel_err(zt, z_plain)
+            if not (row["rel_err"] <= PATH_TOL and row["rel_err_z"] <= PATH_TOL):
+                fail(f"{name} likelihood with the kernels vs plain attention: relative error "
+                     f"{row['rel_err']} (z {row['rel_err_z']}), limit {PATH_TOL}")
+        elif (calls - 2) % 6:
+            fail(f"{name} dopri5 likelihood: {calls} model calls, not 2 + 6 a step")
+        out[name] = row
+        errs = (f", kernels vs plain attention: relative error {row['rel_err']:.3e} (z "
+                f"{row['rel_err_z']:.3e})" if "rel_err" in row else "")
+        log(f"[likelihood] {name} {method} batch {B}: {calls} model calls, {seconds:.3f} s, "
+            f"launches {row['launches']}{errs}")
+    return out
+
+
+def phase_fid(seed: int, work: str) -> dict:
+    """Phase 20: ``do_sample`` on XL/1 (euler-``SAMPLER_STEPS``, random
+    weights from a checkpoint written here) into two folders of
+    ``FID_NUM`` images from two seeds, one packed into an npz, and
+    ``fid_folder_vs_npz`` with random Inception weights on the card."""
+    cfg, model = build_xl(seed)
+    ckpt = os.path.join(work, "xl.safetensors")
+    write_safetensors(ckpt, flatten(dit_state_to_jax(model.state_dict()), "params"))
+    del model
+    torch.cuda.empty_cache()
+    folders = {}
+    t0 = time.perf_counter()
+    for name, global_seed in (("a", seed), ("b", seed + 1)):
+        folders[name] = os.path.join(work, f"samples_{name}")
+        run = cfg.merged_with({
+            "ckpt_path": ckpt, "sample_folder": folders[name],
+            "data": {"latent_norm": False},
+            "sample": {"num_sampling_steps": SAMPLER_STEPS, "fid_num": FID_NUM},
+            "train": {"global_seed": global_seed}})
+        reset_counts()
+        do_sample(run, device="cuda")
+        torch.cuda.empty_cache()
+    sample_s = time.perf_counter() - t0
+    npz = create_npz_from_sample_folder(folders["a"], num=FID_NUM)
+
+    os.environ["VAVAE_FID_ALLOW_RANDOM"] = "1"  # no Inception weights on the card's machine
+    extractor = FIDExtractor(batch_size=FID_NUM, device="cuda")
+    imgs = np.stack([read_png(os.path.join(folders["a"], f"{i:06d}.png"))
+                     for i in range(FID_NUM)])
+    extractor.activations([imgs])  # warm-up: cuDNN's algorithms
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    acts = extractor.activations([imgs])
+    inception_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    fid_ab = fid_folder_vs_npz(folders["b"], npz, batch_size=FID_NUM, device="cuda")
+    fid_aa = fid_folder_vs_npz(folders["a"], npz, batch_size=FID_NUM, device="cuda")
+    fid_s = (time.perf_counter() - t2) / 2
+    if not (np.isfinite(fid_ab) and fid_ab > 0 and np.isfinite(acts).all()):
+        fail(f"FID(a, b) = {fid_ab}, not finite and positive")
+    if not abs(fid_aa) < 0.01 * fid_ab:
+        fail(f"FID(a, a) = {fid_aa} is not below 1% of FID(a, b) = {fid_ab}")
+    result = {"fid_ab": fid_ab, "fid_aa": fid_aa, "images": FID_NUM, "sample_s": sample_s,
+              "inception_images_per_s": FID_NUM / inception_s, "fid_s": fid_s}
+    log(f"[fid] do_sample XL/1 euler-{SAMPLER_STEPS} x2 ({FID_NUM} images each): "
+        f"{sample_s:.1f} s; Inception (random weights) {result['inception_images_per_s']:.1f} "
+        f"images/s at batch {FID_NUM}; FID(a, b) {fid_ab:.4f}, FID(a, a) {fid_aa:.3e}, "
+        f"{fid_s:.1f} s per FID (host sqrtm included)")
+    return result
+
+
+def run_samplers(seed: int, device_info: dict) -> dict:
+    """Phases 16-20."""
+    t0 = time.perf_counter()
+    cfg, model = build_xl(seed)
+    vae = VA_VAE(embed_dim=32, img_size=cfg.data.image_size, seed=seed, device="cuda")
+    out = {"fixed_grid": phase_fixed_grid_samplers(cfg, model, vae, seed, device_info),
+           "sde": phase_sde(cfg, model, vae, seed, device_info)}
+    out["dopri5"], micro = phase_dopri5(seed, device_info, vae)
+    out["likelihood"] = phase_likelihood(model, micro, seed)
+    del model, micro, vae
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fid_")
+    try:
+        out["fid"] = phase_fid(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[samplers] phases 16-20: {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
@@ -1022,6 +1440,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t0 = time.perf_counter()
     device = phase_device()
     builds = phase_build()
     kernels = phase_kernels(SEED)
@@ -1032,6 +1451,7 @@ def main(argv=None) -> int:
     qknorm = run_paths("qknorm", device)
     no_rope = phase_no_rope(SEED)
     hires = phase_hires(SEED, device)
+    samplers = run_samplers(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -1051,8 +1471,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
-                       "hires": hires},
+                       "hires": hires, "samplers": samplers, "seconds": time.perf_counter() - t0},
                       f, indent=1)
+    log(f"[run] phases 1-20: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -97,7 +97,7 @@ def _max_rel(got, want) -> float:
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8),
-                                     (4, 16, 1024, 72), (2, 3, 200, 128)])
+                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64)])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref|: bf16 3e-2, the TPU backward kernel's tolerance
@@ -204,8 +204,9 @@ def test_cuda_flash_kernel_matches_plain_version(B, H, N, D, rope, dtype):
 
 
 # the main paths' forward shapes, which the wgmma body takes: 256² sampling
-# (B = 16) and the longest sequence of the small route (N = 1,024)
-WGMMA_SHAPES = [(16, 16, 256, 72), (4, 16, 1024, 72)]
+# (B = 16), the longest sequence of the small route (N = 1,024) and the
+# micro-Doppler DiT-S/2's sampling (N = 64: half of one 128-query block)
+WGMMA_SHAPES = [(16, 16, 256, 72), (4, 16, 1024, 72), (16, 6, 64, 64), (8, 6, 64, 64)]
 
 
 def _device_tables(N, D):
@@ -269,7 +270,7 @@ def test_cuda_fwd_wrappers_launch_one_kernel(entry, rope):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8),
-                                     (4, 16, 1024, 72), (2, 3, 200, 128)])
+                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64)])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_flash_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref| of each of dq, dk, dv: bf16 3e-2, the TPU backward

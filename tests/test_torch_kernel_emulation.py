@@ -551,6 +551,9 @@ WGMMA_CASES = [
     (1, 700, 1, 72, True),   # eleven key tiles: the three-stage ring wraps three times
     (2, 130, 1, 64, False),  # D = 64 without RoPE, a ragged second query block
     (1, 150, 1, 128, True),  # the widest head dim the body takes (DP = 128)
+    (1, 64, 2, 64, True),    # the micro-Doppler DiT-S/2 (N = 64): half a query block, one
+                             # key tile, a RoPE cluster of one block
+    (1, 64, 1, 64, False),
 ]
 
 
@@ -641,6 +644,7 @@ def bwd_error(got: torch.Tensor, want: torch.Tensor) -> float:
     (1, 50, 2, 18, True),    # D % 4 != 0: one column per item in the prep and dq passes
     (1, 100, 1, 128, True),  # the widest head dim (DP = 128)
     (1, 70, 1, 96, False),   # D = 96 padded to 128
+    (2, 64, 2, 64, True),    # the micro-Doppler DiT-S/2's likelihood (N = 64, D = 64)
 ])
 def test_bwd_kernel_source_matches_plain_version(bwd_kernel, B, N, H, D, rope, dtype):
     # fp32: summation order only (and the kernel's P = exp(s - m)·(1/l));

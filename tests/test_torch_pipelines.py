@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_common import tiny_dit_pair
 
@@ -58,20 +59,20 @@ def _sample_cfg(**sample):
 
 def test_pipelines_warn_on_euler_only_knobs():
     """heun with multistep_order 2: both pipelines name the knob that the
-    program ignores; the JAX one then builds its heun sampler, the port
-    raises that heun is not ported yet."""
+    program ignores, then build their heun sampler, which runs."""
     from vavae_tpu.pipelines.sample import build_sample_fn as jax_build_sample_fn
     from vavae_tpu.utils.config import Config as JaxConfig
     from vavae_tpu_torch.pipelines.sample import build_sample_fn
     from vavae_tpu_torch.utils.config import Config
 
-    cfg = _sample_cfg(sampling_method="heun", multistep_order=2)
+    cfg = _sample_cfg(sampling_method="heun", multistep_order=2, num_sampling_steps=3)
     jm, params, tm = tiny_dit_pair(seed=1, patch_size=2)
     with pytest.warns(UserWarning, match=r"sample\.multistep_order only applies"):
         jax_build_sample_fn(JaxConfig(cfg), jm, params)
     with pytest.warns(UserWarning, match=r"sample\.multistep_order only applies"):
-        with pytest.raises(NotImplementedError, match="heun"):
-            build_sample_fn(Config(cfg), tm, device="cpu")
+        generate = build_sample_fn(Config(cfg), tm, device="cpu")
+    out = generate([1, 2], generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 8, 8, 4) and torch.isfinite(out).all()
 
 
 def test_pipelines_refuse_velocity_cache_order_3():

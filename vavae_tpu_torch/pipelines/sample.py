@@ -1,12 +1,12 @@
-"""Sampling pipeline: CFG ODE sampling → VAE decode → PNG folder.
+"""Sampling pipeline: CFG sampling → VAE decode → PNG folder (+ FID).
 
-Port of ``vavae_tpu/pipelines/sample.py``: EMA weights preferred, euler ODE
-on a time-shifted grid, CFG with the interval gate run as the split-CFG
-program, latent un-normalisation (x·σ/multiplier + μ), rank-interleaved PNG
-names and the demo grid. Runs on the card unless ``device="cpu"``.
-
-FID against a reference npz is ROADMAP Queue 1 item 9 (eval stack); the
-non-euler and SDE samplers are item 6.
+Port of ``vavae_tpu/pipelines/sample.py``: EMA weights preferred, the ODE
+samplers (euler, heun, ab2/ab3, dopri5; on the split-CFG program when the
+interval gate is set, with euler's velocity caches and multistep there) or
+the SDE sampler, latent un-normalisation (x·σ/multiplier + μ),
+rank-interleaved PNG names, the demo grid, and the FID of the folder
+against ``data.fid_reference_file``. Runs on the card unless
+``device="cpu"``.
 
     python -m vavae_tpu_torch.pipelines.sample --config CFG.yaml --demo ckpt_path=CKPT
 """
@@ -66,9 +66,12 @@ def load_dit_params(model: LightningDiT, ckpt_path: str, prefer_ema: bool = True
 
 def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
                     device: str | torch.device = "cuda") -> Callable:
-    """Returns generate(labels, generator=None, z=None) -> un-normalised
-    latents (B, h, w, C). ``z`` replaces the initial noise (tests hand both
-    packages the same noise); otherwise it is drawn from ``generator``."""
+    """Returns generate(labels, generator=None, z=None, noise=None) ->
+    un-normalised latents (B, h, w, C). ``z`` replaces the initial noise
+    and, in SDE mode, ``noise`` the Wiener draws (``(num_sampling_steps -
+    1, *x.shape)``, x the sampler's state: with CFG the concatenated
+    [z | z]), so tests hand both packages the same draws; otherwise both
+    are drawn from ``generator``."""
     dev = resolve_device(device)
     sc = cfg.sample
     sampler = Sampler(build_transport(cfg))
@@ -97,14 +100,20 @@ def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
             f"cfg_interval_start > 0) — sampling will run plain {method} with no acceleration.",
             stacklevel=2,
         )
-    if mode.upper() != "ODE":
-        raise NotImplementedError(
-            "SDE sampling is not ported yet (ROADMAP Queue 1 item 6, remaining samplers)"
-        )
+    is_sde = mode.upper() != "ODE"
     num_steps = sc.get("num_sampling_steps", 250)
     shift = sc.get("timestep_shift", 0.0)
     reverse = sc.get("reverse", False)
-    if use_split_cfg:
+    if is_sde:
+        sample_fn = sampler.sample_sde(
+            sampling_method=sc.get("sampling_method", "Euler"),
+            diffusion_form=sc.get("diffusion_form", "sigma"),
+            diffusion_norm=sc.get("diffusion_norm", 1.0),
+            last_step=sc.get("last_step", "Mean"),
+            last_step_size=sc.get("last_step_size", 0.04),
+            num_steps=num_steps,
+        )
+    elif use_split_cfg:
         # the JAX pipeline's knobs, names and defaults; the euler ones only on
         # the split-euler path
         euler_knobs = dict(
@@ -138,9 +147,16 @@ def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
         std = torch.ones((1, 1, 1, C), device=dev)
     multiplier = cfg.data.get("latent_multiplier", 1.0)
 
+    def run(fn, x, model_fn, generator, noise):
+        if is_sde:
+            noise = None if noise is None else torch.as_tensor(noise, device=dev)
+            return fn(x, model_fn, generator=generator, noise=noise)
+        return fn(x, model_fn)
+
     @torch.inference_mode()
     def generate(labels, generator: Optional[torch.Generator] = None,
-                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 z: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         labels = torch.as_tensor(labels, dtype=torch.long, device=dev)
         B = labels.shape[0]
         if z is None:
@@ -162,9 +178,9 @@ def build_sample_fn(cfg: Config, model: LightningDiT, latent_stats=None, *,
             if use_split_cfg:
                 samples = cfg_sample_fn(z, lambda x, t: model(x, t, labels), model_fn)
             else:
-                samples = sample_fn(torch.cat([z, z], dim=0), model_fn)[:B]
+                samples = run(sample_fn, torch.cat([z, z], dim=0), model_fn, generator, noise)[:B]
         else:
-            samples = sample_fn(z, lambda x, t: model(x, t, labels))
+            samples = run(sample_fn, z, lambda x, t: model(x, t, labels), generator, noise)
         return samples * std / multiplier + mean
 
     return generate
@@ -259,9 +275,10 @@ def main(argv=None) -> None:
     cfg = load_config(args.config, overrides=args.overrides)
     folder = do_sample(cfg, demo=args.demo, device=args.device)
     if not args.demo and cfg.data.get("fid_reference_file"):
-        create_logger().info(
-            f"samples in {folder}; FID is not ported yet (ROADMAP Queue 1 item 9, eval stack)"
-        )
+        from vavae_tpu_torch.eval.fid import fid_folder_vs_npz
+
+        score = fid_folder_vs_npz(folder, cfg.data.fid_reference_file, device=args.device)
+        print(f"FID: {score:.4f}")
 
 
 if __name__ == "__main__":

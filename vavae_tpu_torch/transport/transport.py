@@ -1,6 +1,7 @@
 """Transport (port of ``vavae_tpu/transport/transport.py``): the path
-definitions, the training-time ``sample_t`` and ``training_losses``, and
-the ODE drift the samplers integrate.
+definitions, the training-time ``sample_t`` and ``training_losses``, the
+ODE drift and the score the samplers integrate, and the Gaussian prior's
+log-density of the likelihood.
 
 Randomness comes from an explicit ``torch.Generator``. ``training_losses``
 draws ``t`` and then ``x0`` and hands both to ``losses_at``, the
@@ -13,9 +14,17 @@ import enum
 import math
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-from vavae_tpu_torch.transport.paths import GVPPath, LinearPath, VPPath, expand_t, plan
+from vavae_tpu_torch.transport.paths import (
+    GVPPath,
+    LinearPath,
+    VPPath,
+    expand_t,
+    plan,
+    score_from_velocity,
+)
 
 
 class ModelType(enum.Enum):
@@ -216,6 +225,32 @@ class Transport:
             ModelType.SCORE: score_ode,
             ModelType.NOISE: noise_ode,
         }[self.model_type]
+
+    def score_fn(self) -> Callable:
+        """The score ∇log p_t(x) as a function of the model output."""
+
+        def from_noise(x, t, model_fn, **kw):
+            sigma_t, _ = self.path.sigma(expand_t(t, x))
+            return model_fn(x, t, **kw) / -sigma_t
+
+        def from_score(x, t, model_fn, **kw):
+            return model_fn(x, t, **kw)
+
+        def from_velocity(x, t, model_fn, **kw):
+            return score_from_velocity(self.path, model_fn(x, t, **kw), x, t)
+
+        return {
+            ModelType.NOISE: from_noise,
+            ModelType.SCORE: from_score,
+            ModelType.VELOCITY: from_velocity,
+        }[self.model_type]
+
+    def prior_logp(self, z: torch.Tensor) -> torch.Tensor:
+        """(B,) log-density of z under the standard normal prior; the
+        constant is taken in float32 as JAX takes it."""
+        n = z[0].numel()
+        const = np.float32(-n / 2.0) * np.log(np.float32(2 * np.pi))
+        return float(const) - torch.sum(torch.square(z.reshape(z.shape[0], -1)), dim=-1) / 2.0
 
 
 def create_transport(

@@ -215,6 +215,32 @@ def randomize_(model: torch.nn.Module, seed: int, std: float = 0.02) -> None:
         p.copy_(1.0 + std * noise if "norm" in name else std * noise)
 
 
+# -- FID Inception ----------------------------------------------------------------
+
+
+def inception_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``InceptionV3FID`` variables (``{"params", "batch_stats"}``) →
+    the port's ``InceptionV3FID`` state dict: each ``BasicConv2d`` module
+    path carries its conv kernel (HWIO → OIHW) and its batch norm's scale,
+    bias and running mean and variance."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(params: Mapping, stats: Mapping, prefix: str) -> None:
+        if "conv" in params and "bn" in params:
+            sd[f"{prefix}.conv.weight"] = _t(
+                np.transpose(np.asarray(params["conv"]["kernel"]), (3, 2, 0, 1)))
+            sd[f"{prefix}.bn.weight"] = _t(params["bn"]["scale"])
+            sd[f"{prefix}.bn.bias"] = _t(params["bn"]["bias"])
+            sd[f"{prefix}.bn.running_mean"] = _t(stats["bn"]["mean"])
+            sd[f"{prefix}.bn.running_var"] = _t(stats["bn"]["var"])
+            return
+        for name, sub in params.items():
+            walk(sub, stats[name], f"{prefix}.{name}" if prefix else name)
+
+    walk(variables["params"], variables["batch_stats"], "")
+    return sd
+
+
 # -- reference torch checkpoints -------------------------------------------------
 
 
