@@ -78,7 +78,23 @@ Phases, each fatal on failure:
   20. FID: ``do_sample`` on XL/1 (a checkpoint of seeded weights) into two
      folders of ``FID_NUM`` images from two seeds, one packed into an npz,
      ``fid_folder_vs_npz`` with random Inception weights on the card:
-     FID(a, b) finite and positive, FID(a, a) below 1% of it.
+     FID(a, b) finite and positive, FID(a, a) below 1% of it;
+  21. extraction: a seeded folder of 96 PNGs (48 RGB 384×320, BICUBIC only;
+     48 RGBA 640×560, one BOX halving first) through ``extract`` with the
+     f16d32 VA-VAE at batch 32 and shard size 64, at fp32 (TF32 off) and
+     bf16: the shards' names, keys, CHW shapes, labels and stats cache; the
+     fp32 posterior mode against the CPU (1e-4 relative), the stored draw
+     standardised by its posterior (mean 0, std 1 within 0.05), bf16
+     against fp32 (mean rel-L2 < 2%, deviation < 0.1× the posterior std);
+     images/s of each run beside its host decode + crop and its encodes'
+     device time; then ``do_train`` (XL/1 width, depth 2) for 2 steps on the
+     fp32 shards with both kernels' launches counted;
+  22. tokenizer evaluation: ``evaluate_tokenizer`` on 32 of those images at
+     batch 16, posterior sampled, LPIPS with seeded random VGG16 weights
+     and rFID with random Inception weights: PSNR finite, SSIM in [-1, 1],
+     LPIPS and rFID finite and ≥ 0; SSIM(a, a) = 1 within 1e-5, LPIPS(a, a)
+     = 0 within 1e-6, and SSIM and LPIPS on the card within 1e-4 of the CPU
+     with TF32 left on around the calls; images/s and each metric's seconds.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -129,11 +145,18 @@ from vavae_tpu_torch.ops.flash_attention import (
     rope_uncast,
     rotate_half,
 )
+from vavae_tpu_torch.eval import fid as fid_mod
 from vavae_tpu_torch.eval.fid import (
     FIDExtractor,
     create_npz_from_sample_folder,
     fid_folder_vs_npz,
 )
+from vavae_tpu_torch.eval.metrics import ssim
+from vavae_tpu_torch.models import lpips as lpips_mod
+from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights, load_lpips
+from vavae_tpu_torch.pipelines import evaluate_tokenizer as teval
+from vavae_tpu_torch.pipelines.evaluate_tokenizer import evaluate_tokenizer
+from vavae_tpu_torch.pipelines.extract_features import extract, iter_batches, list_image_folder
 from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample
 from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.tokenizer import VA_VAE
@@ -146,8 +169,8 @@ from vavae_tpu_torch.transport.cost import (
 )
 from vavae_tpu_torch.utils.config import Config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
-from vavae_tpu_torch.utils.png import read_png
-from vavae_tpu_torch.utils.safetensors_io import flatten, write_safetensors
+from vavae_tpu_torch.utils.png import read_png, write_pngs
+from vavae_tpu_torch.utils.safetensors_io import flatten, read_safetensors, write_safetensors
 from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
@@ -1420,6 +1443,273 @@ def run_samplers(seed: int, device_info: dict) -> dict:
     return out
 
 
+# -- phases 21-22: the tokenizer side ---------------------------------------------
+
+# phase 21's image folder: (class, colour, width, height); 48 PNGs a class.
+# 384×320 takes BICUBIC only; 640×560 one BOX halving (short side ≥ 512),
+# then BICUBIC to 293×256
+EXTRACT_CLASSES = (("class_0", 3, 384, 320), ("class_1", 4, 640, 560))
+EXTRACT_PER_CLASS = 48
+EXTRACT_BATCH, EXTRACT_SHARD = 32, 64  # 96 images: shards of 64 and 32
+EVAL_BATCH, EVAL_IMAGES = 16, 32
+METRIC_TOL = 1e-4  # SSIM and LPIPS on the card against the CPU, relative
+
+
+def write_image_folder(root: str, seed: int) -> None:
+    """Seeded PNGs: a coarse random layout (16-px cells) plus noise, so the
+    files are neither constant nor pure noise."""
+    rs = np.random.default_rng(seed)
+    for name, c, w, h in EXTRACT_CLASSES:
+        os.makedirs(os.path.join(root, name))
+        for i in range(EXTRACT_PER_CLASS):
+            cells = rs.integers(0, 256, (h // 16 + 1, w // 16 + 1, c)).astype(np.int16)
+            img = np.repeat(np.repeat(cells, 16, 0), 16, 1)[:h, :w]
+            img = np.clip(img + rs.integers(-12, 13, img.shape), 0, 255).astype(np.uint8)
+            write_pngs(img[None], [os.path.join(root, name, f"{i:03d}.png")])
+
+
+def _extraction_run(folder: str, out: str, vae, seed: int) -> tuple[dict, np.ndarray]:
+    """``extract`` timed as a user runs it; then its host side (decode +
+    crop) and its device side (the encodes, CUDA events) apart. Returns the
+    row and the first batch of images."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    extract(folder, out, vae, batch_size=EXTRACT_BATCH, image_size=256,
+            shard_size=EXTRACT_SHARD, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    batches = list(iter_batches(list_image_folder(folder), EXTRACT_BATCH, 256))
+    host_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [(torch.from_numpy(x).cuda(), torch.from_numpy(xf).cuda()) for x, xf, _ in batches]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, xf in xs:
+        vae.encode_images(x, generator=gen)
+        vae.encode_images(xf, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    n = sum(len(b[2]) for b in batches)
+    return {"wall_s": wall, "images_per_s": n / wall, "host_decode_crop_s": host_s,
+            "encode_device_s": start.elapsed_time(end) / 1e3, "peak_bytes": peak}, batches[0][0]
+
+
+def _check_shards(out: str) -> None:
+    names = sorted(os.listdir(out))
+    want = ["latents_rank00_shard000.safetensors", "latents_rank00_shard001.safetensors",
+            "latents_stats.safetensors"]
+    if names != want:
+        fail(f"extraction wrote {names}, expected {want}")
+    labels = []
+    for name, n in zip(names[:2], (EXTRACT_SHARD, 2 * EXTRACT_PER_CLASS - EXTRACT_SHARD)):
+        t = read_safetensors(os.path.join(out, name))[0]
+        if sorted(t) != ["labels", "latents", "latents_flip"]:
+            fail(f"{name}: keys {sorted(t)}")
+        for k in ("latents", "latents_flip"):
+            if t[k].shape != (n, 32, 16, 16) or t[k].dtype != np.float32 \
+                    or not np.isfinite(t[k]).all():
+                fail(f"{name}: {k} {t[k].shape} {t[k].dtype}, not finite (n, 32, 16, 16) fp32")
+        labels.append(t["labels"])
+    labels = np.concatenate(labels)
+    if labels.dtype != np.int32 or (labels != np.repeat([0, 1], EXTRACT_PER_CLASS)).any():
+        fail(f"extraction labels {labels}")
+    stats = read_safetensors(os.path.join(out, names[2]))[0]
+    if stats["mean"].shape != (1, 32, 1, 1) or not (stats["std"] > 0).all():
+        fail(f"stats cache {stats['mean'].shape}, std {stats['std'].ravel()[:4]}")
+
+
+def phase_extraction(seed: int, device_info: dict, work: str) -> tuple[dict, VA_VAE]:
+    """Phase 21: ``extract`` on a seeded folder of 96 PNGs with the f16d32
+    VA-VAE at fp32 (TF32 off) and bf16, then ``do_train`` on its shards."""
+    folder = os.path.join(work, "images")
+    t0 = time.perf_counter()
+    write_image_folder(folder, seed)
+    write_s = time.perf_counter() - t0
+    vaes = {"fp32": VA_VAE(embed_dim=32, img_size=256, seed=seed, device="cuda"),
+            "bf16": VA_VAE(embed_dim=32, img_size=256, dtype=torch.bfloat16, seed=seed,
+                           device="cuda")}
+    warm = np.zeros((EXTRACT_BATCH, 256, 256, 3), np.float32)
+    for vae in vaes.values():  # cuDNN's handles and algorithms
+        vae.encode_moments(warm)
+    out, runs = {}, {}
+    reset_counts()
+    for name, vae in vaes.items():
+        out[name] = os.path.join(work, f"latents_{name}")
+        runs[name], x = _extraction_run(folder, out[name], vae, seed)
+        _check_shards(out[name])
+    expect_counts(counts(), {}, "extraction")  # the VAE runs no attention kernel
+
+    # fp32 on the card against the CPU, on one image of each class
+    last, _, _ = next(iter_batches(list_image_folder(folder)[-1:], 1, 256))
+    pair = np.concatenate([x[:1], last])
+    host = VA_VAE(embed_dim=32, img_size=256, seed=seed, device="cpu")
+    card_mean = vaes["fp32"].encode_moments(pair).mean
+    cpu_mean = host.encode_moments(pair).mean
+    cpu_err = rel_err(card_mean.cpu(), cpu_mean)
+    del host
+    if not cpu_err <= 1e-4:
+        fail(f"fp32 encode on the card vs the CPU: relative error {cpu_err:.3e} > 1e-4")
+    # the stored draw of the first batch, standardised by its posterior
+    post = vaes["fp32"].encode_moments(x)
+    stored = read_safetensors(os.path.join(out["fp32"], "latents_rank00_shard000.safetensors"))[0]
+    z = torch.from_numpy(stored["latents"][:EXTRACT_BATCH]).cuda().permute(0, 2, 3, 1)
+    res = ((z - post.mean) / post.std).float()
+    res_mean, res_std = res.mean().item(), res.std().item()
+    if not (abs(res_mean) < 0.05 and abs(res_std - 1) < 0.05):
+        fail(f"standardised posterior draw: mean {res_mean:.4f}, std {res_std:.4f}")
+    # bf16 against fp32: the JAX package's bounds (tests/test_vae.py)
+    p16 = vaes["bf16"].encode_moments(x)
+    dev = p16.mean - post.mean
+    bf16_rel = (dev.norm() / post.mean.norm()).item()
+    bf16_ratio = (dev.square().mean().sqrt() / post.std.square().mean().sqrt()).item()
+    if not (bf16_rel < 0.02 and bf16_ratio < 0.1):
+        fail(f"bf16 encode: mean rel-L2 {bf16_rel:.4f}, deviation {bf16_ratio:.4f}x the std")
+    del vaes["bf16"]
+    torch.cuda.empty_cache()
+
+    # the DiT trainer reads the fp32 shards: 2 steps at XL/1 width, depth 2
+    depth, steps = 2, 2
+    cfg = branch_config("production").merged_with({
+        "data": {"data_path": out["fp32"]},
+        "train": {"max_steps": steps, "global_batch_size": 8, "ckpt_every": steps,
+                  "log_every": 1, "output_dir": os.path.join(work, "train"), "exp_name": "smoke"}})
+    with xl_depth(depth):
+        reset_counts()
+        t0 = time.perf_counter()
+        state = do_train(cfg, device="cuda")
+        train_s = time.perf_counter() - t0
+    got = counts()
+    fwd, bwd = BRANCHES["production"]["fwd"], BRANCHES["production"]["bwd"]
+    if state.step != steps:
+        fail(f"do_train on the extracted shards reached step {state.step}")
+    expect_counts(got, {fwd: steps * 2 * depth, bwd: steps * depth}, "do_train on extracted shards")
+
+    result = {"images": 2 * EXTRACT_PER_CLASS, "write_pngs_s": write_s, "runs": runs,
+              "cpu_rel_err": cpu_err, "residual_mean": res_mean, "residual_std": res_std,
+              "bf16_mean_rel": bf16_rel, "bf16_dev_over_std": bf16_ratio,
+              "train_s": train_s, "train_launches": [got[fwd], got[bwd]]}
+    for name, r in runs.items():
+        log(f"[extract] {name}: {result['images']} images (x2 with flips) in {r['wall_s']:.2f} s, "
+            f"{r['images_per_s']:.2f} images/s; host decode + crop {r['host_decode_crop_s']:.2f} s, "
+            f"encode device {r['encode_device_s']:.3f} s "
+            f"({result['images'] / r['encode_device_s']:.1f} images/s); peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB [{device_info['smi']}]")
+    log(f"[extract] fp32 card vs CPU {cpu_err:.3e}; draw residual mean {res_mean:.4f} std "
+        f"{res_std:.4f}; bf16 mean rel-L2 {bf16_rel:.4f}, deviation {bf16_ratio:.4f}x std; "
+        f"do_train {steps} steps on the shards {train_s:.1f} s, launches {got[fwd]} {fwd} / "
+        f"{got[bwd]} {bwd}")
+    return result, vaes["fp32"]
+
+
+def _timed(fn, seconds: dict, key: str):
+    """Smoke-only: ``fn`` with each call's synchronised wall time added to
+    ``seconds[key]``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, replacement):
+    original = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def phase_tokenizer_eval(seed: int, device_info: dict, work: str, vae: VA_VAE) -> dict:
+    """Phase 22: ``evaluate_tokenizer`` on phase 21's folder with seeded
+    random LPIPS (VGG16 at full width) and Inception weights, the posterior
+    sampled; SSIM and LPIPS on the card against the CPU with TF32 on."""
+    folder = os.path.join(work, "images")
+    lpips = LPIPS()
+    init_lpips_weights(lpips, torch.Generator().manual_seed(seed))
+    weights = os.path.join(work, "lpips.pth")
+    torch.save(lpips.state_dict(), weights)
+    os.environ["VAVAE_FID_ALLOW_RANDOM"] = "1"  # no Inception weights on the card's machine
+    out = os.path.join(work, "eval")
+    seconds: dict = {}
+    load = lpips_mod.load_lpips
+    with _patched(teval, "psnr", _timed(teval.psnr, seconds, "psnr")), \
+            _patched(teval, "ssim", _timed(teval.ssim, seconds, "ssim")), \
+            _patched(lpips_mod, "load_lpips",
+                     lambda *a, **k: _timed(load(*a, **k), seconds, "lpips")), \
+            _patched(fid_mod, "fid_given_paths", _timed(fid_mod.fid_given_paths, seconds, "rfid")):
+        t0 = time.perf_counter()
+        res = evaluate_tokenizer(vae, folder, output_path=out, max_images=EVAL_IMAGES,
+                                 batch_size=EVAL_BATCH, image_size=256, lpips_weights=weights,
+                                 sample_posterior=True, seed=seed)
+        total = time.perf_counter() - t0
+    if res.get("num_images") != EVAL_IMAGES or not np.isfinite(res["psnr"]) \
+            or not -1 <= res["ssim"] <= 1 or not (np.isfinite(res.get("lpips", np.nan))
+                                                 and res["lpips"] >= 0) \
+            or not (np.isfinite(res.get("rfid", np.nan)) and res["rfid"] >= 0):
+        fail(f"evaluate_tokenizer gave {res}")
+
+    # identities, and the card against the CPU with TF32 left on
+    ref = np.stack([read_png(os.path.join(out, "ref", f"00_{i:06d}.png")) for i in range(4)])
+    dec = np.stack([read_png(os.path.join(out, "dec", f"00_{i:06d}.png")) for i in range(4)])
+    a = torch.from_numpy(ref).float() / 255
+    b = torch.from_numpy(dec).float() / 255
+    lp_cuda = load_lpips(weights, device="cuda")
+    lp_cpu = load_lpips(weights, device="cpu")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            ssim_aa = ssim(a.cuda(), a.cuda())
+            lpips_aa = lp_cuda(2 * a.cuda() - 1, 2 * a.cuda() - 1)
+            ssim_card = ssim(a.cuda(), b.cuda())
+            lpips_card = lp_cuda(2 * a[:2].cuda() - 1, 2 * b[:2].cuda() - 1)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    with torch.no_grad():
+        ssim_err = rel_err(ssim_card.cpu(), ssim(a, b))
+        lpips_err = rel_err(lpips_card.cpu(), lp_cpu(2 * a[:2] - 1, 2 * b[:2] - 1))
+    aa_ssim = float((ssim_aa - 1).abs().max())
+    aa_lpips = float(lpips_aa.abs().max())
+    if not (aa_ssim <= 1e-5 and aa_lpips <= 1e-6):
+        fail(f"SSIM(a, a) off 1 by {aa_ssim:.3e}, LPIPS(a, a) {aa_lpips:.3e}")
+    if not (ssim_err <= METRIC_TOL and lpips_err <= METRIC_TOL):
+        fail(f"card vs CPU with TF32 on: SSIM {ssim_err:.3e}, LPIPS {lpips_err:.3e} > {METRIC_TOL}")
+    result = {**res, "images_per_s": EVAL_IMAGES / total, "seconds": total,
+              "metric_seconds": seconds, "ssim_aa_err": aa_ssim, "lpips_aa": aa_lpips,
+              "ssim_cpu_rel": ssim_err, "lpips_cpu_rel": lpips_err}
+    log(f"[tokenizer-eval] {EVAL_IMAGES} images at batch {EVAL_BATCH}, posterior sampled: "
+        f"PSNR {res['psnr']:.4f} dB, SSIM {res['ssim']:.5f}, LPIPS {res['lpips']:.5f}, rFID "
+        f"{res['rfid']:.4f}; {total:.2f} s, {result['images_per_s']:.2f} images/s; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; card vs CPU (TF32 on) SSIM {ssim_err:.2e}, LPIPS {lpips_err:.2e}; SSIM(a, a)-1 "
+        f"{aa_ssim:.1e}, LPIPS(a, a) {aa_lpips:.1e} [{device_info['smi']}]")
+    return result
+
+
+def run_tokenizer(seed: int, device_info: dict) -> dict:
+    """Phases 21-22."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tokenizer_")
+    try:
+        extraction, vae = phase_extraction(seed, device_info, work)
+        evaluation = phase_tokenizer_eval(seed, device_info, work, vae)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"extraction": extraction, "evaluation": evaluation,
+           "seconds": time.perf_counter() - t0}
+    log(f"[tokenizer] phases 21-22: {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
@@ -1452,6 +1742,7 @@ def main(argv=None) -> int:
     no_rope = phase_no_rope(SEED)
     hires = phase_hires(SEED, device)
     samplers = run_samplers(SEED, device)
+    tokenizer = run_tokenizer(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -1471,9 +1762,10 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
-                       "hires": hires, "samplers": samplers, "seconds": time.perf_counter() - t0},
+                       "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
+                       "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-20: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-22: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -159,7 +159,9 @@ def _port_sources():
 
 def test_port_imports_nothing_of_jax():
     """No source of the port names jax, flax or the JAX package, and the
-    whole package imports with those made unimportable."""
+    whole package imports with those made unimportable, and with PIL,
+    sklearn and matplotlib too (the card's machine lacks them: the port
+    imports them only inside the functions that need them)."""
     bad = ("import jax", "from jax", "import flax", "from flax", "vavae_tpu.", "import vavae_tpu\n")
     for path in _port_sources():
         text = path.read_text()
@@ -173,7 +175,8 @@ def test_port_imports_nothing_of_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vavae_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vavae_tpu', 'PIL',\n"
+        "                                  'sklearn', 'matplotlib'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib\n"
@@ -186,7 +189,7 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_refuse_cpu_fallback(monkeypatch):
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     """Without a GPU the entry points raise unless device='cpu' is passed."""
     from vavae_tpu_torch.pipelines.sample import build_sample_fn
     from vavae_tpu_torch.tokenizer import VA_VAE
@@ -199,3 +202,21 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                   "transport": {}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_sample_fn(cfg, model=None)
+
+    # the tokenizer side: the model loaders (before they look for weights)
+    # and both pipelines' CLIs
+    from vavae_tpu_torch.eval.inception import load_inception
+    from vavae_tpu_torch.models.lpips import load_lpips
+    from vavae_tpu_torch.pipelines import evaluate_tokenizer, extract_features
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_inception(allow_random=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_lpips()
+    images = str(tmp_path / "images")
+    (tmp_path / "images" / "a").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_features.main(["--data_path", images, "--output_path", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_tokenizer.main(["--data_path", images])
+    assert not (tmp_path / "out").exists()

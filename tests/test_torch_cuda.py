@@ -3,6 +3,7 @@ the wrappers' refusal to fall back off them. Imports nothing of JAX, so it
 runs on the GPU machine: ``python -m pytest tests/test_torch_cuda.py -q``.
 The ``gpu`` tests skip where torch sees no CUDA device.
 """
+import contextlib
 import time
 
 import numpy as np
@@ -552,3 +553,90 @@ def test_cuda_long_misaligned_v_stays_on_first_body():
                        v.dtype)
     counts = _kernels_launched(lambda: flash_attention_long(q, k, v))
     assert len(counts) == 1 and "attn_fwd_mma_kernel" in next(iter(counts)), counts
+
+
+# -- the tokenizer side (no kernel of its own: cuDNN convolutions) -------------
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 allowed globally, as cuDNN's default has it; the functions under
+    test must pin fp32 themselves."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+
+
+@pytest.mark.gpu
+def test_cuda_ssim_and_lpips_match_cpu_with_tf32_on():
+    """SSIM and LPIPS at 224², batch 2, on the card within 1e-4 of the CPU
+    with TF32 globally on (the functions pin it off for their convolutions)."""
+    _cuda_or_skip()
+    from vavae_tpu_torch.eval.metrics import ssim
+    from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand((2, 224, 224, 3), generator=gen)
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen)).clamp(0, 1)
+    model = LPIPS()
+    init_lpips_weights(model, torch.Generator().manual_seed(1))
+    model.eval()
+    with torch.no_grad():
+        want_ssim = ssim(a, b)
+        want_lpips = model(2 * a - 1, 2 * b - 1)
+        model.cuda()
+        with _tf32_on():
+            got_ssim = ssim(a.cuda(), b.cuda())
+            got_lpips = model(2 * a.cuda() - 1, 2 * b.cuda() - 1)
+            same = model(2 * a.cuda() - 1, 2 * a.cuda() - 1)
+    assert _rel(got_ssim, want_ssim) < 1e-4 and _rel(got_lpips, want_lpips) < 1e-4
+    assert float(same.abs().max()) < 1e-6
+
+
+def test_resize_uint8_large_image_timed():
+    """The ADM crop of a 4000×3000 photo-sized image to 256² on the host
+    (three BOX halvings, then BICUBIC): a flat colour stays exact, and the
+    time is printed (the crop runs on the host for every extracted image)."""
+    from vavae_tpu_torch.tokenizer import center_crop_arr
+
+    img = np.full((3000, 4000, 3), (17, 128, 250), np.uint8)
+    t0 = time.perf_counter()
+    out = center_crop_arr(img, 256)
+    seconds = time.perf_counter() - t0
+    assert out.shape == (256, 256, 3) and out.dtype == np.uint8
+    assert (out == np.array([17, 128, 250], np.uint8)).all()
+    print(f"center_crop_arr 4000x3000 -> 256: {seconds * 1e3:.1f} ms")
+
+
+@pytest.mark.gpu
+def test_cuda_extract_batch_matches_cpu(tmp_path):
+    """One extraction batch at the f16d32 VAE's full width (two 256² PNGs):
+    ``extract`` on the card writes its shard, and the card's fp32 posterior
+    mode equals the CPU's within 1e-4 with TF32 globally on."""
+    _cuda_or_skip()
+    from vavae_tpu_torch.pipelines.extract_features import extract, iter_batches, list_image_folder
+    from vavae_tpu_torch.tokenizer import VA_VAE
+    from vavae_tpu_torch.utils.png import write_pngs
+    from vavae_tpu_torch.utils.safetensors_io import read_safetensors
+
+    (tmp_path / "img" / "c").mkdir(parents=True)
+    imgs = np.random.default_rng(0).integers(0, 256, (2, 300, 260, 3)).astype(np.uint8)
+    write_pngs(imgs, [str(tmp_path / "img" / "c" / f"{i}.png") for i in range(2)])
+    card = VA_VAE(embed_dim=32, img_size=256, seed=3, device="cuda")
+    host = VA_VAE(embed_dim=32, img_size=256, seed=3, device="cpu")
+    with _tf32_on():
+        extract(str(tmp_path / "img"), str(tmp_path / "lat"), card, batch_size=2, image_size=256)
+        (x, _, _), = iter_batches(list_image_folder(str(tmp_path / "img")), 2, 256)
+        got = card.encode_moments(x).mean
+    want = host.encode_moments(x).mean
+    assert _rel(got, want) < 1e-4
+    shard = read_safetensors(str(tmp_path / "lat" / "latents_rank00_shard000.safetensors"))[0]
+    assert shard["latents"].shape == (2, 32, 16, 16) and np.isfinite(shard["latents"]).all()

@@ -311,19 +311,29 @@ def test_png_decoder_every_filter(tmp_path, mode, ftype):
 
 
 def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
+    """16-bit and interlaced files raise, naming the bit depth, colour type
+    and interlace (and, from ``read_png``, the path)."""
+    import struct
+
     from PIL import Image
 
-    from vavae_tpu_torch.utils.png import decode_png
+    from vavae_tpu_torch.utils.png import _chunk, decode_png, read_png
 
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a")
     path = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(path)
-    with pytest.raises(ValueError, match="colour type 3"):
-        decode_png(path.read_bytes())
     Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(path)
     with pytest.raises(ValueError, match="bit depth 16"):
         decode_png(path.read_bytes())
+    # an 8-bit RGB file marked interlaced (PIL writes none): IHDR rewritten
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
+    data = path.read_bytes()
+    ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1))
+    path.write_bytes(data[:8] + ihdr + data[8 + len(ihdr):])
+    with pytest.raises(ValueError, match="interlace 1"):
+        decode_png(path.read_bytes())
+    with pytest.raises(ValueError, match=f"{path}: .*colour type 2, interlace 1"):
+        read_png(str(path))
 
 
 def test_non_png_images_need_pil(tmp_path, monkeypatch):
@@ -332,7 +342,7 @@ def test_non_png_images_need_pil(tmp_path, monkeypatch):
 
     from PIL import Image
 
-    from vavae_tpu_torch.eval.fid import read_image_rgb
+    from vavae_tpu_torch.utils.png import read_image_rgb
 
     path = str(tmp_path / "x.jpg")
     Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(path)

@@ -17,7 +17,7 @@ import torch
 from scipy import linalg
 
 from vavae_tpu_torch.utils.device import resolve_device
-from vavae_tpu_torch.utils.png import read_png
+from vavae_tpu_torch.utils.png import read_image_rgb
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -74,20 +74,6 @@ class FIDExtractor:
             raise ValueError("no images to extract activations from — empty folder/npz "
                              "or a wrong path")
         return np.concatenate(out)
-
-
-def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8: PNGs through the port's decoder, other types
-    through PIL, imported only for them."""
-    if path.lower().endswith(".png"):
-        return read_png(path)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"{path}: reading a non-PNG image needs PIL (Pillow), which is "
-                          "not installed") from e
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
 
 
 def _iter_folder(path: str, batch_size: int, max_images: Optional[int]):

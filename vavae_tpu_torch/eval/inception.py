@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vavae_tpu_torch.utils.device import resolve_device
+
 FID_DIMS = 2048
 
 
@@ -191,11 +193,13 @@ def init_inception_weights(model: InceptionV3FID, generator: torch.Generator) ->
 
 
 def load_inception(weights_path: Optional[str] = None, allow_random: bool = False,
-                   device: str | torch.device = "cpu") -> InceptionV3FID:
-    """The extractor in eval mode on ``device``. Without weights it raises,
+                   device: str | torch.device = "cuda") -> InceptionV3FID:
+    """The extractor in eval mode on ``device`` (the card unless ``"cpu"`` is
+    asked for; without CUDA that raises). Without weights it raises,
     unless ``allow_random`` (or ``VAVAE_FID_ALLOW_RANDOM=1``): random
     weights still compare two sets (FID(a, a) ≈ 0), but their values mean
     nothing against published ones."""
+    device = resolve_device(device)
     model = InceptionV3FID()
     weights_path = weights_path or os.environ.get("VAVAE_FID_WEIGHTS")
     allow_random = allow_random or os.environ.get("VAVAE_FID_ALLOW_RANDOM") == "1"

@@ -241,6 +241,24 @@ def inception_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+# -- LPIPS -----------------------------------------------------------------------
+
+
+def lpips_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` params (``net/conv{i}``, ``lin{i}``) → the port's
+    ``LPIPS`` state dict (taming layout: ``net.slice{s}.{N}``, the
+    torchvision ``features`` index N of conv i; ``lin{i}.model.1``)."""
+    from vavae_tpu_torch.models.lpips import conv_slices
+
+    sd: dict[str, torch.Tensor] = {}
+    for ci, (si, ti) in enumerate(conv_slices()):
+        _conv(sd, params["net"][f"conv{ci}"], f"net.slice{si}.{ti}")
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = _t(
+            np.transpose(np.asarray(params[f"lin{i}"]["kernel"]), (3, 2, 0, 1)))
+    return sd
+
+
 # -- reference torch checkpoints -------------------------------------------------
 
 
