@@ -94,7 +94,28 @@ Phases, each fatal on failure:
      and rFID with random Inception weights: PSNR finite, SSIM in [-1, 1],
      LPIPS and rFID finite and ≥ 0; SSIM(a, a) = 1 within 1e-5, LPIPS(a, a)
      = 0 within 1e-6, and SSIM and LPIPS on the card within 1e-4 of the CPU
-     with TF32 left on around the calls; images/s and each metric's seconds.
+     with TF32 left on around the calls; images/s and each metric's seconds;
+  23. VA-VAE training at full width: the f16d32 VAE of
+     ``vavae_tpu/configs/vavae_f16d32.yaml`` (its blocks written into the
+     script, ``adaptive_vf: true``, ``disc_start: 4``) with ViT-L DINOv2,
+     VGG16 LPIPS and the 3-layer PatchGAN, seeded random weights: one fp32
+     step (frozen nets fp32 too) at batch 2 with the discriminator's gate
+     open, its last conv scaled by 3e4 (so d_weight is below its clip), and
+     explicit noise on the card and on the CPU: every loss part and both
+     adaptive weights within 1e-3 relative; after the step each module's
+     weights and the BN stats within 1e-3 and its Adam moments within 1e-2
+     (relative Frobenius); then 8 ``train_step``s at batch 8 on phase 21's folder
+     (frozen nets bf16): finite losses, positive adaptive weights, the
+     discriminator unchanged while its gate is closed and moved after, its
+     batch-norm stats moved; ms/step of each regime, img/s, peak memory,
+     the device's split by class (conv, matmul, norm, elementwise) and busy
+     share of a profiled window, and no attention kernel launched;
+  24. ``train_vavae.main`` on phase 21's folder (16 of its images the
+     validation folder) with the micro-Doppler config's model and three
+     stages cut to one epoch each, random ViT-L and LPIPS weights, image
+     grids every 4 steps: each stage's ``epoch.json``, ``best/metric.json``,
+     grids and chained steps (12, 24, 36); then a relaunch with stage 3 at
+     two epochs skips stages 1-2 and resumes stage 3 at epoch 1 (step 48).
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -151,15 +172,20 @@ from vavae_tpu_torch.eval.fid import (
     create_npz_from_sample_folder,
     fid_folder_vs_npz,
 )
+from vavae_tpu_torch.data.image_folder import ImageFolderDataset
 from vavae_tpu_torch.eval.metrics import ssim
 from vavae_tpu_torch.models import lpips as lpips_mod
 from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights, load_lpips
+from vavae_tpu_torch.models.vit import FoundationModel
 from vavae_tpu_torch.pipelines import evaluate_tokenizer as teval
+from vavae_tpu_torch.pipelines import train_vavae
 from vavae_tpu_torch.pipelines.evaluate_tokenizer import evaluate_tokenizer
 from vavae_tpu_torch.pipelines.extract_features import extract, iter_batches, list_image_folder
 from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample
 from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
+from vavae_tpu_torch.pipelines.train_vavae import build_vae_trainer, make_aux_feature_fn
 from vavae_tpu_torch.tokenizer import VA_VAE
+from vavae_tpu_torch.train import checkpoint as ckpt_lib
 from vavae_tpu_torch.transport import Sampler, build_transport, create_transport
 from vavae_tpu_torch.transport.cost import (
     adaptive_cache_cost,
@@ -1710,6 +1736,332 @@ def run_tokenizer(seed: int, device_info: dict) -> dict:
     return out
 
 
+# -- phases 23-24: VA-VAE training ---------------------------------------------------
+
+# vavae_tpu/configs/vavae_f16d32.yaml's blocks, written out (no YAML parser
+# on the card), with the discriminator's gate at step 4 of phase 23's 8
+VAVAE_F16D32 = {
+    "ckpt_path": None,
+    "model": {"base_learning_rate": 1.0e-4, "params": {
+        "monitor": "val/rec_loss", "embed_dim": 32, "use_vf": "dinov2", "reverse_proj": True,
+        "lossconfig": {"params": {"disc_start": 5001, "kl_weight": 1.0e-6, "disc_weight": 0.5,
+                                  "vf_weight": 0.1, "adaptive_vf": True, "distmat_margin": 0.25,
+                                  "cos_margin": 0.5}},
+        "ddconfig": {"double_z": True, "z_channels": 32, "resolution": 256, "in_channels": 3,
+                     "out_ch": 3, "ch": 128, "ch_mult": [1, 1, 2, 2, 4], "num_res_blocks": 2,
+                     "attn_resolutions": [16], "dropout": 0.0}}},
+}
+# vavae_tpu/configs/vavae_microdoppler_finetune.yaml: its model differs from
+# the above in its loss block only; its three stages cut to one epoch each
+MICRODOPPLER_LOSS = {"kl_weight": 1.0e-6, "disc_weight": 0.5, "adaptive_vf": False,
+                     "perceptual_weight": 1.0}
+MICRODOPPLER_STAGES = [
+    {"epochs": 1, "vf_weight": 0.5, "distmat_margin": 0.0, "cos_margin": 0.0, "disc_start": 5001,
+     "lr": 1.0e-4},
+    {"epochs": 1, "vf_weight": 0.1, "distmat_margin": 0.0, "cos_margin": 0.0, "disc_start": 1,
+     "lr": 5.0e-5},
+    {"epochs": 1, "vf_weight": 0.1, "distmat_margin": 0.25, "cos_margin": 0.5, "disc_start": 1,
+     "lr": 2.0e-5},
+]
+VAE_BATCH, VAE_STEPS, VAE_DISC_START = 8, 8, 4  # train.batch_size of the micro-Doppler config
+VAE_CPU_BATCH = 2   # the card-vs-CPU step
+VAE_CPU_TOL = 1e-3  # relative: each loss part, adaptive weight, module's weights and BN stats
+# relative Frobenius, each module's Adam moments after the gate-open step: the
+# GAN term's gradient is a small residual of cancelling terms scaled by
+# d_weight (tests/test_torch_vae_train.py's GAN_TOL, on the CPU)
+VAE_MOMENT_TOL = 1e-2
+# the discriminator's last conv scaled up for the card-vs-CPU step: at taming's
+# init ‖∇g‖ at the decoder's last layer is about 6e5 times smaller than ‖∇nll‖
+# (2 · d_weight · this scale, from the phase's log line), so d_weight would sit
+# at its clip (1e4 × disc_weight) on both sides and its value would not be
+# compared; ‖∇g‖ is linear in this scale, which brings d_weight near 10
+VAE_DISC_OUT_SCALE = 3e4
+VAE_VAL_IMAGES, VAE_LOG_IMAGES_EVERY = 16, 4
+VAE_METRICS = ("rec_loss", "kl_loss", "g_loss", "vf_loss", "vf_distmat", "vf_cos", "nll_loss",
+               "total_loss", "d_weight", "vf_weight", "logits_real", "logits_fake")
+
+
+def vae_kernel_class(name: str) -> str:
+    """conv: cuDNN's convolutions, their FFT algorithm's transforms and
+    complex products (``fft``, ``cf32`` gemm, ``complex``) included;
+    matmul: the real GEMMs (the bf16 ViT-L, the VAE's attention, 1×1
+    convolutions cuDNN runs as GEMMs); norm: the group and layer norms'
+    kernels; the rest elementwise (the discriminator's batch norm is
+    elementwise ops)."""
+    low = name.lower()
+    if "norm" in low or "moments" in low or "welford" in low:
+        return "norm"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft",
+                              "cf32", "complex")):
+        return "conv"
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")):
+        return "matmul"
+    return "elementwise"
+
+
+def _first_batch(folder: str, batch: int) -> np.ndarray:
+    return next(ImageFolderDataset(folder, image_size=256).batches(batch, seed=0, epochs=1))[0]
+
+
+def _vae_trainer(cfg: Config, foundation, lpips, device: str):
+    return build_vae_trainer(cfg, foundation=foundation, lpips=lpips,
+                             vf_dim=foundation.feature_dim, device=device)
+
+
+def _vae_module(key: str) -> str:
+    """The module of a train-state file key: ``gen_params|vae|encoder``,
+    ``gen_opt|0|mu|proj``, ``disc_params|bn2``, ..."""
+    parts = key.split("|")
+    head = 3 if parts[0].endswith("_opt") else 1
+    return "|".join(parts[:head + (2 if parts[head] == "vae" else 1)])
+
+
+def phase_vae_cpu_check(seed: int, folder: str, cfg: Config, foundation, lpips) -> dict:
+    """One fp32 step with the discriminator's gate open (frozen nets fp32
+    too) at VAE_CPU_BATCH with explicit noise on the card and on the CPU
+    from the same seeded weights, the discriminator's last conv scaled by
+    VAE_DISC_OUT_SCALE: every loss part and both adaptive weights (d_weight
+    below its clip) within VAE_CPU_TOL; after the step each module's
+    weights and the BN stats within VAE_CPU_TOL and its Adam moments within
+    VAE_MOMENT_TOL (relative Frobenius)."""
+    cfg = cfg.merged_with({"model": {"params": {
+        "frozen_bf16": False, "lossconfig": {"params": {"disc_start": 0}}}}})
+    x = _first_batch(folder, VAE_CPU_BATCH)
+    p = cfg.model.params
+    side = p.ddconfig.resolution // 2 ** (len(p.ddconfig.ch_mult) - 1)
+    noise = np.random.default_rng(seed).standard_normal(
+        (VAE_CPU_BATCH, side, side, p.embed_dim)).astype(np.float32)
+
+    def step(trainer):
+        state = trainer.init_state(seed)
+        with torch.no_grad():
+            trainer.disc.conv_out.weight.mul_(VAE_DISC_OUT_SCALE)
+        t0 = time.perf_counter()
+        m = {k: v.item() for k, v in trainer.train_step(state, x, noise=noise).items()}
+        return m, ckpt_lib.vae_state_tensors(state)[0], time.perf_counter() - t0
+
+    card = _vae_trainer(cfg, foundation, lpips, "cuda")  # the trainer pins fp32 itself
+    m_card, s_card, _ = step(card)
+    del card
+    torch.cuda.empty_cache()
+    cpu_fm = FoundationModel("dinov2", device="cpu").init_random(0)
+    cpu_lpips = LPIPS()
+    init_lpips_weights(cpu_lpips, torch.Generator().manual_seed(seed))
+    m_cpu, s_cpu, cpu_s = step(_vae_trainer(cfg, cpu_fm, cpu_lpips.eval(), "cpu"))
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6) for k in VAE_METRICS}
+    worst = max(rel, key=rel.get)
+    clip = 1e4 * cfg.model.params.lossconfig.params.disc_weight
+    groups: dict = {}
+    for key in s_cpu:
+        if key != "step" and not key.endswith("count"):
+            groups.setdefault(_vae_module(key), []).append(key)
+    fro = {}
+    for g, keys in groups.items():
+        err = sum(float(np.square(s_card[k].astype(np.float64) - s_cpu[k]).sum()) for k in keys)
+        ref = sum(float(np.square(s_cpu[k].astype(np.float64)).sum()) for k in keys)
+        fro[g] = (err / max(ref, 1e-30)) ** 0.5
+    worst_w = max((g for g in fro if "_opt" not in g), key=fro.get)
+    worst_m = max((g for g in fro if "_opt" in g), key=fro.get)
+    log(f"[vae-train] card vs CPU, one fp32 gate-open step at batch {VAE_CPU_BATCH} "
+        f"({cpu_s:.1f} s on the CPU): worst loss part {worst} {rel[worst]:.2e}; d_weight "
+        f"{m_card['d_weight']:.4f} / {m_cpu['d_weight']:.4f}, vf_weight {m_card['vf_weight']:.4f} / "
+        f"{m_cpu['vf_weight']:.4f}; after the step, worst module {worst_w} {fro[worst_w]:.2e}, "
+        f"worst moments {worst_m} {fro[worst_m]:.2e}")
+    if not rel[worst] <= VAE_CPU_TOL:
+        fail(f"VA-VAE step, card vs CPU: {worst} relative error {rel[worst]:.3e} > {VAE_CPU_TOL}: "
+             f"{rel}")
+    if not (m_cpu["disc_factor"] == 1.0 and 0 < m_card["d_weight"] < 0.99 * clip):
+        fail(f"VA-VAE step, card vs CPU: gate {m_cpu['disc_factor']}, d_weight {m_card['d_weight']} "
+             f"(clip {clip}): the GAN term's weight is not compared")
+    if not fro[worst_w] <= VAE_CPU_TOL or not fro[worst_m] <= VAE_MOMENT_TOL:
+        fail(f"VA-VAE step, card vs CPU, the state after the step: {fro}")
+    return {"rel_err": rel, "card": m_card, "cpu": m_cpu, "cpu_s": cpu_s, "state_rel_err": fro}
+
+
+def phase_vae_train(seed: int, device_info: dict, folder: str) -> dict:
+    """Phase 23: the f16d32 VA-VAE trainer at full width with ViT-L DINOv2,
+    VGG16 LPIPS and the 3-layer PatchGAN (seeded random weights), VAE_STEPS
+    steps at batch VAE_BATCH, the discriminator gated until step
+    VAE_DISC_START; then one step against the CPU."""
+    cfg = Config(VAVAE_F16D32).merged_with(
+        {"model": {"params": {"lossconfig": {"params": {"disc_start": VAE_DISC_START}}}}})
+    foundation, _ = make_aux_feature_fn("dinov2", allow_random=True, device="cuda")
+    lpips = LPIPS()
+    init_lpips_weights(lpips, torch.Generator().manual_seed(seed))
+    lpips = lpips.cuda().eval()
+    out = {"cpu_check": phase_vae_cpu_check(seed, folder, cfg, foundation, lpips)}
+
+    trainer = _vae_trainer(cfg, foundation, lpips, "cuda")  # frozen nets cast to bf16
+    state = trainer.init_state(seed)
+    x = torch.from_numpy(_first_batch(folder, VAE_BATCH)).cuda()
+    disc0 = [p.clone() for p in state.disc_params]
+    stats0 = [t.clone() for t in state.disc_stats]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, metrics, disc_at_gate = [], [], None
+    for step in range(VAE_STEPS):
+        if step == VAE_DISC_START:
+            disc_at_gate = [p.clone() for p in state.disc_params]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, x)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: v.item() for k, v in m.items()})
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts(got, {}, "VA-VAE training")  # its attentions are plain einsums
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"VA-VAE step {i}: non-finite metrics {m}")
+        if not (m["d_weight"] > 0 and m["vf_weight"] > 0):
+            fail(f"VA-VAE step {i}: adaptive weights d {m['d_weight']}, vf {m['vf_weight']}")
+        if m["disc_factor"] != float(i >= VAE_DISC_START):
+            fail(f"VA-VAE step {i}: disc_factor {m['disc_factor']}")
+    if not all(torch.equal(a, b) for a, b in zip(disc0, disc_at_gate)):
+        fail("the discriminator moved while its gate was closed")
+    if all(torch.equal(a, b) for a, b in zip(disc_at_gate, state.disc_params)):
+        fail("the discriminator did not move after its gate opened")
+    if any(torch.equal(a, b) for a, b in zip(stats0, state.disc_stats)):
+        fail("the discriminator's batch-norm running stats did not move")
+
+    # the device's split of a gate-open step, and its busy share over the
+    # same window's wall time
+    reps = 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            trainer.train_step(state, x)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0) / reps
+    by_kernel = {ev.key: ev.self_device_time_total / 1e3 / reps for ev in prof.key_averages()
+                 if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                 and ev.self_device_time_total > 0}
+    split: dict = {}
+    for name, t in by_kernel.items():
+        split[vae_kernel_class(name)] = split.get(vae_kernel_class(name), 0.0) + t
+    device_step = sum(split.values())
+    gated, opened = ms[1:VAE_DISC_START], ms[VAE_DISC_START + 1:]
+    res = {"ms": ms, "ms_gated": float(np.median(gated)), "ms_open": float(np.median(opened)),
+           "peak_bytes": peak, "device_ms_by_class": split, "device_ms": device_step,
+           "window_ms": window_ms, "busy": device_step / window_ms, "metrics": metrics,
+           "top_kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])}
+    res["img_per_s_gated"] = VAE_BATCH / res["ms_gated"] * 1e3
+    res["img_per_s_open"] = VAE_BATCH / res["ms_open"] * 1e3
+    out.update(res)
+    log(f"[vae-train] f16d32 + ViT-L DINOv2 + VGG16 LPIPS + PatchGAN, batch {VAE_BATCH}: "
+        f"ms/step {', '.join(f'{t:.1f}' for t in ms)}; gate closed {res['ms_gated']:.2f} ms "
+        f"({res['img_per_s_gated']:.2f} img/s), open {res['ms_open']:.2f} ms "
+        f"({res['img_per_s_open']:.2f} img/s); peak {peak / 2**30:.2f} GiB; device "
+        f"{device_step:.2f} ms a gate-open step (traced window {window_ms:.2f} ms a step, busy "
+        f"{res['busy']:.3f}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(split.items()))
+        + f" [{device_info['smi']}]")
+    for name, t in res["top_kernels"].items():
+        log(f"[vae-train]   {t:8.3f} ms  {vae_kernel_class(name):11s} {name[:110]}")
+    del trainer, state, foundation, lpips
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage_check(out_dir: str, k: int, step: int, epochs: int) -> None:
+    d = os.path.join(out_dir, f"stage{k}")
+    with open(os.path.join(d, "epoch.json")) as f:
+        done = json.load(f)["epochs_done"]
+    latest = ckpt_lib.latest_checkpoint(d)
+    with open(os.path.join(d, "best", "metric.json")) as f:
+        best = json.load(f)
+    if done != epochs or not latest.endswith(f"{step:07d}.safetensors") \
+            or ckpt_lib.latest_checkpoint(os.path.join(d, "best")) is None \
+            or not np.isfinite(best["val"]):
+        fail(f"stage {k}: epochs_done {done}, latest {latest}, best {best}; expected {epochs} "
+             f"epochs at step {step}")
+    for kind in ("inputs", "recon"):
+        grid = read_png(os.path.join(d, "images", f"{kind}_{step:07d}.png"))
+        if grid.shape != (768, 768, 3):  # 8 images, 3 × 3
+            fail(f"stage {k}: {kind} grid {grid.shape}")
+
+
+def phase_vae_entry_point(seed: int, device_info: dict, work: str, folder: str) -> dict:
+    """Phase 24: ``train_vavae.main`` on the seeded folder (16 of its images
+    the validation folder), the micro-Doppler config's three stages at one
+    epoch each, random ViT-L (``--allow_random_foundation``) and LPIPS
+    weights; then a relaunch with stage 3 at two epochs."""
+    val = os.path.join(work, "val")
+    for name, *_ in EXTRACT_CLASSES:
+        os.makedirs(os.path.join(val, name))
+        for i in range(VAE_VAL_IMAGES // len(EXTRACT_CLASSES)):
+            shutil.copy(os.path.join(folder, name, f"{i:03d}.png"), os.path.join(val, name))
+    lpips = LPIPS()
+    init_lpips_weights(lpips, torch.Generator().manual_seed(seed))
+    os.environ["VAVAE_LPIPS_WEIGHTS"] = os.path.join(work, "lpips.pth")
+    torch.save(lpips.state_dict(), os.environ["VAVAE_LPIPS_WEIGHTS"])
+    cfg = Config(VAVAE_F16D32).merged_with({"model": {"params": {
+        "use_vf": "dinov2", "lossconfig": {"params": MICRODOPPLER_LOSS}}}})
+    out_dir = os.path.join(work, "vavae")
+    steps_per_epoch = 2 * EXTRACT_PER_CLASS // VAE_BATCH
+
+    def run(stages, name):
+        cfg_path = os.path.join(work, f"{name}.json")
+        with open(cfg_path, "w") as f:
+            json.dump({**cfg, "stages": stages,
+                       "train": {"batch_size": VAE_BATCH,
+                                 "log_images_every": VAE_LOG_IMAGES_EVERY}}, f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_vavae.main(["--base", cfg_path, "--data_path", folder, "--val_path", val,
+                                  "--output_dir", out_dir, "--batch_size", str(VAE_BATCH),
+                                  "--allow_random_foundation"])
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    reset_counts()
+    try:
+        state, first_s = run(MICRODOPPLER_STAGES, "stages")
+        for k in (1, 2, 3):
+            _stage_check(out_dir, k, k * steps_per_epoch, 1)
+        if state.step != 3 * steps_per_epoch:
+            fail(f"train_vavae.main ended at step {state.step}")
+        files = {k: sorted(os.listdir(os.path.join(out_dir, f"stage{k}"))) for k in (1, 2)}
+        longer = [dict(s) for s in MICRODOPPLER_STAGES]
+        longer[2]["epochs"] = 2
+        state, second_s = run(longer, "stages_longer")
+    finally:
+        del os.environ["VAVAE_LPIPS_WEIGHTS"]
+    expect_counts(counts(), {}, "train_vavae.main")
+    if state.step != 4 * steps_per_epoch:
+        fail(f"the relaunch ended at step {state.step}, expected {4 * steps_per_epoch}")
+    _stage_check(out_dir, 3, 4 * steps_per_epoch, 2)
+    for k in (1, 2):  # skipped: nothing new written
+        if sorted(os.listdir(os.path.join(out_dir, f"stage{k}"))) != files[k]:
+            fail(f"the relaunch wrote into stage {k}")
+    res = {"first_s": first_s, "relaunch_s": second_s, "steps": state.step,
+           "images_per_s": 3 * 2 * EXTRACT_PER_CLASS / first_s}
+    log(f"[vae-train] train_vavae.main: 3 stages x 1 epoch x {steps_per_epoch} steps at batch "
+        f"{VAE_BATCH} (validation, best/ and grids every {VAE_LOG_IMAGES_EVERY} steps) in "
+        f"{first_s:.1f} s ({res['images_per_s']:.2f} images/s with checkpoints); relaunch with "
+        f"stage 3 at 2 epochs: stages 1-2 skipped, stage 3 resumed at epoch 1, step "
+        f"{state.step}, {second_s:.1f} s [{device_info['smi']}]")
+    return res
+
+
+def run_vae_training(seed: int, device_info: dict) -> dict:
+    """Phases 23-24, on phase 21's seeded image folder."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_vavae_")
+    try:
+        folder = os.path.join(work, "images")
+        write_image_folder(folder, seed)
+        out = {"train": phase_vae_train(seed, device_info, folder),
+               "entry_point": phase_vae_entry_point(seed, device_info, work, folder)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[vae-train] phases 23-24: {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
@@ -1743,6 +2095,7 @@ def main(argv=None) -> int:
     hires = phase_hires(SEED, device)
     samplers = run_samplers(SEED, device)
     tokenizer = run_tokenizer(SEED, device)
+    vae_training = run_vae_training(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -1763,9 +2116,9 @@ def main(argv=None) -> int:
             json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
-                       "seconds": time.perf_counter() - t0},
+                       "vae_training": vae_training, "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-22: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-24: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ to ``vavae_tpu_torch``. TF32 is off on the torch side and the JAX side runs
 at ``highest`` matmul precision (tests/conftest.py), so fp32 results agree
 to rounding.
 """
+import json
 import os
 import subprocess
 import sys
@@ -23,6 +24,17 @@ REPO = Path(__file__).resolve().parents[1]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one thread for the importing module's tests: their tensors
+    are small, and the suite's workers share the host's cores. Import it
+    and name it in ``pytestmark`` (``usefixtures``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def randomize(tree, seed: int):
@@ -153,6 +165,21 @@ def test_config_matches_jax_config(tmp_path):
     assert cfg.sample.cfg_scale == 10.0 and cfg.model.model_type == "LightningDiT-XL/1"
 
 
+def test_config_overrides_parse_as_yaml(tmp_path):
+    """Override values parse as YAML whatever else is installed, as in the
+    JAX package, also over a ``.json`` base (which loads without PyYAML)."""
+    from vavae_tpu.utils.config import load_config as jax_load
+    from vavae_tpu_torch.utils.config import load_config
+
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"model": {"base_learning_rate": 1e-4, "params": {"ch": 128}}}))
+    over = ["model.base_learning_rate=1e-4", "train.flag=yes", "data.extra.k=[1,2]"]
+    got = load_config(str(path), overrides=over)
+    assert got == jax_load(str(path), overrides=over)
+    assert got.model.base_learning_rate == "1e-4" and got.train.flag is True
+    assert got.model.params.ch == 128
+
+
 def _port_sources():
     return sorted((REPO / "vavae_tpu_torch").rglob("*.py"))
 
@@ -171,6 +198,10 @@ def test_port_imports_nothing_of_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in _port_sources()
     ]
+    # the VA-VAE training modules are among those imported
+    assert {f"vavae_tpu_torch.{m}" for m in (
+        "models.discriminator", "models.vit", "train.vae_loss", "train.vae_trainer",
+        "utils.image_grid", "pipelines.train_vavae")} <= set(mods)
     code = (
         "import sys\n"
         "class Block:\n"

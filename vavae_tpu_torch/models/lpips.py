@@ -6,7 +6,9 @@ relu2_2, relu3_3, relu4_3 and relu5_3, channel-unit-normalised squared
 differences, 1×1 linear heads, spatial mean, sum over the taps. ``LPIPS``
 takes NHWC in [-1, 1], as the JAX module, computes NCHW inside and returns
 (B,). Its convolutions run in fp32 with TF32 off, as the JAX module pins
-``Precision.HIGHEST``.
+``Precision.HIGHEST``; a module cast to bf16 (the VA-VAE trainer's frozen
+nets) computes in bf16. Its forward stays differentiable in its inputs:
+it is the trainer's perceptual loss.
 
 The modules are laid out as the taming module (``net.slice{1..5}.{N}`` at
 torchvision's ``features.N`` indices, ``lin{i}.model.1``), so a full LPIPS
@@ -107,8 +109,9 @@ class LPIPS(nn.Module):
             setattr(self, f"lin{i}", _NetLin(c))
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a = (a.float().permute(0, 3, 1, 2) - self.shift) / self.scale
-        b = (b.float().permute(0, 3, 1, 2) - self.shift) / self.scale
+        dtype = self.lin0.model[1].weight.dtype  # fp32, or bf16 for a cast module
+        a = (a.to(dtype).permute(0, 3, 1, 2) - self.shift) / self.scale
+        b = (b.to(dtype).permute(0, 3, 1, 2) - self.shift) / self.scale
         with full_fp32():
             fa, fb = self.net(a), self.net(b)
             total = 0.0

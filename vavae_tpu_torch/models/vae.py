@@ -63,7 +63,8 @@ class AttnBlock(nn.Module):
         q = self.q(h).reshape(B, C, H * W)
         k = self.k(h).reshape(B, C, H * W)
         v = self.v(h).reshape(B, C, H * W)
-        logits = torch.einsum("bcq,bck->bqk", q.float(), k.float())
+        with torch.autocast(x.device.type, enabled=False):  # fp32 logits under autocast too
+            logits = torch.einsum("bcq,bck->bqk", q.float(), k.float())
         probs = torch.softmax(logits * (C ** -0.5), dim=-1).to(v.dtype)
         out = torch.einsum("bqk,bck->bcq", probs, v).reshape(B, C, H, W)
         return x + self.proj_out(out)

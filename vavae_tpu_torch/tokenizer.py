@@ -25,6 +25,7 @@ import torch
 from vavae_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, vae_from_ddconfig
 from vavae_tpu_torch.utils.device import full_fp32, resolve_device
 from vavae_tpu_torch.utils.pil_resize import resize_uint8
+from vavae_tpu_torch.utils.weights import lecun_normal_
 
 
 def center_crop_arr(img: np.ndarray, image_size: int) -> np.ndarray:
@@ -55,14 +56,22 @@ def init_vae_weights(model: AutoencoderKL, generator: torch.Generator) -> None:
     unit GroupNorm scale."""
     for m in model.modules():
         if isinstance(m, torch.nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                        generator=generator)
+            lecun_normal_(m.weight, generator)
             torch.nn.init.zeros_(m.bias)
         elif isinstance(m, torch.nn.GroupNorm):
             torch.nn.init.ones_(m.weight)
             torch.nn.init.zeros_(m.bias)
+
+
+def reference_vae_state(path: str) -> dict[str, torch.Tensor]:
+    """The tensors of a reference torch ``.pt``/``.ckpt`` (its
+    ``state_dict``) without the loss's and the foundation model's: the
+    AutoencoderKL's under the port's names, and the reverse projector
+    ``linear_proj.weight`` where the run trained one."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    sd = sd.get("state_dict", sd)
+    return {k: v for k, v in sd.items()
+            if torch.is_tensor(v) and not k.startswith(("loss.", "foundation_model."))}
 
 
 class VA_VAE:
@@ -124,14 +133,9 @@ class VA_VAE:
             from vavae_tpu_torch.utils.weights import vae_state_from_jax
 
             sd = vae_state_from_jax(load_tree(str(ckpt_path)))
-        else:  # reference torch checkpoint
-            sd = torch.load(str(ckpt_path), map_location="cpu", weights_only=False)
-            sd = sd.get("state_dict", sd)
-            sd = {
-                k: v for k, v in sd.items()
-                if torch.is_tensor(v)
-                and not k.startswith(("loss.", "foundation_model.", "linear_proj"))
-            }
+        else:
+            sd = {k: v for k, v in reference_vae_state(str(ckpt_path)).items()
+                  if not k.startswith("linear_proj")}
         self.model.load_state_dict(sd, strict=True)
 
     def _input(self, x) -> torch.Tensor:

@@ -86,23 +86,24 @@ def adam_init(params: list[torch.Tensor], mu_dtype: Optional[torch.dtype] = None
 
 @torch.no_grad()
 def adamw_update(params: list[torch.Tensor], grads: list[torch.Tensor], state: AdamState,
-                 lr: float, b2: float, weight_decay: float = 0.0) -> None:
+                 lr: float, b2: float, weight_decay: float = 0.0, b1: float = B1) -> None:
     """One ``optax.adamw`` step, in place: moments in fp32 (a bf16 first
     moment is widened for the update and stored back), bias correction
-    ``1 − b^count`` in fp32, ``u = m̂ / (√v̂ + eps) + wd·p``, ``p += −lr·u``."""
+    ``1 − b^count`` in fp32, ``u = m̂ / (√v̂ + eps) + wd·p``, ``p += −lr·u``.
+    With ``weight_decay`` 0 it is ``optax.adam``."""
     state.count += 1
-    bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(state.count))
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(state.count))
     bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(state.count))
     widened = state.mu[0].dtype != torch.float32
     if widened:
         # optax's b1·mu stays in mu's dtype, with b1 itself rounded to it
         # (0.9 → 0.8984375 in bf16); the sum with (1 − b1)·g is fp32
-        b1 = torch.tensor(B1, dtype=state.mu[0].dtype).item()
-        mu = [(m * b1).float() for m in state.mu]
+        b1_mu = torch.tensor(b1, dtype=state.mu[0].dtype).item()
+        mu = [(m * b1_mu).float() for m in state.mu]
     else:
         mu = state.mu
-        torch._foreach_mul_(mu, B1)
-    torch._foreach_add_(mu, grads, alpha=1.0 - B1)
+        torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
     torch._foreach_mul_(state.nu, b2)
     torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
     denom = torch._foreach_div(state.nu, bc2)

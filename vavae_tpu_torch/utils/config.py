@@ -1,12 +1,15 @@
 """Config: YAML load + dot-path overrides + attribute access.
 
-Port of ``vavae_tpu/utils/config.py`` (the part sampling reads). PyYAML is
-imported only inside the functions that parse YAML, so code that builds a
-``Config`` from a dict runs where PyYAML is not installed.
+Port of ``vavae_tpu/utils/config.py``. PyYAML is imported only inside the
+functions that parse YAML, so code that builds a ``Config`` from a dict, or
+loads a ``.json`` config without overrides, runs where PyYAML is not
+installed. Override values are always parsed as YAML, as in the JAX
+package, so they need PyYAML.
 """
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any, Iterable, Mapping
 
 
@@ -80,13 +83,17 @@ def _merge_into(dst: Config, src: Mapping[str, Any]) -> None:
 
 
 def load_config(*paths: str, overrides: Iterable[str] = ()) -> Config:
-    """Load one or more YAML files (left-to-right merge) + dotlist overrides."""
-    import yaml
-
+    """Load one or more YAML (or ``.json``) files (left-to-right merge) +
+    dotlist overrides."""
     cfg = Config()
     for p in paths:
         with open(p) as f:
-            data = yaml.safe_load(f) or {}
+            if p.endswith(".json"):
+                data = json.load(f)
+            else:
+                import yaml
+
+                data = yaml.safe_load(f) or {}
         cfg = cfg.merged_with(data)
     if overrides:
         cfg = cfg.override(overrides)

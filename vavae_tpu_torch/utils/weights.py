@@ -15,8 +15,12 @@ whose target names are the reference's, which the port's modules use:
     relies on it (only a reference ``.pt`` needs ``rope_permute_qkv``).
 
 The port's PatchEmbed is a Linear over the (p, p, C) flattening, as the JAX
-Dense, so its weight is the transposed kernel. ``dit_state_to_jax`` walks
-the other way, so the port's checkpoints hold the JAX package's tree.
+Dense, so its weight is the transposed kernel. ``dit_state_to_jax``,
+``vae_state_to_jax`` and ``disc_state_to_jax`` walk the other way, so the
+port's checkpoints hold the JAX package's tree. The discriminator's batch
+norm maps ``scale``/``mean``/``var`` to ``weight``/``running_mean``/
+``running_var``; ``vit_state_from_jax`` gives timm's layout (the inverse of
+the JAX package's ``vit_params_from_timm``).
 """
 from __future__ import annotations
 
@@ -95,6 +99,118 @@ def vae_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def _set(tree: dict, path: list[str], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _vae_module_path(parts: list[str]) -> list[str]:
+    """A port VAE module path (``encoder.down.0.block.1.norm1``) → its JAX
+    path (``encoder/down_0_block_1/norm1``)."""
+    if parts[0] not in ("encoder", "decoder"):
+        return parts  # quant_conv, post_quant_conv
+    side, rest = parts[0], parts[1:]
+    if rest[0] in ("down", "up"):
+        level, i, kind = rest[:3]
+        if kind in ("block", "attn"):
+            return [side, f"{level}_{i}_{kind}_{rest[3]}", *rest[4:]]
+        return [side, f"{level}_{i}_{kind}", *rest[3:]]  # down_{i}_downsample / up_{i}_upsample
+    if rest[0] == "mid":
+        return [side, f"mid_{rest[1]}", *rest[2:]]
+    return [side, *rest]
+
+
+def vae_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's AutoencoderKL state dict → the JAX package's param tree
+    (numpy fp32): the inverse of ``vae_state_from_jax``. GroupNorm weights
+    go under the extra ``norm`` level as ``scale``/``bias``; conv weights
+    OIHW → HWIO ``kernel``."""
+    tree: dict = {}
+    for key, value in sd.items():
+        *mod, leaf = key.split(".")
+        path = _vae_module_path(mod)
+        if path[-1].startswith("norm"):
+            _set(tree, path + ["norm", "scale" if leaf == "weight" else "bias"], _np(value))
+        elif leaf == "weight":
+            _set(tree, path + ["kernel"], np.transpose(_np(value), (2, 3, 1, 0)))
+        else:
+            _set(tree, path + ["bias"], _np(value))
+    return tree
+
+
+# -- PatchGAN discriminator --------------------------------------------------------
+
+
+def disc_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``NLayerDiscriminator`` variables (``params``, and
+    ``batch_stats`` when given) → the port's state dict: conv kernels HWIO →
+    OIHW, BatchNorm ``scale`` → ``weight``, ``mean``/``var`` →
+    ``running_mean``/``running_var``."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, sub in variables["params"].items():
+        if name.startswith("bn"):
+            sd[f"{name}.weight"] = _t(sub["scale"])
+            sd[f"{name}.bias"] = _t(sub["bias"])
+        else:
+            sd[f"{name}.weight"] = _t(np.transpose(np.asarray(sub["kernel"]), (3, 2, 0, 1)))
+            if "bias" in sub:
+                sd[f"{name}.bias"] = _t(sub["bias"])
+    for name, sub in variables.get("batch_stats", {}).items():
+        sd[f"{name}.running_mean"] = _t(sub["mean"])
+        sd[f"{name}.running_var"] = _t(sub["var"])
+    return sd
+
+
+def disc_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``disc_state_from_jax``: ``{"params", "batch_stats"}``
+    (the latter only when ``sd`` holds running stats)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        name, leaf = key.split(".")
+        if leaf in ("running_mean", "running_var"):
+            _set(out["batch_stats"], [name, leaf[len("running_"):]], _np(value))
+        elif name.startswith("bn"):
+            _set(out["params"], [name, "scale" if leaf == "weight" else "bias"], _np(value))
+        elif leaf == "weight":
+            _set(out["params"], [name, "kernel"], np.transpose(_np(value), (2, 3, 1, 0)))
+        else:
+            _set(out["params"], [name, "bias"], _np(value))
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
+
+
+# -- foundation ViT ----------------------------------------------------------------
+
+
+def vit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``TimmViT`` params → a timm-layout ViT state dict (the port's
+    ``TimmViT``): the inverse of the JAX package's ``vit_params_from_timm``."""
+    sd = {"cls_token": _t(params["cls_token"]), "pos_embed": _t(params["pos_embed"]),
+          "norm.weight": _t(params["norm"]["scale"]), "norm.bias": _t(params["norm"]["bias"])}
+    _conv(sd, params["patch_embed"], "patch_embed.proj")
+    i = 0
+    while f"block_{i}" in params:
+        blk, p = params[f"block_{i}"], f"blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{p}.{norm}.weight"] = _t(blk[norm]["scale"])
+            sd[f"{p}.{norm}.bias"] = _t(blk[norm]["bias"])
+        _dense(sd, blk["qkv"], f"{p}.attn.qkv")
+        _dense(sd, blk["proj"], f"{p}.attn.proj")
+        _dense(sd, blk["fc1"], f"{p}.mlp.fc1")
+        _dense(sd, blk["fc2"], f"{p}.mlp.fc2")
+        if "ls1" in blk:
+            sd[f"{p}.ls1.gamma"] = _t(blk["ls1"])
+            sd[f"{p}.ls2.gamma"] = _t(blk["ls2"])
+        i += 1
+    return sd
+
+
 # -- DiT -------------------------------------------------------------------------
 
 
@@ -148,10 +264,6 @@ def dit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().float().cpu().numpy()
-
-
 def _dense_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
     out = {"kernel": _np(sd[f"{prefix}.weight"]).T}
     if f"{prefix}.bias" in sd:
@@ -201,6 +313,17 @@ def dit_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
         "blocks": {"block": stack(blocks)},
         "final_layer": final,
     }
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` in place: a normal truncated at ±2σ with the
+    variance 1/fan_in after truncation, drawn on the (CPU) generator and
+    copied to ``weight``'s device, so every device gets the same values."""
+    std = (1.0 / weight[0].numel()) ** 0.5 / 0.87962566103423978
+    draw = torch.empty(weight.shape)
+    torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=generator)
+    weight.copy_(draw)
 
 
 @torch.no_grad()
