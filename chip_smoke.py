@@ -115,7 +115,40 @@ Phases, each fatal on failure:
      stages cut to one epoch each, random ViT-L and LPIPS weights, image
      grids every 4 steps: each stage's ``epoch.json``, ``best/metric.json``,
      grids and chained steps (12, 24, 36); then a relaunch with stage 3 at
-     two epochs skips stages 1-2 and resumes stage 3 at epoch 1 (step 48).
+     two epochs skips stages 1-2 and resumes stage 3 at epoch 1 (step 48);
+  25. LoRA finetune: ``lora_finetune.main`` on the micro-Doppler DiT-S/2
+     (``vavae_tpu/configs/dit_s_microdoppler.yaml`` written into the script
+     with ``log_every`` 1: hidden 384, depth 12, 6 heads, 32 classes, 64
+     tokens, fp32) from seeded random base weights given as a JAX-layout
+     ``.msgpack`` (the legacy reader, with its RoPE-layout warning), rank
+     8, alpha 16, batch 16, 6 steps on seeded latent shards in the JAX
+     format, ``--export_merged``: finite losses, 12 launches of #1 and of #2
+     a step, the base weights bit-identical, alpha unchanged, A and B
+     moved, the LoRA file read back bit for bit, the export loaded by
+     ``pipelines.sample.load_dit_params`` equal to the merge; ms/step of 10
+     more steps and peak memory; #1 and #2 at the step's shape (16, 6, 64,
+     64) in fp32 against their plain versions, timed beside SDPA and the
+     bound; then one LoRA step on the production XL/1 at full width cut to
+     depth 4 (bf16, remat "dots"): adapter gradients with the kernels
+     against plain attention, within 3e-2;
+  26. classifier: ``ClassifierTrainer`` at 256², batch 64, on a seeded
+     folder of 31 ``ID_*`` users, in the baseline (32 classes, as
+     ``generate_and_filter.run`` builds it), improved + global and
+     domain-adaptive modes (fp32, TF32 off, no autocast): 4 timed steps
+     after one, finite losses, frozen stages bit-identical, the saved file
+     read back; one step from the same state (carried through the file) and
+     dropout masks on the card and the CPU at batch 16: loss, weights and
+     BN stats within 1e-3 relative; no attention kernel launched;
+  27. ``generate_and_filter.run`` with phase 25's merged export, phase 26's
+     baseline classifier and the f16d32 VA-VAE decode (seeded random
+     weights), two users (the classes the classifier predicts most often
+     on a probe batch: random weights predict a few classes whatever the
+     label), 2 batches of 8, confidence 0 (random weights accept almost
+     nothing at the app's 0.95), euler-250 split-CFG in place of the
+     config's dopri5 (an exact launch count): 12 × 249 #1 launches a
+     batch, as many PNGs as accepted (at least one), each decoding to its
+     image, the stats consistent; samples/s and the seconds of sampling,
+     decode and classifier.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -141,6 +174,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -172,7 +206,15 @@ from vavae_tpu_torch.eval.fid import (
     create_npz_from_sample_folder,
     fid_folder_vs_npz,
 )
-from vavae_tpu_torch.data.image_folder import ImageFolderDataset
+from vavae_tpu_torch.apps import generate_and_filter as gen_filter
+from vavae_tpu_torch.apps import lora_finetune
+from vavae_tpu_torch.apps.train_classifier import (
+    ClassifierTrainer,
+    restore_classifier,
+    save_classifier,
+)
+from vavae_tpu_torch.data.image_folder import ImageFolderDataset, MixedDomainDataset
+from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.eval.metrics import ssim
 from vavae_tpu_torch.models import lpips as lpips_mod
 from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights, load_lpips
@@ -181,11 +223,14 @@ from vavae_tpu_torch.pipelines import evaluate_tokenizer as teval
 from vavae_tpu_torch.pipelines import train_vavae
 from vavae_tpu_torch.pipelines.evaluate_tokenizer import evaluate_tokenizer
 from vavae_tpu_torch.pipelines.extract_features import extract, iter_batches, list_image_folder
-from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample
+from vavae_tpu_torch.pipelines import sample as sample_mod
+from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample, load_dit_params
 from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.pipelines.train_vavae import build_vae_trainer, make_aux_feature_fn
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.train import checkpoint as ckpt_lib
+from vavae_tpu_torch.train.lora import load_lora, lora_size
+from vavae_tpu_torch.train.lora_trainer import LoRATrainer
 from vavae_tpu_torch.transport import Sampler, build_transport, create_transport
 from vavae_tpu_torch.transport.cost import (
     adaptive_cache_cost,
@@ -195,6 +240,7 @@ from vavae_tpu_torch.transport.cost import (
 )
 from vavae_tpu_torch.utils.config import Config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
+from vavae_tpu_torch.utils.msgpack_io import write_msgpack
 from vavae_tpu_torch.utils.png import read_png, write_pngs
 from vavae_tpu_torch.utils.safetensors_io import flatten, read_safetensors, write_safetensors
 from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_
@@ -2062,6 +2108,483 @@ def run_vae_training(seed: int, device_info: dict) -> dict:
     return out
 
 
+# -- phases 25-27: the micro-Doppler application path -----------------------------
+
+# vavae_tpu/configs/dit_s_microdoppler.yaml written out (no PyYAML on the card):
+# DiT-S/2 at full width and depth (hidden 384, depth 12, 6 heads), 32 classes
+# (31 users + the CFG null), fp32 compute as the file sets no ``bf16``
+MICRODOPPLER_APP = {
+    "data": {"image_size": 256, "num_classes": 32, "num_users": 31, "latent_norm": True,
+             "latent_multiplier": 1.0},
+    "vae": {"model_name": "vavae_f16d32", "downsample_ratio": 16},
+    "model": {"model_type": "LightningDiT-S/2", "use_qknorm": False, "use_swiglu": True,
+              "use_rope": True, "use_rmsnorm": True, "wo_shift": False, "in_chans": 32,
+              "use_checkpoint": False, "class_dropout_prob": 0.05},
+    "train": {"max_steps": 8000, "global_batch_size": 16, "global_seed": 0,
+              "output_dir": "output", "exp_name": "dit_s_microdoppler", "log_every": 1},
+    "optimizer": {"lr": 0.00005, "beta2": 0.99, "max_grad_norm": 1.0, "weight_decay": 0.01},
+    "transport": {"path_type": "Linear", "prediction": "velocity", "use_lognorm": True,
+                  "use_cosine_loss": True},
+    "sample": {"mode": "ODE", "sampling_method": "dopri5", "atol": 1e-6, "rtol": 1e-3,
+               "reverse": False, "num_sampling_steps": 300, "cfg_scale": 10.0,
+               "per_proc_batch_size": 4, "cfg_interval_start": 0.11, "timestep_shift": 0.1},
+}
+LORA_RANK, LORA_ALPHA, LORA_BATCH, LORA_STEPS = 8, 16.0, 16, 6
+LORA_TIMED = 10          # further steps timed after the entry point's run
+LORA_XL_DEPTH = 4        # the XL/1 LoRA step: full width, depth cut to 4
+LATENT_SHARDS, LATENT_PER_SHARD = 2, 48
+CLF_SIZE, CLF_BATCH, CLF_USERS, CLF_PER_USER = 256, 64, 31, 5
+CLF_CPU_BATCH = 16       # the card-vs-CPU step
+CLF_TOL = 1e-3           # card vs CPU, relative: losses, weights, BN stats (Frobenius)
+CLF_STEPS = 4            # timed steps a mode, after one warm-up step
+CLF_MODES = {            # the baseline has data.num_classes classes, as run() builds it
+    "baseline": dict(mode="baseline", num_classes=32),
+    "improved_global": dict(mode="improved", contrastive_type="global", num_classes=31),
+    "domain_adaptive": dict(mode="domain_adaptive", num_classes=31),
+}
+FILTER_BATCH, FILTER_BATCHES = 8, 2
+FILTER_STEPS = 250       # euler split-CFG (the production sampler): an exact launch count
+
+
+def write_latent_shards(root: str, seed: int) -> None:
+    """Seeded f16d32 latent shards in the JAX package's format (N, 32, 16, 16),
+    labels over the 31 users."""
+    rs = np.random.default_rng(seed)
+    for i in range(LATENT_SHARDS):
+        lat = (rs.standard_normal((LATENT_PER_SHARD, 32, 16, 16))
+               * rs.uniform(0.5, 2.0, (1, 32, 1, 1))).astype(np.float32)
+        write_safetensors(os.path.join(root, f"latents_rank00_shard{i:03d}.safetensors"), {
+            "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+            "labels": rs.integers(0, 31, (LATENT_PER_SHARD,)).astype(np.int32)})
+
+
+def _fp32_attention_bound(B: int, H: int, N: int, D: int, flops_per: float,
+                          tensors: int) -> tuple[float, str]:
+    """Least time on an H100 of an fp32 attention call: ``flops_per``·B·H·N²·D
+    operations at the fp32 (non-tensor-core) peak — the fp32 bodies run on
+    the FMA units — vs ``tensors`` fp32 (B, N, H, D) tensors and the two
+    (N, D) tables moved once."""
+    flops = flops_per * B * H * N * N * D
+    nbytes = 4.0 * tensors * B * N * H * D + 2 * N * D * 4
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lora_kernel_rows(seed: int) -> dict:
+    """Kernels #1 and #2 at the LoRA step's attention shape (B 16, 6 heads,
+    N 64, D 64, RoPE, fp32 as the config computes): each against its plain
+    version, its time, the plain version's, SDPA's (forward; backward of
+    q, k, v rotated beforehand) and the bound."""
+    B, H, N, D = LORA_BATCH, 6, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed + 250)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda")
+    g = torch.randn((B, N, H, D), generator=gen, device="cuda")
+    cos, sin = rope_2d_freqs(D, 8)
+    tables = (torch.as_tensor(cos, device="cuda"), torch.as_tensor(sin, device="cuda"))
+    cosf, sinf = fold_sin(tables, device="cuda")
+    c, s_ = cosf[None, :, None], sinf[None, :, None]
+    rot = lambda x: x * c + torch.roll(x, D // 2, dims=-1) * s_  # noqa: E731
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (rot(qkv[:, :, 0]), rot(qkv[:, :, 1]), qkv[:, :, 2]))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    out = sdpa()
+    gt = g.transpose(1, 2).contiguous()
+    sdpa_bwd = lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True)  # noqa: E731
+    rows = {}
+    for name, fn, ref, library, flops_per, tensors in (
+            ("nat_attention_fwd", lambda: fused_qkv_attention(qkv, rope=tables),
+             lambda: fused_qkv_attention_reference(qkv, rope=tables), sdpa, 4.0, 4),
+            ("nat_attention_bwd", lambda: fused_qkv_attention_bwd(qkv, g, rope=tables),
+             lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables), sdpa_bwd, 10.0, 7)):
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not (rel <= 1e-4):
+            fail(f"{name} fp32 at {(B, H, N, D)}: max-rel {rel} against its plain version")
+        row = {"shape": [B, H, N, D], "dtype": "fp32", "rope": True, "max_abs_err": err,
+               "max_rel_err": rel, "ms": time_ms(fn),
+               "device_ms": sum(device_kernels(fn).values()), "plain_ms": time_ms(ref),
+               "library_ms": time_ms(library), "library_device_ms": device_ms(library)}
+        row["bound_ms"], row["bound_by"] = _fp32_attention_bound(B, H, N, D, flops_per, tensors)
+        rows[name] = row
+        log(f"[lora-kernels] {name} fp32 B={B} H={H} N={N} D={D} rope: max-abs {err:.3e} "
+            f"(max-rel {rel:.3e}), kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+            f"plain {row['plain_ms']:.4f} ms, SDPA{' backward' if 'bwd' in name else ''} "
+            f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f}), bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    return rows
+
+
+def _jax_dit_msgpack(path: str, model) -> dict:
+    """``model``'s weights as a JAX-layout DiT train state in flax msgpack (the
+    JAX package's legacy checkpoint format): step, params, ema_params and a
+    None optimizer state. Returns the port state dict it holds."""
+    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    tree = dit_state_to_jax(sd)
+    write_msgpack(path, {"step": np.asarray(0, np.int32), "params": tree, "ema_params": tree,
+                         "opt_state": None})
+    return sd
+
+
+def phase_lora(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 25: ``lora_finetune.main`` on the micro-Doppler DiT-S/2 from a
+    JAX-layout msgpack base; then one XL/1 LoRA step, kernels vs plain."""
+    cfg = Config(MICRODOPPLER_APP).merged_with({"data": {"data_path": os.path.join(work, "latents")}})
+    write_latent_shards(cfg.data.data_path, seed)
+    cfg_path = os.path.join(work, "dit_s_microdoppler.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    base_model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    randomize_(base_model, seed)
+    base_path = os.path.join(work, "base.msgpack")
+    base_sd = _jax_dit_msgpack(base_path, base_model)
+    del base_model
+    out = os.path.join(work, "lora")
+    argv = ["--config", cfg_path, "--base_ckpt", base_path, "--rank", str(LORA_RANK),
+            "--alpha", str(LORA_ALPHA), "--steps", str(LORA_STEPS), "--batch_size",
+            str(LORA_BATCH), "--out_dir", out, "--export_merged"]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = lora_finetune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    trainer, state = res["trainer"], res["state"]
+    depth = trainer.model.depth
+    expect_counts(got, {"nat_attention_fwd": depth * LORA_STEPS,
+                        "nat_attention_bwd": depth * LORA_STEPS}, "LoRA finetune")
+    if not any("split-half RoPE" in str(w.message) for w in caught):
+        fail("the msgpack base loaded without the JAX package's RoPE-layout warning")
+    losses = np.asarray(res["losses"])
+    if len(losses) != LORA_STEPS or not np.isfinite(losses).all():
+        fail(f"LoRA losses {losses}")
+    for k, v in trainer.model.state_dict().items():
+        if not torch.equal(v.cpu(), base_sd[k]):
+            fail(f"LoRA training changed the base weight {k}")
+    init = trainer.init_state()  # the same seeded draw of A, B = 0
+    for n, ad in state.lora.items():
+        if ad["alpha"].item() != LORA_ALPHA:
+            fail(f"alpha of {n} moved to {ad['alpha'].item()}")
+    if not all(not torch.equal(state.lora[n]["a"], init.lora[n]["a"])
+               and state.lora[n]["b"].abs().max() > 0 for n in state.lora):
+        fail("an adapter's A or B did not move")
+    back = load_lora(res["lora_path"], device="cuda")
+    if sorted(back) != sorted(state.ema_lora) or not all(
+            torch.equal(back[n][k], state.ema_lora[n][k]) for n in back for k in back[n]):
+        fail("the LoRA file does not read back equal to the EMA adapters")
+    merged = trainer.merged_params(state)
+    check = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    load_dit_params(check, res["merged_path"])
+    if not all(torch.equal(v, merged[k]) for k, v in check.state_dict().items()):
+        fail("the merged export does not load into pipelines.sample equal to the merge")
+    del check
+    peak_main = torch.cuda.max_memory_allocated()
+
+    # ms/step of further steps on the same batch stream (not counted)
+    ds = ImgLatentDataset(cfg.data.data_path, latent_norm=True)
+    it = ds.batches(LORA_BATCH, seed=1)
+    batches = [tuple(torch.as_tensor(a, device="cuda") for a in next(it)) for _ in range(4)]
+    trainer.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LORA_TIMED):
+        trainer.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / LORA_TIMED * 1e3
+    kernels = lora_kernel_rows(seed)
+    xl = phase_lora_xl(seed)
+    res_out = {"wall_s": wall, "losses": losses.tolist(), "launches": [got["nat_attention_fwd"],
+               got["nat_attention_bwd"]], "ms_per_step": ms_step,
+               "img_per_s": LORA_BATCH / ms_step * 1e3, "peak_bytes": peak_main,
+               "lora_params": lora_size(state.lora), "merged_path": res["merged_path"],
+               "kernels": kernels, "xl": xl}
+    log(f"[lora] lora_finetune.main DiT-S/2 (depth {depth}, fp32) r={LORA_RANK} "
+        f"alpha={LORA_ALPHA:g} batch {LORA_BATCH}: {LORA_STEPS} steps in {wall:.1f} s "
+        f"(load, train, save, export), loss {losses[0]:.4f} → {losses[-1]:.4f}, "
+        f"{res_out['lora_params'] / 1e6:.3f}M adapter parameters, launches "
+        f"{got['nat_attention_fwd']} nat_attention_fwd / {got['nat_attention_bwd']} "
+        f"nat_attention_bwd ({depth} each a step); {ms_step:.2f} ms/step "
+        f"({res_out['img_per_s']:.1f} img/s), peak {peak_main / 2**30:.2f} GiB; base bit-identical, "
+        f"alpha unchanged, A and B moved, LoRA file and merged export read back "
+        f"[{device_info['smi']}]")
+    return res_out
+
+
+def phase_lora_xl(seed: int) -> dict:
+    """One LoRA step's adapter gradients on the production XL/1 (full width,
+    depth cut to ``LORA_XL_DEPTH``, bf16, remat "dots") with both kernels
+    against plain attention."""
+    cfg = branch_config("production")
+    with xl_depth(LORA_XL_DEPTH):
+        model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
+    randomize_(model, seed)
+    trainer = LoRATrainer(model, build_transport(cfg), rank=LORA_RANK, alpha=LORA_ALPHA)
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 251)
+    with torch.no_grad():  # B away from 0, so A receives a gradient too
+        for ad in state.lora.values():
+            ad["b"].normal_(0.0, 0.01, generator=gen)
+    B = BATCH
+    x = torch.randn((B, 16, 16, 32), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    t = trainer.transport.sample_t(B, gen)
+    x0 = torch.randn((B, 16, 16, 32), generator=gen, device="cuda")
+    drop = torch.zeros((B,), dtype=torch.long, device="cuda")
+
+    def grads():
+        out = trainer.loss_and_grads(state.lora, x, y, t, x0, drop)[2]
+        return torch.cat([g.float().flatten() for g in out])
+
+    reset_counts()
+    with_kernel = grads()
+    torch.cuda.synchronize()
+    expect_counts(counts(), {"nat_attention_fwd": 2 * LORA_XL_DEPTH,
+                             "nat_attention_bwd": LORA_XL_DEPTH}, "XL/1 LoRA step")
+    with plain_attention("production"):
+        plain = grads()
+    rel = ((with_kernel - plain).norm() / plain.norm()).item()
+    if not (rel <= PATH_TOL):
+        fail(f"XL/1 LoRA adapter gradients, kernels vs plain attention: {rel} > {PATH_TOL}")
+    log(f"[lora] XL/1 (width 1152, depth {LORA_XL_DEPTH}, bf16, remat dots) LoRA r={LORA_RANK} "
+        f"adapter gradients B={B}, kernels vs plain attention: relative error {rel:.3e}")
+    del model, trainer, state
+    torch.cuda.empty_cache()
+    return {"rel_err": rel, "depth": LORA_XL_DEPTH}
+
+
+def write_user_folder(root: str, seed: int) -> None:
+    """Seeded 256² PNGs in ``ID_{u}`` folders, 31 users: a coarse random
+    layout per user (16-px cells) plus per-image noise."""
+    rs = np.random.default_rng(seed)
+    for u in range(CLF_USERS):
+        d = os.path.join(root, f"ID_{u + 1}")
+        os.makedirs(d)
+        base = np.repeat(np.repeat(rs.integers(0, 256, (16, 16, 3)), 16, 0), 16, 1)
+        for i in range(CLF_PER_USER):
+            img = np.clip(base + rs.integers(-40, 41, base.shape), 0, 255).astype(np.uint8)
+            write_pngs(img[None], [os.path.join(d, f"{i:03d}.png")])
+
+
+def _clf_groups(state) -> dict:
+    return {"params": [t.detach().float().cpu() for t in state.params],
+            "stats": [t.detach().float().cpu() for t in state.stats]}
+
+
+def _frob(a: list, b: list) -> float:
+    a = torch.cat([t.flatten().double() for t in a])
+    b = torch.cat([t.flatten().double() for t in b])
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _clf_cpu_check(name: str, spec: dict, state, trainer, batch, work: str) -> dict:
+    """One fp32 step from the same state and draws on the card and on the
+    CPU (the state carried through the classifier file)."""
+    path = save_classifier(os.path.join(work, f"{name}_check.safetensors"), trainer, state,
+                           extras=True)
+    cpu = ClassifierTrainer(device="cpu", seed=SEED, **spec)
+    cpu_state = restore_classifier(path, cpu, cpu.init_state(0))
+    card_state = restore_classifier(path, trainer, trainer.init_state(0))
+    x, y = (a[:CLF_CPU_BATCH] for a in batch)
+    draws = {}
+    if spec["mode"] == "domain_adaptive":
+        g = torch.Generator().manual_seed(SEED + 260)
+        keep = 1.0 - trainer.dropout_rate
+        draws["dropout"] = [torch.rand((CLF_CPU_BATCH, n), generator=g) < keep for n in (512, 256)]
+    m_card = trainer.train_step(card_state, (x, y),
+                                {k: [t.cuda() for t in v] for k, v in draws.items()})
+    m_cpu = cpu.train_step(cpu_state, (x, y), draws)
+    loss_rel = abs(m_card["loss"].item() - m_cpu["loss"].item()) / abs(m_cpu["loss"].item())
+    a, b = _clf_groups(card_state), _clf_groups(cpu_state)
+    rels = {"loss": loss_rel, "params": _frob(a["params"], b["params"]),
+            "stats": _frob(a["stats"], b["stats"])}
+    if not all(r <= CLF_TOL for r in rels.values()):
+        fail(f"classifier {name}: card vs CPU {rels} (limit {CLF_TOL})")
+    return rels
+
+
+def phase_classifier(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 26: ``ClassifierTrainer`` at 256², batch 64, three modes."""
+    folder = os.path.join(work, "users")
+    write_user_folder(folder, seed)
+    ds = MixedDomainDataset(real_dir=folder, split="train", image_size=CLF_SIZE, verbose=False)
+    it = ds.batches(CLF_BATCH, seed=seed)
+    batches = [next(it) for _ in range(CLF_STEPS + 1)]
+    out = {}
+    reset_counts()
+    for name, spec in CLF_MODES.items():
+        trainer = ClassifierTrainer(device="cuda", seed=seed, **spec)
+        state = trainer.init_state(seed)
+        frozen = {n: t.detach().clone() for n, t, tr in
+                  zip(state.names, state.params, state.trainable) if not tr}
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(state, batches[0])  # warm-up (cuDNN's algorithm choice)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(state, b)["loss"] for b in batches[1:]]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / CLF_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            fail(f"classifier {name}: losses {losses}")
+        if any(not torch.equal(t, frozen[n]) for n, t in zip(state.names, state.params)
+               if n in frozen):
+            fail(f"classifier {name}: a frozen stage moved")
+        path = save_classifier(os.path.join(work, f"{name}.safetensors"), trainer, state)
+        back = restore_classifier(path, trainer, trainer.init_state(seed + 1))
+        if not all(torch.equal(a, b) for a, b in zip(back.params + back.stats,
+                                                     state.params + state.stats)):
+            fail(f"classifier {name}: the saved file does not read back equal")
+        rels = _clf_cpu_check(name, spec, state, trainer, batches[0], work)
+        out[name] = {"ms_per_step": ms, "img_per_s": CLF_BATCH / ms * 1e3, "peak_bytes": peak,
+                     "losses": losses.tolist(), "frozen_tensors": len(frozen), "cpu_check": rels,
+                     "path": path}
+        log(f"[classifier] {name} ResNet-18 {CLF_SIZE}² batch {CLF_BATCH} (fp32, TF32 off, no "
+            f"autocast): {ms:.2f} ms/step, {out[name]['img_per_s']:.1f} img/s, peak "
+            f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} → {losses[-1]:.4f}, {len(frozen)} "
+            f"frozen tensors bit-identical, file read back; one step card vs CPU (batch "
+            f"{CLF_CPU_BATCH}): loss {rels['loss']:.2e}, weights {rels['params']:.2e}, BN stats "
+            f"{rels['stats']:.2e} [{device_info['smi']}]")
+        del trainer, state
+        torch.cuda.empty_cache()
+    expect_counts(counts(), {}, "classifier phase")  # no attention kernel
+    return out
+
+
+def phase_generate_filter(seed: int, device_info: dict, work: str, lora: dict,
+                          classifier: dict) -> dict:
+    """Phase 27: ``generate_and_filter.run`` with phase 25's merged export,
+    phase 26's baseline classifier and the f16d32 VA-VAE decode (seeded
+    random weights), two users at confidence 0 (random weights accept almost
+    nothing at the app's 0.95)."""
+    cfg = Config(MICRODOPPLER_APP).merged_with({
+        "ckpt_path": lora["merged_path"],
+        "data": {"data_path": os.path.join(work, "latents")},
+        "sample": {"sampling_method": "euler", "num_sampling_steps": FILTER_STEPS}})
+    cfg_path = os.path.join(work, "generate_and_filter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    save_dir = os.path.join(work, "filtered")
+    seconds, decoded, probs = {}, [], []
+    users = _probe_users(cfg, classifier["baseline"]["path"], seed)
+    build = sample_mod.build_sample_fn
+
+    def timed_build(*args, **kwargs):
+        return _timed(build(*args, **kwargs), seconds, "sampling")
+
+    predict = ClassifierTrainer.predict_fn
+    fcfg = gen_filter.FilterConfig(confidence_threshold=0.0, target_per_user=10**6,
+                                   batch_size=FILTER_BATCH, max_batches=FILTER_BATCHES)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _patched(sample_mod, "build_sample_fn", timed_build), \
+            _patched(VA_VAE, "decode_to_images",
+                     _timed(_recorded(decoded, VA_VAE.decode_to_images), seconds, "decode")), \
+            _patched(ClassifierTrainer, "predict_fn",
+                     lambda self, st: _timed(_recorded(probs, predict(self, st)), seconds,
+                                             "classifier")):
+        results = gen_filter.run(cfg_path, user_ids=list(users), filter_cfg=fcfg,
+                                 save_dir=save_dir, classifier_ckpt=classifier["baseline"]["path"],
+                                 device="cuda")
+    wall = time.perf_counter() - t0
+    got = counts()
+    depth = 12  # DiT-S/2
+    calls = len(users) * FILTER_BATCHES
+    expect_counts(got, {"nat_attention_fwd": depth * (FILTER_STEPS - 1) * calls},
+                  "generate_and_filter")
+    n = 0
+    for k, uid in enumerate(users):
+        st = results[uid]
+        imgs = decoded[k * FILTER_BATCHES:(k + 1) * FILTER_BATCHES]
+        pr = probs[k * FILTER_BATCHES:(k + 1) * FILTER_BATCHES]
+        kept = [im for b_imgs, b_pr in zip(imgs, pr) for im, ok in zip(
+            b_imgs, (b_pr.argmax(-1) == uid) & (b_pr.max(-1) > 0.0)
+            & gen_filter.pixel_sanity(b_imgs, *fcfg.pixel_range)) if ok]
+        if (st["generated"], st["batches"], st["accepted"]) != (
+                FILTER_BATCH * FILTER_BATCHES, FILTER_BATCHES, len(kept)) \
+                or st["acceptance_rate"] != st["accepted"] / st["generated"]:
+            fail(f"user {uid}: stats {st}, {len(kept)} images pass the gates")
+        user_dir = os.path.join(save_dir, f"user_{uid:02d}")
+        files = sorted(os.listdir(user_dir)) if os.path.isdir(user_dir) else []
+        if len(files) != st["accepted"]:
+            fail(f"user {uid}: {len(files)} PNGs for {st['accepted']} accepted")
+        for f, im in zip(files, kept):
+            if not np.array_equal(read_png(os.path.join(user_dir, f)), im):
+                fail(f"user {uid}: {f} does not decode to its image")
+        n += st["generated"]
+    if not sum(results[u]["accepted"] for u in users):
+        fail(f"users {users}: nothing accepted, so no PNG was written")
+    res = {"wall_s": wall, "samples_per_s": n / wall, "seconds": seconds, "stats": {
+        str(u): st for u, st in results.items()}, "launches": got["nat_attention_fwd"]}
+    log(f"[filter] generate_and_filter.run: users {list(users)}, {FILTER_BATCHES} batches "
+        f"of {FILTER_BATCH}, euler-{FILTER_STEPS} split-CFG (cfg 10, interval 0.11), f16d32 decode, "
+        f"baseline classifier, confidence 0: accepted "
+        f"{[results[u]['accepted'] for u in users]} of {FILTER_BATCH * FILTER_BATCHES} "
+        f"each, PNGs match; {n / wall:.3f} samples/s ({wall:.1f} s: sampling "
+        f"{seconds.get('sampling', 0):.2f} s, decode {seconds.get('decode', 0):.2f} s, classifier "
+        f"{seconds.get('classifier', 0):.2f} s), {got['nat_attention_fwd']} nat_attention_fwd "
+        f"launches [{device_info['smi']}]")
+    return res
+
+
+@torch.no_grad()
+def _probe_users(cfg: Config, classifier_path: str, seed: int) -> tuple[int, int]:
+    """The two users phase 27 filters for: the classes the baseline
+    classifier predicts most often on one batch sampled and decoded as
+    ``run`` does (random weights predict a few classes for any label, so
+    users chosen blind would accept nothing and write no PNG)."""
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    load_dit_params(model, cfg.ckpt_path)
+    generate = build_sample_fn(cfg, model.eval(), sample_mod.load_latent_stats(cfg), device="cuda")
+    vae = VA_VAE(img_size=cfg.data.image_size, device="cuda")
+    trainer = ClassifierTrainer(num_classes=cfg.data.num_classes, device="cuda")
+    state = restore_classifier(classifier_path, trainer, trainer.init_state(0))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 270)
+    imgs = vae.decode_to_images(generate(torch.zeros(FILTER_BATCH, dtype=torch.long), generator=gen))
+    pred = trainer.predict_fn(state)(imgs.astype(np.float32) / 127.5 - 1.0).argmax(-1)
+    votes = np.bincount(pred, minlength=cfg.data.num_classes)[:cfg.data.num_users]
+    first, second = (int(u) for u in np.argsort(-votes, kind="stable")[:2])
+    log(f"[filter] probe batch: the classifier's votes over the users {votes.tolist()}; users "
+        f"{first} and {second}")
+    return first, second
+
+
+def _recorded(store: list, fn):
+    """Smoke-only: ``fn`` with a copy of each call's output appended to ``store``."""
+    def call(*args):
+        out = fn(*args)
+        store.append(np.array(out))
+        return out
+    return call
+
+
+def run_microdoppler_apps(seed: int, device_info: dict) -> dict:
+    """Phases 25-27."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    out = {}
+    try:
+        for key, phase in (("lora", lambda: phase_lora(seed, device_info, work)),
+                           ("classifier", lambda: phase_classifier(seed, device_info, work)),
+                           ("generate_filter", lambda: phase_generate_filter(
+                               seed, device_info, work, out["lora"], out["classifier"]))):
+            t1 = time.perf_counter()
+            out[key] = phase()
+            out[key]["phase_s"] = time.perf_counter() - t1
+            log(f"[apps] {key}: {out[key]['phase_s']:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[apps] phases 25-27: {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
@@ -2096,6 +2619,7 @@ def main(argv=None) -> int:
     samplers = run_samplers(SEED, device)
     tokenizer = run_tokenizer(SEED, device)
     vae_training = run_vae_training(SEED, device)
+    apps = run_microdoppler_apps(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -2116,9 +2640,10 @@ def main(argv=None) -> int:
             json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
-                       "vae_training": vae_training, "seconds": time.perf_counter() - t0},
+                       "vae_training": vae_training, "apps": apps,
+                       "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-24: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-27: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

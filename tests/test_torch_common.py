@@ -185,12 +185,14 @@ def _port_sources():
 
 
 def test_port_imports_nothing_of_jax():
-    """No source of the port names jax, flax or the JAX package, and the
-    whole package imports with those made unimportable, and with PIL,
-    sklearn and matplotlib too (the card's machine lacks them: the port
-    imports them only inside the functions that need them)."""
-    bad = ("import jax", "from jax", "import flax", "from flax", "vavae_tpu.", "import vavae_tpu\n")
-    for path in _port_sources():
+    """No source of the port, and not ``chip_smoke.py``, names jax, flax,
+    msgpack or the JAX package, and the whole package imports with those
+    made unimportable, and with PIL, sklearn and matplotlib too (the card's
+    machine lacks them: the port imports them only inside the functions
+    that need them)."""
+    bad = ("import jax", "from jax", "import flax", "from flax", "import msgpack",
+           "from msgpack", "vavae_tpu.", "import vavae_tpu\n")
+    for path in _port_sources() + [REPO / "chip_smoke.py"]:
         text = path.read_text()
         for word in bad:
             assert word not in text, f"{path.relative_to(REPO)} contains {word!r}"
@@ -198,16 +200,18 @@ def test_port_imports_nothing_of_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in _port_sources()
     ]
-    # the VA-VAE training modules are among those imported
+    # the VA-VAE training and micro-Doppler app modules are among those imported
     assert {f"vavae_tpu_torch.{m}" for m in (
         "models.discriminator", "models.vit", "train.vae_loss", "train.vae_trainer",
-        "utils.image_grid", "pipelines.train_vavae")} <= set(mods)
+        "utils.image_grid", "pipelines.train_vavae", "utils.msgpack_io", "train.lora",
+        "train.lora_trainer", "models.resnet", "apps.lora_finetune", "apps.regularization",
+        "apps.train_classifier", "apps.classifier_eval", "apps.generate_and_filter")} <= set(mods)
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vavae_tpu', 'PIL',\n"
-        "                                  'sklearn', 'matplotlib'):\n"
+        "                                  'sklearn', 'matplotlib', 'msgpack'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib\n"

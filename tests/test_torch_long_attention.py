@@ -6,9 +6,9 @@ fed as ``_forward`` feeds it for N > ``SMALL_SEQ_MAX``: q and k rotated by
 ``apply_rope`` with the fp32 tables uncast, each input folded to (B·H, N,
 128) with ``_pad_to``, grid ``(B·H, N // 256)``, the BlockSpecs of
 ``_forward`` without a TPU memory space. The CUDA kernel ``flash_fwd.cu`` is
-held against the plain version by tests/test_torch_kernel_emulation.py (its
-source on the CPU), tests/test_torch_cuda.py and chip_smoke.py (on the
-card).
+held against the plain version by tests/test_torch_emulation_first.py and
+tests/test_torch_emulation_long_wgmma.py (its source on the CPU),
+tests/test_torch_cuda.py and chip_smoke.py (on the card).
 """
 import functools
 

@@ -1,4 +1,6 @@
-"""The CUDA attention kernels' own sources, run on the CPU.
+"""The CUDA attention kernels' own sources, run on the CPU: the shared
+emulation and helpers of ``tests/test_torch_emulation_{first,small_wgmma,
+long_wgmma,bwd}.py``, one file for each body.
 
 There is no nvcc on a CPU-only machine, so ``nat_attention_fwd.cu``,
 ``nat_attention_bwd.cu``, ``attn_small_fwd.cu``, ``attn_small_bwd.cu`` and
@@ -28,6 +30,7 @@ card can say (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import ctypes
 import re
+from concurrent.futures import ThreadPoolExecutor
 import shutil
 import subprocess
 from pathlib import Path
@@ -470,22 +473,6 @@ def bwd_function(lib: ctypes.CDLL):
     return _with_scratch_size(lib, "nat_attention_bwd", fn)
 
 
-@pytest.fixture(scope="module")
-def kernel(tmp_path_factory):
-    fn = build_host_library(tmp_path_factory.mktemp("nat_emu"), expand_includes(SOURCE),
-                            FWD_LAUNCHES).nat_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@pytest.fixture(scope="module")
-def bwd_kernel(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory.mktemp("nat_bwd_emu"), expand_includes(BWD_SOURCE),
-                             BWD_LAUNCHES)
-    return bwd_function(lib)
-
-
 def _run(kernel, qkv: torch.Tensor, rope):
     """The forward entry on the model's raw split-half tables (the kernel
     folds the sign of sin)."""
@@ -508,40 +495,6 @@ def _tables(N, D):
     return torch.from_numpy(cos[:N]).contiguous(), torch.from_numpy(sin[:N]).contiguous()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D,rope", [
-    (2, 64, 2, 72, True),    # the XL head dim, one full tile
-    (1, 100, 1, 64, False),  # a ragged second key tile
-    (1, 130, 2, 8, True),    # three query tiles, a tiny head dim
-    (1, 1, 1, 72, True),     # one token
-    (1, 70, 1, 256, True),   # the widest head dim
-    (1, 33, 1, 250, True),   # D % 8 != 0: scalar loads, odd D/2
-])
-def test_kernel_source_matches_plain_version(kernel, B, N, H, D, rope, dtype):
-    # fp32: summation order only. bf16: at most two bf16 steps of the output
-    # where the online softmax rounds P against a running instead of the
-    # final row max (2e-2 max-abs is the TPU kernel's tolerance)
-    qkv = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(N)).to(dtype)
-    tables = _tables(N, D) if rope else None
-    got = _run(kernel, qkv, tables)
-    want = fused_qkv_attention_reference(qkv, tables)
-    assert not torch.isnan(got.float()).any()
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    assert (got.float() - want.float()).abs().max().item() <= tol
-
-
-def test_kernel_source_misaligned_input(kernel):
-    """A bf16 view that is not 16-byte aligned takes the scalar-load path."""
-    B, N, H, D = 1, 70, 2, 72
-    buf = torch.randn(B * N * 3 * H * D + 1, generator=torch.Generator().manual_seed(0))
-    qkv = buf.bfloat16()[1:].view(B, N, 3, H, D)
-    assert qkv.data_ptr() % 16 != 0
-    tables = _tables(N, D)
-    got = _run(kernel, qkv, tables)
-    want = fused_qkv_attention_reference(qkv, tables)
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
-
-
 # Calls that the wgmma body (attention_fwd_wgmma.cuh) takes: bf16, D <= 128,
 # every row 16-byte aligned, N <= 1024. The cases above with D > 128, D % 8
 # != 0, fp32 or a misaligned view stay on the first bodies (attention_fwd.cuh).
@@ -557,16 +510,6 @@ WGMMA_CASES = [
 ]
 
 
-@pytest.mark.parametrize("B,N,H,D,rope", WGMMA_CASES)
-def test_wgmma_fwd_source_matches_plain_version(kernel, B, N, H, D, rope):
-    # bf16 2e-2 max-abs, the TPU kernel's tolerance, as above
-    qkv = torch.randn((B, N, 3, H, D), generator=torch.Generator().manual_seed(N)).bfloat16()
-    tables = _tables(N, D) if rope else None
-    got = _run(kernel, qkv, tables)
-    assert not torch.isnan(got.float()).any()
-    assert (got.float() - fused_qkv_attention_reference(qkv, tables).float()).abs().max() <= 2e-2
-
-
 # Four faults planted in copies of the wgmma body, which the bf16 check must
 # catch: the running sum and accumulator not rescaled when the row max grows,
 # the keys past N left unmasked, the k tiles not rotated, and the sign of sin
@@ -579,32 +522,6 @@ FWD_MUTATIONS = {
     "k_not_rotated": ("      rope_bf16x2(yl.x, yh.x, c0, c1, s0, s1);\n      rope_bf16x2(yl.y, yh.y, c0 + 2, c1 + 2, s0 + 2, s1 + 2);\n", ""),
     "sign_not_folded": ("lo = as_u32(__hsub2(", "lo = as_u32(__hadd2("),
 }
-
-
-def _mutated_fwd(tmp_path, source: Path, name: str) -> ctypes.CDLL:
-    old, new = FWD_MUTATIONS[name]
-    text = expand_includes(source)
-    assert text.count(old) == 1, name
-    return build_host_library(tmp_path, text.replace(old, new), FWD_LAUNCHES)
-
-
-@pytest.mark.parametrize("name", list(FWD_MUTATIONS))
-def test_wgmma_fwd_emulation_catches_mutations(tmp_path, name):
-    fn = _mutated_fwd(tmp_path, SOURCE, name).nat_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    qkv = torch.randn((1, 200, 3, 2, 72), generator=torch.Generator().manual_seed(3)).bfloat16()
-    tables = _tables(200, 72)
-    err = (_run(fn, qkv, tables).float() - fused_qkv_attention_reference(qkv, tables).float())
-    assert err.abs().max().item() > 2e-2
-    # fp32, and a bf16 view that is not 16-byte aligned: the first bodies
-    B, N, H, D = 1, 70, 2, 72
-    buf = torch.randn(B * N * 3 * H * D + 1, generator=torch.Generator().manual_seed(0))
-    tables = _tables(N, D)
-    for qkv, tol in ((buf[1:].view(B, N, 3, H, D), 1e-5),
-                     (buf.bfloat16()[1:].view(B, N, 3, H, D), 2e-2)):
-        want = fused_qkv_attention_reference(qkv, tables)
-        assert (_run(fn, qkv, tables).float() - want.float()).abs().max().item() <= tol
 
 
 def run_bwd(kernel, qkv: torch.Tensor, g: torch.Tensor, rope):
@@ -635,43 +552,6 @@ def bwd_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D,rope", [
-    (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
-    (1, 100, 2, 8, True),    # N not a multiple of 64: ragged query and key tiles
-    (2, 70, 1, 72, False),   # no RoPE, two batches
-    (1, 256, 1, 72, True),   # four streamed tiles through the two-stage ring, two key blocks
-    (1, 50, 2, 18, True),    # D % 4 != 0: one column per item in the prep and dq passes
-    (1, 100, 1, 128, True),  # the widest head dim (DP = 128)
-    (1, 70, 1, 96, False),   # D = 96 padded to 128
-    (2, 64, 2, 64, True),    # the micro-Doppler DiT-S/2's likelihood (N = 64, D = 64)
-])
-def test_bwd_kernel_source_matches_plain_version(bwd_kernel, B, N, H, D, rope, dtype):
-    # fp32: summation order only (and the kernel's P = exp(s - m)·(1/l));
-    # bf16: 3e-2 of max|ref|, the TPU backward kernel's own tolerance
-    qkv, g, tables = bwd_case(B, N, H, D, rope, dtype)
-    got = run_bwd(bwd_kernel, qkv, g, tables)
-    want = fused_qkv_attention_bwd_reference(qkv, g, tables)
-    assert not torch.isnan(got.float()).any()
-    if dtype == torch.float32:
-        assert (got - want).abs().max().item() <= 1e-5
-    else:
-        assert bwd_error(got, want) <= 3e-2
-
-
-def test_bwd_kernel_source_misaligned_input(bwd_kernel):
-    """bf16 views that are not 16-byte aligned take the scalar-load path."""
-    B, N, H, D = 1, 70, 1, 72
-    gen = torch.Generator().manual_seed(1)
-    buf = torch.randn(B * N * 3 * H * D + 1, generator=gen).bfloat16()
-    qkv = buf[1:].view(B, N, 3, H, D)
-    g = torch.randn(B * N * H * D + 1, generator=gen).bfloat16()[1:].view(B, N, H, D)
-    assert qkv.data_ptr() % 16 != 0
-    tables = _tables(N, D)
-    got = run_bwd(bwd_kernel, qkv, g, tables)
-    assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) <= 3e-2
-
-
 # Two faults that the test above must catch, each applied to a copy of the
 # source's bf16 body: delta (rowsum(dP∘P)) left out of dS in the main pass,
 # and dq/dk written without the transposed RoPE.
@@ -682,42 +562,11 @@ MUTATIONS = {
 }
 
 
-@pytest.mark.parametrize("name", list(MUTATIONS))
-def test_bwd_emulation_catches_mutations(tmp_path, name):
-    old, new = MUTATIONS[name]
-    source = expand_includes(BWD_SOURCE)
-    assert source.count(old) >= 1, name
-    fn = bwd_function(build_host_library(tmp_path, source.replace(old, new), BWD_LAUNCHES))
-    qkv, g, tables = bwd_case(1, 64, 1, 72, True, torch.bfloat16)
-    got = run_bwd(fn, qkv, g, tables)
-    assert bwd_error(got, fused_qkv_attention_bwd_reference(qkv, g, tables)) > 3e-2
-
-
-# -- separate q, k, v: attn_small_fwd.cu and attn_small_bwd.cu ---------------------
-
-
-@pytest.fixture(scope="module")
-def small_kernel(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory.mktemp("small_emu"), expand_includes(SMALL_SOURCE),
-                             FWD_LAUNCHES)
-    fn = lib.attn_small_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def small_bwd_function(lib: ctypes.CDLL):
     fn = lib.attn_small_bwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return _with_scratch_size(lib, "attn_small_bwd", fn)
-
-
-@pytest.fixture(scope="module")
-def small_bwd_kernel(tmp_path_factory):
-    src = expand_includes(SMALL_BWD_SOURCE)
-    return small_bwd_function(build_host_library(tmp_path_factory.mktemp("small_bwd_emu"), src,
-                                                 BWD_LAUNCHES))
 
 
 def _table_ptrs(rope):
@@ -772,98 +621,8 @@ SMALL_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D,rope", SMALL_CASES)
-def test_small_kernel_source_matches_plain_version(small_kernel, B, N, H, D, rope, dtype):
-    # as test_kernel_source_matches_plain_version: fp32 1e-5, bf16 2e-2 max-abs
-    q, k, v, _, tables = small_case(B, N, H, D, rope, dtype)
-    assert not v.is_contiguous()
-    got = run_small(small_kernel, q, k, v, tables)
-    want = flash_attention_reference(q, k, v, tables)
-    assert not torch.isnan(got.float()).any()
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    assert (got.float() - want.float()).abs().max().item() <= tol
-
-
-def test_small_kernel_source_misaligned_input(small_kernel):
-    """A strided bf16 v whose rows are not 16-byte aligned takes the
-    scalar-load path."""
-    q, k, v, _, tables = small_case(1, 70, 2, 72, True, torch.bfloat16, offset=1)
-    assert v.data_ptr() % 16 != 0
-    got = run_small(small_kernel, q, k, v, tables)
-    want = flash_attention_reference(q, k, v, tables)
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
-
-
-@pytest.mark.parametrize("B,N,H,D,rope", WGMMA_CASES)
-def test_small_wgmma_fwd_source_matches_plain_version(small_kernel, B, N, H, D, rope):
-    """The wgmma body through the separate-q/k/v entry, v a strided view."""
-    q, k, v, _, tables = small_case(B, N, H, D, rope, torch.bfloat16, seed=2)
-    got = run_small(small_kernel, q, k, v, tables)
-    assert not torch.isnan(got.float()).any()
-    assert (got.float() - flash_attention_reference(q, k, v, tables).float()).abs().max() <= 2e-2
-
-
-@pytest.mark.parametrize("name", list(FWD_MUTATIONS))
-def test_small_wgmma_fwd_emulation_catches_mutations(tmp_path, name):
-    """The same four faults through attn_small_fwd.cu; its misaligned view
-    and fp32 inputs stay on the first bodies and pass."""
-    fn = _mutated_fwd(tmp_path, SMALL_SOURCE, name).attn_small_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    q, k, v, _, tables = small_case(1, 200, 2, 72, True, torch.bfloat16, seed=3)
-    err = run_small(fn, q, k, v, tables).float() - flash_attention_reference(q, k, v, tables).float()
-    assert err.abs().max().item() > 2e-2
-    for dtype, offset, tol in ((torch.float32, 0, 1e-5), (torch.bfloat16, 1, 2e-2)):
-        q, k, v, _, tables = small_case(1, 70, 2, 72, True, dtype, offset=offset)
-        want = flash_attention_reference(q, k, v, tables)
-        assert (run_small(fn, q, k, v, tables).float() - want.float()).abs().max().item() <= tol
-
-
 def _small_bwd_error(got, want) -> float:
     return max(bwd_error(a, b) for a, b in zip(got, want))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D,rope", [
-    (1, 64, 1, 72, True),    # the XL head dim, one full tile in both passes
-    (1, 100, 2, 8, True),    # ragged query and key tiles
-    (2, 70, 1, 72, False),   # no RoPE: no tables are passed
-    (1, 256, 1, 72, True),   # four streamed tiles through the two-stage ring, two key blocks
-    (1, 40, 2, 12, True),    # D % 8 != 0: column pairs in the prep and dq passes, scalar tiles
-    (1, 100, 1, 128, True),  # the widest head dim (DP = 128)
-    (1, 70, 1, 96, False),   # D = 96 padded to 128
-])
-def test_small_bwd_kernel_source_matches_plain_version(small_bwd_kernel, B, N, H, D, rope, dtype):
-    # fp32 1e-5 max-abs; bf16 3e-2 of max|ref| for each of dq, dk, dv
-    q, k, v, g, tables = small_case(B, N, H, D, rope, dtype, seed=5)
-    got = run_small_bwd(small_bwd_kernel, q, k, v, g, tables)
-    want = flash_attention_bwd_reference(q, k, v, g, tables)
-    assert not any(torch.isnan(t.float()).any() for t in got)
-    if dtype == torch.float32:
-        assert max((a - b).abs().max().item() for a, b in zip(got, want)) <= 1e-5
-    else:
-        assert _small_bwd_error(got, want) <= 3e-2
-
-
-def test_small_bwd_kernel_source_misaligned_input(small_bwd_kernel):
-    q, k, v, g, tables = small_case(1, 70, 1, 72, True, torch.bfloat16, seed=6, offset=3)
-    assert v.data_ptr() % 16 != 0
-    got = run_small_bwd(small_bwd_kernel, q, k, v, g, tables)
-    assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) <= 3e-2
-
-
-@pytest.mark.parametrize("name", list(MUTATIONS))
-def test_small_bwd_emulation_catches_mutations(tmp_path, name):
-    """The same two faults in attn_small_bwd.cu (through the body it shares
-    with nat_attention_bwd.cu) must fail the check above."""
-    old, new = MUTATIONS[name]
-    source = expand_includes(SMALL_BWD_SOURCE)
-    assert source.count(old) >= 1, name
-    fn = small_bwd_function(build_host_library(tmp_path, source.replace(old, new), BWD_LAUNCHES))
-    q, k, v, g, tables = small_case(1, 64, 1, 72, True, torch.bfloat16, seed=5)
-    got = run_small_bwd(fn, q, k, v, g, tables)
-    assert _small_bwd_error(got, flash_attention_bwd_reference(q, k, v, g, tables)) > 3e-2
 
 
 # -- the long route: flash_fwd.cu ---------------------------------------------------
@@ -879,13 +638,6 @@ def long_function(lib: ctypes.CDLL):
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@pytest.fixture(scope="module")
-def long_kernel(tmp_path_factory):
-    src = expand_includes(LONG_SOURCE)
-    return long_function(build_host_library(tmp_path_factory.mktemp("long_emu"), src,
-                                            LONG_LAUNCHES))
 
 
 def run_long(kernel, q, k, v):
@@ -939,45 +691,6 @@ def assert_long_close(got, want, v_dtype):
         assert long_rel_err(got, want) <= LONG_REL_TOL
 
 
-@pytest.mark.parametrize("B,N,H,D,qk_dtype,v_dtype", [
-    (1, 100, 2, 72, F32, BF16),   # the RoPE models' pair, N not a multiple of 64
-    (2, 130, 1, 16, F32, BF16),   # three query tiles, a ragged last key tile
-    (1, 100, 2, 72, BF16, BF16),  # use_rope: false, q and k strided views
-    (1, 70, 3, 72, F32, F32),     # fp32 models: the FMA kernel
-])
-def test_long_kernel_source_matches_plain_version(long_kernel, B, N, H, D, qk_dtype, v_dtype):
-    q, k, v = long_case(B, N, H, D, qk_dtype, v_dtype)
-    got = run_long(long_kernel, q, k, v)
-    want = flash_attention_long_reference(q, k, v)
-    assert got.dtype == want.dtype == qk_dtype
-    assert not torch.isnan(got.float()).any()
-    assert_long_close(got, want, v_dtype)
-
-
-def test_long_kernel_source_misaligned_input(long_kernel):
-    """A bf16 v whose rows are not 16-byte aligned sends the TF32 kernel to
-    scalar loads for all three inputs."""
-    q, k, v = long_case(1, 90, 2, 72, F32, BF16, seed=1, offset=1)
-    assert v.data_ptr() % 16 != 0
-    got = run_long(long_kernel, q, k, v)
-    assert_long_close(got, flash_attention_long_reference(q, k, v), v.dtype)
-
-
-def test_long_emulation_catches_mutation(tmp_path):
-    """A TF32 B fragment read from the wrong column (kt[0] for kt[4]) must
-    fail the check above: the emulation runs the TF32 mma.sync path's
-    fragments, which takes a v whose rows are not 16-byte aligned."""
-    old = "__float_as_uint(kt[4])"
-    source = expand_includes(LONG_SOURCE)
-    assert source.count(old) == 1
-    fn = long_function(build_host_library(tmp_path, source.replace(old, "__float_as_uint(kt[0])"),
-                                          LONG_LAUNCHES))
-    q, k, v = long_case(1, 100, 2, 72, F32, BF16, offset=1)
-    assert v.data_ptr() % 16 != 0
-    got = run_long(fn, q, k, v)
-    assert (got - flash_attention_long_reference(q, k, v)).abs().max().item() > 2e-2
-
-
 LONG_MUTATIONS = {
     # the zero-filled keys past N enter the softmax with logit 0
     "no_tail_mask": ("s[j][e] = valid ? s[j][e] * scale : -INFINITY;",
@@ -986,24 +699,6 @@ LONG_MUTATIONS = {
     "no_rescale": ("    const float alpha0 = expf(m0 - mn0);\n    const float alpha1 = expf(m1 - mn1);",
                    "    const float alpha0 = 1.f;\n    const float alpha1 = 1.f;"),
 }
-
-
-@pytest.mark.parametrize("qk_dtype", [F32, BF16])
-@pytest.mark.parametrize("name", list(LONG_MUTATIONS))
-def test_long_emulation_catches_planted_faults(tmp_path, name, qk_dtype):
-    """A dropped tail mask or a dropped rescale in the shared mma.sync body
-    must exceed LONG_REL_TOL, for the TF32 and the bf16 q̃·k̃ᵀ, at an N
-    whose last key tile holds one key (the chip check's N = 4,033 case).
-    The inputs' rows are not 16-byte aligned, which keeps the call on that
-    body."""
-    old, new = LONG_MUTATIONS[name]
-    source = expand_includes(LONG_SOURCE)
-    assert source.count(old) == 1, name
-    fn = long_function(build_host_library(tmp_path, source.replace(old, new), LONG_LAUNCHES))
-    q, k, v = long_case(1, 129, 2, 72, qk_dtype, BF16, offset=1)
-    assert v.data_ptr() % 16 != 0
-    got = run_long(fn, q, k, v)
-    assert long_rel_err(got, flash_attention_long_reference(q, k, v)) > LONG_REL_TOL
 
 
 # Calls that the wgmma body (flash_fwd_wgmma.cuh) takes: fp32 or bf16 q̃, k̃
@@ -1016,18 +711,6 @@ LONG_WGMMA_CASES = [
     (1, 1100, 1, 72, BF16, BF16),  # use_rope: false, q and k strided views, bf16 S
     (1, 200, 2, 64, BF16, BF16),
 ]
-
-
-@pytest.mark.parametrize("B,N,H,D,qk_dtype,v_dtype", LONG_WGMMA_CASES)
-def test_long_wgmma_source_matches_plain_version(long_kernel, B, N, H, D, qk_dtype, v_dtype):
-    # limits as in assert_long_close
-    q, k, v = long_case(B, N, H, D, qk_dtype, v_dtype, seed=4)
-    assert not v.is_contiguous() and v.data_ptr() % 16 == 0
-    got = run_long(long_kernel, q, k, v)
-    want = flash_attention_long_reference(q, k, v)
-    assert got.dtype == want.dtype == qk_dtype
-    assert not torch.isnan(got.float()).any()
-    assert_long_close(got, want, v_dtype)
 
 
 # Faults planted in copies of the wgmma body, which the check must catch:
@@ -1044,17 +727,37 @@ LONG_WGMMA_MUTATIONS = {
 }
 
 
-@pytest.mark.parametrize("name", list(LONG_WGMMA_MUTATIONS))
-def test_long_wgmma_emulation_catches_planted_faults(tmp_path, name):
-    """Each fault exceeds LONG_REL_TOL on the main path's pair at an N whose
-    last key tile holds one key; the all-fp32 pair and a misaligned v stay
-    on the first bodies and pass."""
-    old, new = LONG_WGMMA_MUTATIONS[name]
-    source = expand_includes(LONG_SOURCE)
-    assert source.count(old) == 1, name
-    fn = long_function(build_host_library(tmp_path, source.replace(old, new), LONG_LAUNCHES))
-    q, k, v = long_case(1, 129, 2, 72, F32, BF16, seed=5)
-    assert long_rel_err(run_long(fn, q, k, v), flash_attention_long_reference(q, k, v)) > LONG_REL_TOL
-    for v_dtype, offset in ((F32, 0), (BF16, 1)):
-        q, k, v = long_case(1, 70, 2, 72, F32, v_dtype, seed=6, offset=offset)
-        assert_long_close(run_long(fn, q, k, v), flash_attention_long_reference(q, k, v), v_dtype)
+def build_libraries(tmp_path_factory, specs: dict) -> dict:
+    """``{key: (source text, launches)}`` built concurrently, one g++ for
+    each, into ``{key: CDLL}`` (a module builds every library it needs once,
+    in its first test's setup)."""
+    dirs = {key: tmp_path_factory.mktemp(key) for key in specs}  # not thread-safe
+
+    def one(key):
+        text, launches = specs[key]
+        return key, build_host_library(dirs[key], text, launches)
+
+    with ThreadPoolExecutor(len(specs)) as pool:
+        return dict(pool.map(one, specs))
+
+
+def mutated(source: Path, old: str, new: str, once: bool = True) -> str:
+    """The expanded source with ``old`` replaced by ``new``; ``old`` must
+    occur (exactly once when ``once``)."""
+    text = expand_includes(source)
+    assert text.count(old) == 1 if once else text.count(old) >= 1, old
+    return text.replace(old, new)
+
+
+def nat_fwd_function(lib: ctypes.CDLL):
+    fn = lib.nat_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def small_fwd_function(lib: ctypes.CDLL):
+    fn = lib.attn_small_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

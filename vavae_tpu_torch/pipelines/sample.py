@@ -30,7 +30,7 @@ from vavae_tpu_torch.transport import Sampler, build_transport
 from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.png import encode_png, write_pngs
-from vavae_tpu_torch.utils.safetensors_io import load_tree
+from vavae_tpu_torch.utils.msgpack_io import load_state_tree
 from vavae_tpu_torch.utils.weights import dit_state_from_jax, dit_state_from_reference
 
 
@@ -45,17 +45,16 @@ def create_logger() -> logging.Logger:
 
 
 def load_dit_params(model: LightningDiT, ckpt_path: str, prefer_ema: bool = True) -> None:
-    """Load DiT weights into ``model``, EMA preferred: a JAX-package
-    ``.safetensors`` train state through the weight bridge, or a reference
+    """Load DiT weights into ``model``, EMA preferred: a JAX-package or port
+    train state (``.safetensors``, or the JAX package's legacy ``.msgpack``
+    with its RoPE-layout warning) through the weight bridge, or a reference
     torch ``.pt`` (``{"ema"|"model": state_dict}``) with the RoPE q/k rows
     moved to split-half order."""
     path = str(ckpt_path)
-    if path.endswith(".safetensors"):
-        tree = load_tree(path)
-        key = "ema_params" if prefer_ema and "ema_params" in tree else "params"
+    if path.endswith((".safetensors", ".msgpack")):
+        tree = load_state_tree(path)
+        key = "ema_params" if prefer_ema and tree.get("ema_params") is not None else "params"
         sd = dit_state_from_jax(tree[key])
-    elif path.endswith(".msgpack"):
-        raise ValueError(f"{path}: legacy msgpack checkpoints are not read by the port")
     else:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         key = "ema" if prefer_ema and isinstance(ckpt, dict) and "ema" in ckpt else "model"

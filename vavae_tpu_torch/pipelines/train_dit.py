@@ -33,21 +33,20 @@ from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.metrics_logger import MetricsLogger
 from vavae_tpu_torch.utils.png import encode_png
 from vavae_tpu_torch.utils.preemption import PreemptionGuard
-from vavae_tpu_torch.utils.safetensors_io import load_tree
+from vavae_tpu_torch.utils.msgpack_io import load_state_tree
 from vavae_tpu_torch.utils.weights import dit_state_from_jax, dit_state_from_reference
 
 
 @torch.no_grad()
 def load_weight_init(init_path: str, state: TrainState, model, logger) -> TrainState:
     """Pretrained weights only, for a finetune run: the ``params`` of a
-    ``.safetensors`` train state (the port's or the JAX package's), or a
-    reference ``.pt`` (EMA preferred). Leaves whose shape differs from the
-    model's (a label table of another class count) keep the fresh init.
+    train state (the port's or the JAX package's, ``.safetensors`` or legacy
+    ``.msgpack``), or a reference ``.pt`` (EMA preferred). Leaves whose
+    shape differs from the model's (a label table of another class count)
+    keep the fresh init.
     Step and optimizer restart; the EMA restarts from the loaded weights."""
-    if init_path.endswith(".safetensors"):
-        sd = dit_state_from_jax(load_tree(init_path)["params"])
-    elif init_path.endswith(".msgpack"):
-        raise ValueError(f"{init_path}: legacy msgpack checkpoints are not read by the port")
+    if init_path.endswith((".safetensors", ".msgpack")):
+        sd = dit_state_from_jax(load_state_tree(init_path)["params"])
     else:
         ckpt = torch.load(init_path, map_location="cpu", weights_only=False)
         key = "ema" if isinstance(ckpt, dict) and "ema" in ckpt else "model"

@@ -221,13 +221,11 @@ def stage_epochs_done(stage_dir: str) -> int:
 @torch.no_grad()
 def _load_pretrained(trainer: VAETrainer, state: VAETrainState, path: str,
                      logger: logging.Logger) -> None:
-    """Stage-1 init, weights only: a train-state ``.safetensors`` (the
-    port's or the JAX package's; shape-checked), or a reference torch
-    ``.ckpt``/``.pt``, whose ``linear_proj.weight`` becomes the projector."""
-    if path.endswith(".safetensors"):
+    """Stage-1 init, weights only: a train-state ``.safetensors`` or legacy
+    ``.msgpack`` (the port's or the JAX package's; shape-checked), or a
+    reference torch ``.ckpt``/``.pt``, whose ``linear_proj.weight`` becomes the projector."""
+    if path.endswith((".safetensors", ".msgpack")):
         ckpt_lib.restore_weights(path, state)
-    elif path.endswith(".msgpack"):
-        raise ValueError(f"{path}: legacy msgpack checkpoints are not read by the port")
     else:
         sd = reference_vae_state(path)
         trainer.vae.load_state_dict({k: v for k, v in sd.items()

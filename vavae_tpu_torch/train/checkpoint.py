@@ -16,7 +16,10 @@ JAX package's tree:
     the empty ``{gen,disc}_opt|1``; so the JAX package's
     ``restore_checkpoint`` reads a port file and the port reads a JAX one.
 ``config.json`` sits beside the files. Resume takes the highest step
-number, not the largest file. Files are written by a temporary file and a
+number, not the largest file, and reads the JAX package's legacy
+``.msgpack`` files too (flax's msgpack, ``utils/msgpack_io.py``), whose
+flattened tree has the same keys; a JAX-written DiT state's optax
+optimizer tree is mapped into the port's AdamW state. Files are written by a temporary file and a
 rename; restoring is strict, except ``restore_weights``, the lenient,
 shape-checked, weights-only load of a finetune's ``weight_init``.
 """
@@ -32,6 +35,7 @@ import torch
 
 from vavae_tpu_torch.train.dit_trainer import TrainState
 from vavae_tpu_torch.train.vae_trainer import VAETrainState
+from vavae_tpu_torch.utils.msgpack_io import load_state_tree
 from vavae_tpu_torch.utils.safetensors_io import (
     SEP,
     bf16_bits_to_float32,
@@ -155,12 +159,12 @@ def _load_vae_state(tensors: dict, state: VAETrainState, weights_only: bool = Fa
 @torch.no_grad()
 def restore_weights(path: str, state: VAETrainState) -> tuple[int, int]:
     """A finetune's ``weight_init`` from a VA-VAE train-state file (the
-    port's or the JAX package's): the generator's and the discriminator's
+    port's or the JAX package's, ``.safetensors`` or legacy ``.msgpack``): the generator's and the discriminator's
     weights and batch stats only, leaf by leaf where the shape matches the
     model's; step and both optimizers stay fresh. Leaves of another shape
     or missing from the file keep the fresh init, leaves the model lacks
     are dropped, each reported. Returns (loaded, skipped)."""
-    tensors, _ = map_safetensors(path)
+    tensors = read_state_file(path)
     want, _ = vae_state_tensors(state)
     weights = ("gen_params|", "disc_params|", "disc_batch_stats|")
     merged, loaded, skipped = dict(want), 0, 0
@@ -204,12 +208,20 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState | VAETrainState,
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """The checkpoint with the highest step number in ``ckpt_dir``, or None."""
+    """The checkpoint with the highest step number in ``ckpt_dir``
+    (``.safetensors``, or the JAX package's legacy ``.msgpack``), or None.
+    At a step held in both formats the ``.safetensors`` file wins, as in the
+    JAX package, whatever order the directory lists them in."""
     if not os.path.isdir(ckpt_dir):
         return None
-    steps = [int(m.group(1)) for m in
-             (re.fullmatch(r"(\d+)\.safetensors", n) for n in os.listdir(ckpt_dir)) if m]
-    return os.path.join(ckpt_dir, f"{max(steps):07d}.safetensors") if steps else None
+    best, best_key = None, (-1, -1)
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"(\d+)\.(msgpack|safetensors)", name)
+        if m:
+            key = (int(m.group(1)), int(m.group(2) == "safetensors"))
+            if key > best_key:
+                best, best_key = os.path.join(ckpt_dir, name), key
+    return best
 
 
 def checkpoint_count(ckpt_dir: str) -> int:
@@ -223,39 +235,96 @@ def checkpoint_count(ckpt_dir: str) -> int:
                                      for n in os.listdir(ckpt_dir)) if m})
 
 
-@torch.no_grad()
-def restore_checkpoint(path: str, state: TrainState | VAETrainState):
-    """Load the file at ``path`` into ``state`` in place, strictly: the
-    file must hold exactly the tensors ``save_checkpoint`` writes for this
-    state, with the same shapes."""
+def read_state_file(path: str) -> dict[str, np.ndarray]:
+    """A JAX-package or port state file, ``.safetensors`` or legacy
+    ``.msgpack``, as its flat ``|``-keyed leaves (numpy, bf16 widened to
+    float32; None leaves and empty subtrees left out): the two formats give
+    the same keys for the same state."""
+    if str(path).endswith(".msgpack"):
+        return {k: np.asarray(v) for k, v in flatten(load_state_tree(path)).items()
+                if v is not None}
     tensors, meta = map_safetensors(path)
     bf16 = set(json.loads(meta.get("tree", "{}")).get("dtypes", {}))
+    return {k: bf16_bits_to_float32(v) if k in bf16 else v for k, v in tensors.items()}
+
+
+def find_adam(tree) -> Optional[dict]:
+    """optax's ``ScaleByAdamState`` node (``count``, ``mu``, ``nu``) in a
+    JAX optimizer state, wherever the chain or ``MultiSteps`` put it."""
+    if not isinstance(tree, dict):
+        return None
+    if {"count", "mu", "nu"} <= set(tree):
+        return tree
+    for sub in tree.values():
+        found = find_adam(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def _copy_dit_tree(names: list[str], dst: list[torch.Tensor], tree: dict, what: str) -> None:
+    sd = dit_state_from_jax(tree)
+    if set(sd) != set(names) or any(sd[n].shape != t.shape for n, t in zip(names, dst)):
+        raise ValueError(f"{what} does not match the model: "
+                         f"{sorted(set(sd) ^ set(names))[:5]}")
+    for name, t in zip(names, dst):
+        t.copy_(sd[name])
+
+
+def _load_dit_from_jax(flat: dict, state: TrainState, path: str) -> None:
+    """A JAX-package DiT ``TrainState`` (optax's AdamW, optionally behind
+    ``clip_by_global_norm`` and ``MultiSteps``) into the port's state."""
+    tree = unflatten(flat)
+    for prefix, dst in (("params", state.params), ("ema_params", state.ema_params)):
+        _copy_dit_tree(state.names, dst, tree[prefix], f"{path} {prefix}")
+    opt = tree.get("opt_state", {})
+    adam = find_adam(opt)
+    if adam is None:
+        raise ValueError(f"{path} holds no Adam state to resume from")
+    _copy_dit_tree(state.names, state.opt.mu, adam["mu"], f"{path} Adam mu")
+    _copy_dit_tree(state.names, state.opt.nu, adam["nu"], f"{path} Adam nu")
+    state.opt.count = int(adam["count"])
+    if state.acc_grads is not None:
+        if "acc_grads" not in opt:
+            raise ValueError(f"{path} holds no MultiSteps accumulator")
+        _copy_dit_tree(state.names, state.acc_grads, opt["acc_grads"], f"{path} acc_grads")
+        state.mini_step = int(opt["mini_step"])
+    state.step = int(tree["step"])
+
+
+@torch.no_grad()
+def restore_checkpoint(path: str, state: TrainState | VAETrainState):
+    """Load the file at ``path`` (``.safetensors`` or the JAX package's
+    legacy ``.msgpack``) into ``state`` in place, strictly: a VA-VAE file
+    and a port DiT file must hold exactly the tensors ``save_checkpoint``
+    writes for this state, with the same shapes; a JAX-package DiT file
+    (optax's optimizer tree) must hold every parameter, EMA and Adam moment
+    of the model."""
+    flat = read_state_file(path)
     vae = isinstance(state, VAETrainState)
+    if not vae and not any(k.startswith(OPT + SEP) for k in flat):
+        _load_dit_from_jax(flat, state, path)
+        return state
     want = vae_state_tensors(state)[0] if vae else state_tensors(state)[0]
-    missing, extra = sorted(set(want) - set(tensors)), sorted(set(tensors) - set(want))
-    bad = [k for k in want if k in tensors and tensors[k].shape != want[k].shape]
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
+    bad = [k for k in want if k in flat and flat[k].shape != want[k].shape]
     if missing or extra or bad:
         raise ValueError(f"{path} does not match the train state: missing {missing[:5]}, "
                          f"unexpected {extra[:5]}, shape mismatch {bad[:5]}")
     if vae:
-        _load_vae_state({k: bf16_bits_to_float32(v) if k in bf16 else v
-                         for k, v in tensors.items()}, state)
+        _load_vae_state(flat, state)
         return state
 
-    def value(key: str) -> torch.Tensor:
-        arr = tensors[key]
-        return torch.from_numpy(bf16_bits_to_float32(arr) if key in bf16 else np.array(arr))
-
     for prefix, dst in (("params", state.params), ("ema_params", state.ema_params)):
-        tree = unflatten({k[len(prefix) + 1:]: tensors[k] for k in want
+        tree = unflatten({k[len(prefix) + 1:]: flat[k] for k in want
                           if k.startswith(prefix + SEP)})
         sd = dit_state_from_jax(tree)
         for name, t in zip(state.names, dst):
             t.copy_(sd[name])
     for group, dst in (("mu", state.opt.mu), ("nu", state.opt.nu), ("acc", state.acc_grads)):
         for name, t in zip(state.names, dst or []):
-            t.copy_(value(f"{OPT}|{group}|{name}"))
-    state.opt.count = int(tensors[f"{OPT}|count"])
-    state.mini_step = int(tensors[f"{OPT}|mini_step"])
-    state.step = int(tensors["step"])
+            t.copy_(torch.from_numpy(np.array(flat[f"{OPT}|{group}|{name}"])))
+    state.opt.count = int(flat[f"{OPT}|count"])
+    state.mini_step = int(flat[f"{OPT}|mini_step"])
+    state.step = int(flat["step"])
     return state

@@ -98,3 +98,20 @@ def load_config(*paths: str, overrides: Iterable[str] = ()) -> Config:
     if overrides:
         cfg = cfg.override(overrides)
     return cfg
+
+
+def num_real_users(cfg: Config) -> int:
+    """Number of real user classes a per-user generation loop iterates.
+
+    ``data.num_classes`` counts only real users by default (the CFG null is
+    the extra label-table row, id ``num_classes``). The micro-Doppler
+    configs bake the null into ``num_classes`` (32 = 31 users + null):
+    ``data.num_users`` names the real count explicitly, and a set
+    ``sample.null_class`` (the reference's inference quirk) means
+    ``num_classes - 1``."""
+    explicit = cfg.get("data", {}).get("num_users")
+    if explicit is not None:
+        return int(explicit)
+    if cfg.get("sample", {}).get("null_class") is not None:
+        return int(cfg.data.num_classes) - 1
+    return int(cfg.data.num_classes)

@@ -51,17 +51,18 @@ def device_kernels(fn, reps: int = 20) -> dict:
     kernel name: the kernel's total over one trace of ``reps`` calls,
     divided by ``reps``. Every kernel of a call runs in every call, so a
     trace in which a kernel's launch count is not a whole multiple of
-    ``reps`` lost records: it is reported and taken again, and after
-    ``TRACE_ATTEMPTS`` such traces the run fails."""
+    ``reps``, or that holds no kernel at all, lost records: it is reported
+    and taken again, and after ``TRACE_ATTEMPTS`` such traces the run
+    fails."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         events = _trace(fn, reps)
         partial = {ev.key: ev.count for ev in events if ev.count % reps}
-        if not partial:
+        if events and not partial:
             return {ev.key: ev.self_device_time_total / 1e3 / reps for ev in events}
-        print(f"[timing] trace {attempt} of {TRACE_ATTEMPTS} lost launches: counts {partial} "
-              f"over {reps} calls", flush=True)
+        print(f"[timing] trace {attempt} of {TRACE_ATTEMPTS} lost launches: counts "
+              f"{partial or 'none recorded'} over {reps} calls", flush=True)
     raise RuntimeError(f"device_kernels: {TRACE_ATTEMPTS} traces lost launches")
 
 

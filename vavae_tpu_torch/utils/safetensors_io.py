@@ -114,11 +114,11 @@ def flatten(tree: Mapping, prefix: str = "", sep: str = SEP) -> dict[str, Any]:
     return flat
 
 
-def tree_metadata(bf16_keys=(), empty_keys=()) -> dict[str, str]:
-    """The ``tree`` metadata of a JAX-package state file: no None leaves,
+def tree_metadata(bf16_keys=(), empty_keys=(), none_keys=()) -> dict[str, str]:
+    """The ``tree`` metadata of a JAX-package state file: the None leaves,
     the empty subtrees (optax's ``EmptyState``) and the bf16 leaves (stored
     as uint16 bits) named, split-half RoPE layout (format 2)."""
-    meta = {"none": [], "empty": list(empty_keys),
+    meta = {"none": list(none_keys), "empty": list(empty_keys),
             "dtypes": {k: "bfloat16" for k in bf16_keys}, "format_version": 2}
     return {"tree": json.dumps(meta)}
 

@@ -24,6 +24,7 @@ the JAX package's ``vit_params_from_timm``).
 """
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -418,3 +419,89 @@ def dit_state_from_reference(sd: Mapping[str, torch.Tensor], num_heads: int,
             v = v.index_select(-1, torch.as_tensor(rope_permutation(v.shape[-1])))
         out[k] = v
     return out
+
+
+# -- ResNet-18 classifiers ----------------------------------------------------------
+
+
+def resnet_state_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``ResNet18`` or ``DomainAdaptiveClassifier`` variables
+    (``params``, and ``batch_stats`` when given) → the port's state dict:
+    the module paths are the same; conv kernels HWIO → OIHW, Dense kernels
+    (in, out) → (out, in), batch-norm ``scale`` → ``weight``, ``mean``/
+    ``var`` → ``running_mean``/``running_var``."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, path: list[str], stats: bool) -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [k], stats)
+                continue
+            mod = ".".join(path)
+            v = np.asarray(v)
+            if stats:
+                sd[f"{mod}.running_{k}"] = _t(v)
+            elif k == "kernel":
+                sd[f"{mod}.weight"] = _t(np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T)
+            else:  # scale / bias
+                sd[f"{mod}.{'weight' if k == 'scale' else k}"] = _t(v)
+
+    walk(variables["params"], [], False)
+    walk(variables.get("batch_stats", {}), [], True)
+    return sd
+
+
+def resnet_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``resnet_state_from_jax``: ``{"params",
+    "batch_stats"}`` as numpy fp32 (``batch_stats`` empty when ``sd`` holds
+    no running stats). A 1-d ``weight`` is a batch norm's scale."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        *mod, leaf = key.split(".")
+        v = _np(value)
+        if leaf in ("running_mean", "running_var"):
+            _set(out["batch_stats"], mod + [leaf[len("running_"):]], v)
+        elif leaf == "weight" and v.ndim == 4:
+            _set(out["params"], mod + ["kernel"], np.transpose(v, (2, 3, 1, 0)))
+        elif leaf == "weight" and v.ndim == 2:
+            _set(out["params"], mod + ["kernel"], v.T)
+        elif leaf == "weight":
+            _set(out["params"], mod + ["scale"], v)
+        elif leaf == "bias":
+            _set(out["params"], mod + ["bias"], v)
+    return out
+
+
+def resnet18_state_from_torch(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A torchvision ``resnet18`` state dict → the port's ``ResNet18`` names
+    (``layer{s}.{b}`` → ``layer{s}_{b}``, ``downsample.{0,1}`` →
+    ``down_conv``/``down_bn``; ``fc`` kept when present), the layouts
+    unchanged; ``num_batches_tracked`` dropped (the JAX package's
+    ``resnet18_params_from_torch``)."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        k = re.sub(r"^layer(\d)\.(\d)\.", r"layer\1_\2.", k)
+        k = k.replace(".downsample.0.", ".down_conv.").replace(".downsample.1.", ".down_bn.")
+        out[k] = v.detach().float().clone()
+    return out
+
+
+def domain_adaptive_state_from_torch(sd: Mapping[str, torch.Tensor]
+                                     ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
+    """A reference ``DomainAdaptiveClassifier`` state dict (``backbone.*``
+    torchvision resnet18, ``feature_projector.{0,1}``, ``classifier.{0,1,4}``)
+    → the port's state dict, and its ``feature_bank`` (the EMA prototypes,
+    the classifier state's ``extras``) or None (the JAX package's
+    ``domain_adaptive_params_from_torch``)."""
+    rename = {"feature_projector.0.": "proj_fc.", "feature_projector.1.": "proj_bn.",
+              "classifier.0.": "cls_fc1.", "classifier.1.": "cls_bn.", "classifier.4.": "cls_fc2."}
+    out = {f"backbone.{k}": v for k, v in resnet18_state_from_torch(
+        {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}).items()}
+    for k, v in sd.items():
+        for old, new in rename.items():
+            if k.startswith(old) and not k.endswith("num_batches_tracked"):
+                out[new + k[len(old):]] = v.detach().float().clone()
+    bank = sd.get("feature_bank")
+    return out, None if bank is None else bank.detach().float().clone()
