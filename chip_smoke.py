@@ -148,7 +148,35 @@ Phases, each fatal on failure:
      config's dopri5 (an exact launch count): 12 × 249 #1 launches a
      batch, as many PNGs as accepted (at least one), each decoding to its
      image, the stats consistent; samples/s and the seconds of sampling,
-     decode and classifier.
+     decode and classifier;
+  28. ``quantize_dit.main`` on the production XL/1 (seeded random weights,
+     a DiT train-state file) at batch 8 with ``--sample_check 4`` (euler-250
+     split-CFG from the same noise with the fp and the dequantized weights)
+     and ``--out``: sizes, compression, fp and dequantized forward ms, the
+     output and sample deviations, #1's exact launches; ``int8_matmul`` at
+     an XL/1 ``qkv`` shape, ``torch._int_mm`` on the card against the CPU's
+     int32 path (accumulators equal); the int8 file read back equal;
+  29. ``iterative_finetune.main`` on LightningDiT-B/2
+     (``vavae_tpu/configs/dit_b_microdoppler.yaml`` written into the script,
+     fp32, N = 64) with seeded random DiT, VA-VAE and classifier files (the
+     classifier's head a nearest-centroid rule between users 0 and 1, the
+     two users the run iterates, fitted on one probe batch of each) and a
+     latent shard tree written here: 2 rounds × 4 steps at batch 8, 4 samples a user, confidence 0;
+     each round's seconds of generate, decode, classify, encode and train,
+     the accepted counts, final losses, #1 and #2 launches a sampling call
+     and a train step (exact), the saved state restored equal; then one B/2
+     train step's gradients with the kernels against plain attention
+     (1e-3, fp32);
+  30. ``select_users``, ``analyze_metrics`` and ``generation_evaluator``
+     (feature, then LPIPS diversity with seeded random VGG16 weights) at
+     their defaults (224², so the 256² PNGs go through the port's BICUBIC)
+     on phase 26's users (a split file) and baseline classifier and phase
+     27's filtered tree; ``domain_adaptation.main`` on a seeded random
+     classifier and 31 users × 10 target images (support 5 a class,
+     reference grid limited to 8, NCC, confidence-weighted ensemble); the
+     target BN statistics and adapted probabilities on the card against
+     the CPU (1e-5 relative and 1e-5 max-abs, TF32 off); ``select_support``
+     with each strategy; each entry point's seconds.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -183,7 +211,7 @@ import torch
 from vavae_tpu_torch.models import dit, layers
 from vavae_tpu_torch.models.dit import create_dit
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
-from vavae_tpu_torch.ops import build
+from vavae_tpu_torch.ops import build, quant
 from vavae_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -206,14 +234,19 @@ from vavae_tpu_torch.eval.fid import (
     create_npz_from_sample_folder,
     fid_folder_vs_npz,
 )
+from vavae_tpu_torch.apps import analyze_metrics, domain_adaptation, generation_evaluator
 from vavae_tpu_torch.apps import generate_and_filter as gen_filter
-from vavae_tpu_torch.apps import lora_finetune
+from vavae_tpu_torch.apps import iterative_finetune, lora_finetune, quantize_dit, select_users
 from vavae_tpu_torch.apps.train_classifier import (
     ClassifierTrainer,
     restore_classifier,
     save_classifier,
 )
-from vavae_tpu_torch.data.image_folder import ImageFolderDataset, MixedDomainDataset
+from vavae_tpu_torch.data.image_folder import (
+    ImageFolderDataset,
+    MixedDomainDataset,
+    SplitFileDataset,
+)
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.eval.metrics import ssim
 from vavae_tpu_torch.models import lpips as lpips_mod
@@ -229,6 +262,7 @@ from vavae_tpu_torch.pipelines.train_dit import build_trainer, do_train
 from vavae_tpu_torch.pipelines.train_vavae import build_vae_trainer, make_aux_feature_fn
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.train import checkpoint as ckpt_lib
+from vavae_tpu_torch.train.dit_trainer import DiTTrainer
 from vavae_tpu_torch.train.lora import load_lora, lora_size
 from vavae_tpu_torch.train.lora_trainer import LoRATrainer
 from vavae_tpu_torch.transport import Sampler, build_transport, create_transport
@@ -243,7 +277,7 @@ from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_
 from vavae_tpu_torch.utils.msgpack_io import write_msgpack
 from vavae_tpu_torch.utils.png import read_png, write_pngs
 from vavae_tpu_torch.utils.safetensors_io import flatten, read_safetensors, write_safetensors
-from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_
+from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_, vae_state_to_jax
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -945,9 +979,10 @@ def _training_loss(model, transport, x, y, t, x0, drop):
 
 
 def phase_train_path(cfg: Config, model, seed: int, branch: str = "production",
-                     batch: int = 2 * BATCH) -> dict:
+                     batch: int = 2 * BATCH, tol: float = PATH_TOL) -> dict:
     """XL/1 gradients of the training loss with both kernels against those
-    with attention forced through the plain version (autograd of it)."""
+    with attention forced through the plain version (autograd of it); any
+    DiT of ``cfg`` with ``model``, within ``tol``."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     B, s, C = batch, model.input_size, model.in_channels
     transport = build_transport(cfg)
@@ -974,16 +1009,17 @@ def phase_train_path(cfg: Config, model, seed: int, branch: str = "production",
     launches = counts()
     # remat "dots" runs the forward kernel again in the backward; the long
     # route has no backward kernel
-    want = {fwd: 2 * model.depth} if bwd is None else {fwd: 2 * model.depth, bwd: model.depth}
+    fwd_n = (2 if model.use_checkpoint else 1) * model.depth
+    want = {fwd: fwd_n} if bwd is None else {fwd: fwd_n, bwd: model.depth}
     expect_counts(launches, want, f"{branch} XL/1 training backward")
     with plain_attention(branch):
         plain, parts_plain = grads()
     rel = ((with_kernel - plain).norm() / plain.norm()).item()
     rel_parts = {key: ((parts_kernel[key] - parts_plain[key]).norm()
                        / parts_plain[key].norm()).item() for key in groups}
-    if not (rel <= PATH_TOL and all(r <= PATH_TOL for r in rel_parts.values())):
+    if not (rel <= tol and all(r <= tol for r in rel_parts.values())):
         fail(f"{branch} XL/1 gradients with the kernels vs plain attention: relative error "
-             f"{rel}, {rel_parts} (limit {PATH_TOL})")
+             f"{rel}, {rel_parts} (limit {tol})")
     qkv_part = f", attn.qkv {rel_parts['attn.qkv']:.3e}" if "attn.qkv" in rel_parts else ""
     log(f"[train-path] {branch} XL/1 loss gradients B={B} N={s * s} depth {model.depth}, kernels vs "
         f"plain attention: relative error {rel:.3e}{qkv_part}")
@@ -2170,12 +2206,16 @@ def _fp32_attention_bound(B: int, H: int, N: int, D: int, flops_per: float,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def lora_kernel_rows(seed: int) -> dict:
+def lora_kernel_rows(seed: int, B: int = LORA_BATCH, H: int = 6, tag: str = "lora",
+                     device_times: bool = True) -> dict:
     """Kernels #1 and #2 at the LoRA step's attention shape (B 16, 6 heads,
-    N 64, D 64, RoPE, fp32 as the config computes): each against its plain
-    version, its time, the plain version's, SDPA's (forward; backward of
-    q, k, v rotated beforehand) and the bound."""
-    B, H, N, D = LORA_BATCH, 6, 64, 64
+    N 64, D 64, RoPE, fp32 as the config computes; other B and H for other
+    micro-Doppler DiTs): each against its plain version, its time, the
+    plain version's, SDPA's (forward; backward of q, k, v rotated
+    beforehand) and the bound; with ``device_times`` also the kernel's and
+    SDPA's device time (profiler traces: at B 8, H 12 the backward's
+    traces lost the first call's launches five times running)."""
+    N, D = 64, 64
     gen = torch.Generator(device="cuda").manual_seed(seed + 250)
     qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda")
     g = torch.randn((B, N, H, D), generator=gen, device="cuda")
@@ -2204,14 +2244,17 @@ def lora_kernel_rows(seed: int) -> dict:
             fail(f"{name} fp32 at {(B, H, N, D)}: max-rel {rel} against its plain version")
         row = {"shape": [B, H, N, D], "dtype": "fp32", "rope": True, "max_abs_err": err,
                "max_rel_err": rel, "ms": time_ms(fn),
-               "device_ms": sum(device_kernels(fn).values()), "plain_ms": time_ms(ref),
-               "library_ms": time_ms(library), "library_device_ms": device_ms(library)}
+               "device_ms": sum(device_kernels(fn).values()) if device_times else None,
+               "plain_ms": time_ms(ref), "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library) if device_times else None}
         row["bound_ms"], row["bound_by"] = _fp32_attention_bound(B, H, N, D, flops_per, tensors)
         rows[name] = row
-        log(f"[lora-kernels] {name} fp32 B={B} H={H} N={N} D={D} rope: max-abs {err:.3e} "
-            f"(max-rel {rel:.3e}), kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+        dev, lib_dev = ((f"{row['device_ms']:.4f}", f"{row['library_device_ms']:.4f}")
+                        if device_times else ("not measured",) * 2)
+        log(f"[{tag}-kernels] {name} fp32 B={B} H={H} N={N} D={D} rope: max-abs {err:.3e} "
+            f"(max-rel {rel:.3e}), kernel {row['ms']:.4f} ms (device {dev}), "
             f"plain {row['plain_ms']:.4f} ms, SDPA{' backward' if 'bwd' in name else ''} "
-            f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f}), bound "
+            f"{row['library_ms']:.4f} ms (device {lib_dev}), bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return rows
 
@@ -2357,7 +2400,7 @@ def phase_lora_xl(seed: int) -> dict:
     return {"rel_err": rel, "depth": LORA_XL_DEPTH}
 
 
-def write_user_folder(root: str, seed: int) -> None:
+def write_user_folder(root: str, seed: int, per_user: int = CLF_PER_USER) -> None:
     """Seeded 256² PNGs in ``ID_{u}`` folders, 31 users: a coarse random
     layout per user (16-px cells) plus per-image noise."""
     rs = np.random.default_rng(seed)
@@ -2365,7 +2408,7 @@ def write_user_folder(root: str, seed: int) -> None:
         d = os.path.join(root, f"ID_{u + 1}")
         os.makedirs(d)
         base = np.repeat(np.repeat(rs.integers(0, 256, (16, 16, 3)), 16, 0), 16, 1)
-        for i in range(CLF_PER_USER):
+        for i in range(per_user):
             img = np.clip(base + rs.integers(-40, 41, base.shape), 0, 255).astype(np.uint8)
             write_pngs(img[None], [os.path.join(d, f"{i:03d}.png")])
 
@@ -2565,7 +2608,7 @@ def _recorded(store: list, fn):
 
 
 def run_microdoppler_apps(seed: int, device_info: dict) -> dict:
-    """Phases 25-27."""
+    """Phases 25-30."""
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
     out = {}
@@ -2573,7 +2616,11 @@ def run_microdoppler_apps(seed: int, device_info: dict) -> dict:
         for key, phase in (("lora", lambda: phase_lora(seed, device_info, work)),
                            ("classifier", lambda: phase_classifier(seed, device_info, work)),
                            ("generate_filter", lambda: phase_generate_filter(
-                               seed, device_info, work, out["lora"], out["classifier"]))):
+                               seed, device_info, work, out["lora"], out["classifier"])),
+                           ("quantize", lambda: phase_quantize(seed, device_info, work)),
+                           ("iterative", lambda: phase_iterative(seed, device_info, work)),
+                           ("scoring", lambda: phase_scoring(seed, device_info, work,
+                                                             out["classifier"]))):
             t1 = time.perf_counter()
             out[key] = phase()
             out[key]["phase_s"] = time.perf_counter() - t1
@@ -2581,8 +2628,422 @@ def run_microdoppler_apps(seed: int, device_info: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    log(f"[apps] phases 25-27: {out['seconds']:.1f} s")
+    late = sum(out[k]["phase_s"] for k in ("quantize", "iterative", "scoring"))
+    log(f"[apps] phases 25-30: {out['seconds']:.1f} s (28-30: {late:.1f} s)")
     return out
+
+
+# -- phases 28-30: the rest of the micro-Doppler application layer ---------------------
+
+QUANT_BATCH, QUANT_REPS, QUANT_SAMPLES = 8, 10, 4
+# LightningDiT-B/2 on micro-Doppler latents (vavae_tpu/configs/dit_b_microdoppler.yaml),
+# written out so no YAML parser is needed on the card
+DIT_B_MICRODOPPLER = {
+    "data": {"image_size": 256, "num_classes": 31, "latent_norm": True, "latent_multiplier": 1.0,
+             "augment_training": False},
+    "vae": {"model_name": "vavae_f16d32", "downsample_ratio": 16, "config": None},
+    "model": {"model_type": "LightningDiT-B/2", "num_classes": 31, "use_qknorm": False,
+              "use_swiglu": True, "use_rope": True, "use_rmsnorm": True, "wo_shift": False,
+              "in_chans": 32, "use_checkpoint": False},
+    "train": {"max_epochs": 150, "global_batch_size": 8, "global_seed": 42,
+              "output_dir": "output", "exp_name": "dit_base_microdoppler", "log_every": 100,
+              "ema_decay": 0.9999},
+    "optimizer": {"lr": 0.00005, "beta1": 0.9, "beta2": 0.999, "max_grad_norm": 0.5,
+                  "weight_decay": 0.001, "eps": 1.0e-08},
+    "transport": {"path_type": "Linear", "prediction": "velocity", "use_cosine_loss": True,
+                  "use_lognorm": True},
+    "sample": {"mode": "ODE", "sampling_method": "euler", "atol": 0.000001, "rtol": 0.001,
+               "reverse": False, "num_sampling_steps": 250, "cfg_scale": 10.0,
+               "per_proc_batch_size": 4, "cfg_interval_start": 0.11, "timestep_shift": 0.1},
+}
+ITER_ROUNDS, ITER_STEPS, ITER_BATCH, ITER_SAMPLES, ITER_USERS = 2, 4, 8, 4, 2
+B2_GRAD_TOL = 1e-3    # fp32 B/2 gradients, kernels (first FMA bodies) vs plain attention
+DA_USERS, DA_PER_USER = 31, 10
+DA_STAT_TOL = 1e-5    # card vs CPU: target BN statistics, relative (max-abs / max)
+DA_PROB_TOL = 1e-5    # card vs CPU: adapted probabilities, max-abs
+DA_CPU_SUPPORT = 2    # support images a class of the card-vs-CPU check
+DA_CPU_TEST = 62      # its test images
+
+
+def _tensor_leaves(tree: dict) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{part}": t for part, t in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def phase_quantize(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 28: ``quantize_dit.main`` on the production XL/1 (seeded random
+    weights) at batch 8 with ``--sample_check 4`` and ``--out``; the int8
+    product on the card against the CPU's at an XL/1 ``qkv`` shape; the
+    written file read back."""
+    cfg, model = build_xl(seed)
+    ckpt = os.path.join(work, "xl.safetensors")  # the weights alone: a 2.6 GB file, not 5.2
+    write_safetensors(ckpt, flatten(dit_state_to_jax(
+        {k: v.detach().float().cpu() for k, v in model.state_dict().items()}), "params"))
+    cfg_path = os.path.join(work, "xl.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, "xl_int8.safetensors")
+    argv = ["--config", cfg_path, "--ckpt", ckpt, "--batch_size", str(QUANT_BATCH),
+            "--reps", str(QUANT_REPS), "--sample_check", str(QUANT_SAMPLES), "--out", out]
+    reset_counts()
+    t0 = time.perf_counter()
+    report = quantize_dit.main(argv)
+    wall = time.perf_counter() - t0
+    got = counts()
+    depth, steps = model.depth, cfg.sample.num_sampling_steps
+    # the fp and dequantized forwards (a warm-up and the timed reps each), two sampling calls
+    want = depth * (2 * (1 + QUANT_REPS) + 2 * (steps - 1))
+    expect_counts(got, {"nat_attention_fwd": want}, "quantize_dit")
+    for key in ("mean_abs_rel_error", "sample_latent_rel_l2", "fp_latency_ms",
+                "dequant_latency_ms"):
+        if not (np.isfinite(report[key]) and report[key] > 0):
+            fail(f"quantize_dit: {key} = {report[key]}")
+    if not 3.5 < report["compression"] < 4.0:
+        fail(f"quantize_dit: compression {report['compression']}")
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    qparams, _ = quant.quantize_params(params)
+    back = _tensor_leaves(quantize_dit.load_int8(out))
+    mem = _tensor_leaves(qparams)
+    if sorted(back) != sorted(mem) or not all(
+            torch.equal(back[k], mem[k].detach().cpu()) for k in mem):
+        fail("the int8 file does not read back equal to the quantized weights")
+    # the int8 product at an XL/1 qkv shape: torch._int_mm on the card, int32 on the CPU
+    q = qparams["blocks.0.attn.qkv.weight"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 280)
+    tokens = (model.input_size // model.patch_size) ** 2
+    x = torch.randn((QUANT_BATCH * tokens, q["values"].shape[1]), generator=gen, device="cuda")
+    out_card, acc_card = quant.int8_matmul(x, q, return_acc=True)
+    out_cpu, acc_cpu = quant.int8_matmul(x.cpu(), {k: v.cpu() for k, v in q.items()},
+                                         return_acc=True)
+    if not torch.equal(acc_card.cpu(), acc_cpu):
+        fail("int8_matmul: torch._int_mm's int32 accumulators differ from the CPU's")
+    out_err = ((out_card.cpu() - out_cpu).abs().max() / out_cpu.abs().max()).item()
+    if not out_err <= 1e-6:
+        fail(f"int8_matmul: card vs CPU outputs {out_err}")
+    xq, _ = quant.quantize_activations(x)
+    int_mm_ms = time_ms(lambda: quant.int8_accumulate(xq, q["values"]))
+    w_bf16 = quant.dequantize_kernel(q).to(torch.bfloat16)
+    x_bf16 = x.to(torch.bfloat16)
+    bf16_ms = time_ms(lambda: torch.nn.functional.linear(x_bf16, w_bf16))
+    res = {**report, "wall_s": wall, "launches": got["nat_attention_fwd"],
+           "int8_shape": [x.shape[0], x.shape[1], q["values"].shape[0]],
+           "int8_out_rel_err": out_err, "int_mm_ms": int_mm_ms, "bf16_linear_ms": bf16_ms}
+    log(f"[quantize] quantize_dit.main XL/1 (depth {depth}, bf16 compute) batch {QUANT_BATCH}: "
+        f"{report['fp_size_mb']:.2f} MiB fp32 → {report['int8_size_mb']:.2f} MiB int8 "
+        f"({report['compression']:.4f}×), forward fp {report['fp_latency_ms']:.2f} ms, "
+        f"dequantized {report['dequant_latency_ms']:.2f} ms, mean_abs_rel_error "
+        f"{report['mean_abs_rel_error']:.4e}; --sample_check {QUANT_SAMPLES} (euler-{steps} "
+        f"split-CFG, fp and dequantized, the same noise): sample_latent_rel_l2 "
+        f"{report['sample_latent_rel_l2']:.4e}, max-abs {report['sample_latent_max_abs']:.4e}; "
+        f"{got['nat_attention_fwd']} nat_attention_fwd launches; {wall:.1f} s; int8 file read "
+        f"back equal; int8_matmul {tuple(res['int8_shape'])}: torch._int_mm accumulators equal "
+        f"to the CPU's, outputs {out_err:.1e}, _int_mm {int_mm_ms:.4f} ms vs bf16 linear "
+        f"{bf16_ms:.4f} ms [{device_info['smi']}]")
+    return res
+
+
+def _random_files(work: str, cfg: Config, seed: int) -> tuple[str, str]:
+    """Seeded random B/2 DiT (a DiT train state) and f16d32 VA-VAE weight files."""
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    randomize_(model, seed)
+    dit_path = lora_finetune.export_merged(os.path.join(work, "dit_b"), 0, {
+        k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    vae = VA_VAE(img_size=cfg.data.image_size, seed=seed, device="cuda")
+    vae_path = os.path.join(work, "vae_f16d32.safetensors")
+    write_safetensors(vae_path, flatten(vae_state_to_jax(vae.model.state_dict())))
+    return dit_path, vae_path
+
+
+@torch.no_grad()
+def _two_user_classifier(path: str, cfg: Config, seed: int, dit_path: str,
+                         vae_path: str) -> float:
+    """A seeded random classifier of ``data.num_classes`` classes whose head
+    is a nearest-centroid rule between users 0 and 1, the two users the run
+    iterates: on a probe batch sampled and decoded as the run does (half of
+    it each user), its backbone features' means μ0 and μ1 give the logits
+    ±(μ0 − μ1)·(f − (μ0 + μ1)/2), every other class −1e4. (A random head,
+    as phase 27 picks users with, voted 8 of 8 probe images of this B/2 for
+    one class: the other user then accepted nothing in 20 batches a
+    round.) Returns the probe batches' accuracy."""
+    latent = cfg.data.image_size // cfg.vae.downsample_ratio
+    model = create_dit(cfg.model, latent, cfg.data.num_classes, device="cuda")
+    load_dit_params(model, dit_path)
+    generate = build_sample_fn(cfg, model.eval(), sample_mod.load_latent_stats(cfg),
+                               device="cuda")
+    vae = VA_VAE(ckpt_path=vae_path, img_size=cfg.data.image_size, device="cuda")
+    trainer = ClassifierTrainer(num_classes=cfg.data.num_classes, device="cuda")
+    state = trainer.init_state(seed + 291)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 290)
+    labels = torch.arange(ITER_BATCH) * ITER_USERS // ITER_BATCH
+    probe = vae.decode_to_images(generate(labels, generator=gen)).astype(np.float32) / 127.5 - 1
+    x = [probe[labels.numpy() == u] for u in range(ITER_USERS)]
+    feats = [torch.as_tensor(trainer.feature_fn(state)(xu), device="cuda") for xu in x]
+    mu0, mu1 = (f.mean(0) for f in feats)
+    d, mid = mu0 - mu1, (mu0 + mu1) / 2
+    fc = dict(zip(state.names, state.params))
+    fc["fc.weight"].zero_()
+    fc["fc.bias"].fill_(-1e4)
+    fc["fc.weight"][0], fc["fc.weight"][1] = d, -d
+    fc["fc.bias"][0], fc["fc.bias"][1] = -(d @ mid), d @ mid
+    acc = float(np.mean([(trainer.predict_fn(state)(xu).argmax(-1) == u).mean()
+                         for u, xu in enumerate(x)]))
+    save_classifier(path, trainer, state)
+    log(f"[iterative] probe batch ({ITER_BATCH}, half of it each user): nearest-centroid head "
+        f"accuracy {acc:.3f}")
+    return acc
+
+
+def phase_iterative(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 29: ``iterative_finetune.main`` on LightningDiT-B/2 (seeded
+    random DiT, VA-VAE and classifier files, a latent shard tree written
+    here), 2 rounds × 4 steps at batch 8, 4 samples a user, confidence 0,
+    users 0 and 1; then one B/2 train step's gradients, kernels vs plain
+    attention; the saved state restored."""
+    root = os.path.join(work, "iterative")
+    os.makedirs(os.path.join(root, "latents"))
+    write_latent_shards(os.path.join(root, "latents"), seed + 29)
+    cfg = Config(DIT_B_MICRODOPPLER).merged_with({"data": {
+        "data_path": os.path.join(root, "latents"), "num_users": ITER_USERS}})
+    dit_path, vae_path = _random_files(root, cfg, seed)
+    cfg = cfg.merged_with({"ckpt_path": dit_path, "vae": {"ckpt_path": vae_path}})
+    cfg_path = os.path.join(root, "dit_b_microdoppler.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    clf_path = os.path.join(root, "classifier.safetensors")
+    probe_acc = _two_user_classifier(clf_path, cfg, seed, dit_path, vae_path)
+
+    rounds: list = []  # per round: seconds by part
+    per_call = {"sample": [], "train": []}
+
+    def mark(fn):
+        def wrapper(self, *args, **kwargs):
+            rounds.append({})
+            return fn(self, *args, **kwargs)
+        return wrapper
+
+    def timed(fn, key, launches=None):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rounds[-1][key] = rounds[-1].get(key, 0.0) + time.perf_counter() - t0
+            if launches is not None:
+                after = counts()
+                launches.append([after[k] - before[k] for k in
+                                 ("nat_attention_fwd", "nat_attention_bwd")])
+            return out
+        return wrapper
+
+    build = sample_mod.build_sample_fn
+    predict = ClassifierTrainer.predict_fn
+    out_dir = os.path.join(root, "out")
+    argv = ["--config", cfg_path, "--classifier_ckpt", clf_path, "--iterations", str(ITER_ROUNDS),
+            "--steps_per_iteration", str(ITER_STEPS), "--samples_per_user", str(ITER_SAMPLES),
+            "--confidence", "0", "--batch_size", str(ITER_BATCH), "--out_dir", out_dir]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _patched(iterative_finetune.IterativeTraining, "_generate_synthetic",
+                  mark(iterative_finetune.IterativeTraining._generate_synthetic)), \
+            _patched(sample_mod, "build_sample_fn",
+                     lambda *a, **k: timed(build(*a, **k), "generate", per_call["sample"])), \
+            _patched(VA_VAE, "decode_to_images", timed(VA_VAE.decode_to_images, "decode")), \
+            _patched(VA_VAE, "encode_images", timed(VA_VAE.encode_images, "encode")), \
+            _patched(ClassifierTrainer, "predict_fn",
+                     lambda self, st: timed(predict(self, st), "classify")), \
+            _patched(DiTTrainer, "train_step",
+                     timed(DiTTrainer.train_step, "train", per_call["train"])):
+        state, history, path = iterative_finetune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    depth, steps = 12, cfg.sample.num_sampling_steps
+    n_sample, n_train = len(per_call["sample"]), len(per_call["train"])
+    if n_train != ITER_ROUNDS * ITER_STEPS or state.step != n_train:
+        fail(f"iterative_finetune: {n_train} train steps, state at {state.step}")
+    if any(c != [depth * (steps - 1), 0] for c in per_call["sample"]) or any(
+            c != [depth, depth] for c in per_call["train"]):
+        fail(f"iterative_finetune: launches a sampling call {per_call['sample']}, a train step "
+             f"{per_call['train']}")
+    expect_counts(got, {"nat_attention_fwd": depth * ((steps - 1) * n_sample + n_train),
+                        "nat_attention_bwd": depth * n_train}, "iterative_finetune")
+    accepted = [h["accepted"] for h in history]
+    losses = [h["final_loss"] for h in history]
+    if len(history) != ITER_ROUNDS or not all(np.isfinite(losses)) or not sum(accepted):
+        fail(f"iterative_finetune: history {history}")
+    trainer = DiTTrainer(create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda"),
+                         build_transport(cfg))
+    back = ckpt_lib.restore_checkpoint(path, trainer.init_state())
+    if back.step != state.step or not all(
+            torch.equal(a, b) for a, b in zip(back.params + back.ema_params,
+                                              state.params + state.ema_params)):
+        fail("iterative_finetune: the saved state does not restore equal")
+    grads = phase_train_path(cfg, trainer.model.train(), seed, batch=ITER_BATCH, tol=B2_GRAD_TOL)
+    # #1 and #2 at the B/2 train step's shape (B 8 is also sampling's CFG
+    # batch, 4 samples twice), and #1 at sampling's cond-only batch of 4
+    kernels = lora_kernel_rows(seed + 1, B=ITER_BATCH, H=12, tag="b2", device_times=False)
+    kernels["nat_attention_fwd_sampling"] = lora_kernel_rows(
+        seed + 2, B=ITER_SAMPLES, H=12, tag="b2-sampling", device_times=False)["nat_attention_fwd"]
+    res = {"wall_s": wall, "rounds": rounds, "accepted": accepted, "final_losses": losses,
+           "sampling_calls": n_sample, "launches": [got["nat_attention_fwd"],
+                                                    got["nat_attention_bwd"]],
+           "launches_per_sampling_call": per_call["sample"][0],
+           "launches_per_train_step": per_call["train"][0], "peak_bytes": peak,
+           "probe_accuracy": probe_acc, "grad_check": grads, "kernels": kernels}
+    for k, r in enumerate(rounds):
+        log(f"[iterative] round {k}: " + ", ".join(f"{key} {v:.2f} s" for key, v in r.items()))
+    log(f"[iterative] iterative_finetune.main LightningDiT-B/2 (depth {depth}, fp32, N = 64) "
+        f"{ITER_ROUNDS} rounds × {ITER_STEPS} steps at batch {ITER_BATCH}, {ITER_USERS} users × "
+        f"{ITER_SAMPLES} samples, confidence 0, euler-{steps} split-CFG: {wall:.1f} s, accepted "
+        f"{accepted}, final losses {[round(v, 4) for v in losses]}, {n_sample} sampling calls "
+        f"({per_call['sample'][0][0]} nat_attention_fwd each), {per_call['train'][0]} "
+        f"nat_attention_fwd/bwd a train step, peak {peak / 2**30:.2f} GiB; the saved state "
+        f"restores equal; B/2 gradients kernels vs plain attention {grads['rel_err']:.3e} "
+        f"[{device_info['smi']}]")
+    return res
+
+
+def _split_file(root: str, path: str) -> str:
+    """A split file whose val side lists every PNG of the ``ID_{u}`` folders."""
+    entries = [{"path": os.path.join(root, d, f), "user_id": int(d[3:]) - 1}
+               for d in sorted(os.listdir(root)) for f in sorted(os.listdir(os.path.join(root, d)))]
+    with open(path, "w") as f:
+        json.dump({"train": entries, "val": entries}, f)
+    return path
+
+
+def _da_check(clf_path: str, split: str, seed: int) -> dict:
+    """The support pool and test set as ``domain_adaptation.main`` splits
+    them; target BN statistics and lccs_pnc_combined's probabilities on the
+    card against the CPU (TF32 off); ``select_support`` with each strategy
+    on the card's source features."""
+    ds = SplitFileDataset(split, "val", image_size=224)
+    labels = np.asarray([uid for _, uid in ds.items], np.int64)
+    sup_idx, test_idx = domain_adaptation.strategic_split(labels, 5, seed=42)
+
+    def load(idx):
+        return np.stack([ds[int(i)][0] for i in idx])
+
+    sup_x, sup_y, test_x = load(sup_idx), labels[sup_idx], load(test_idx[:DA_CPU_TEST])
+    # the card-vs-CPU check on the first DA_CPU_SUPPORT support images a class
+    sub = np.concatenate([np.where(sup_y == c)[0][:DA_CPU_SUPPORT] for c in np.unique(sup_y)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        trainer = ClassifierTrainer(num_classes=DA_USERS, device=dev)
+        restore_classifier(clf_path, trainer, trainer.init_state(0))
+        model = trainer.model.eval()
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        stats = domain_adaptation.model_stats(model)
+        target = domain_adaptation.compute_target_bn_stats(model, params, stats, sup_x[sub])
+        _, _, predict = domain_adaptation.lccs_pnc_combined(
+            model, params, stats, sup_x[sub], sup_y[sub], DA_USERS, alpha=0.3)
+        out[dev] = ({k: v.cpu() for k, v in target.items()}, predict(test_x))
+        if dev == "cuda":
+            feats = domain_adaptation._features(model, params, stats, sup_x)
+            probs = domain_adaptation._softmax_probs(model, params, stats, sup_x)
+    stat_err = max(((out["cuda"][0][k] - out["cpu"][0][k]).abs().max()
+                    / out["cpu"][0][k].abs().max()).item() for k in out["cpu"][0])
+    prob_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    if not (stat_err <= DA_STAT_TOL and prob_err <= DA_PROB_TOL):
+        fail(f"domain adaptation card vs CPU: statistics {stat_err} (limit {DA_STAT_TOL}), "
+             f"probabilities {prob_err} (limit {DA_PROB_TOL})")
+    keep = max(1, len(sup_x) // 2)
+    selections = {}
+    for strategy in ("random", "confidence", "diversity", "uncertainty", "balanced"):
+        t0 = time.perf_counter()
+        sel = domain_adaptation.select_support(feats, sup_y, probs, keep, strategy, seed=42)
+        if len(sel) != keep or len(np.unique(sel)) != keep:
+            fail(f"select_support {strategy}: {sel}")
+        selections[strategy] = {"seconds": time.perf_counter() - t0,
+                                "classes": int(len(np.unique(sup_y[sel])))}
+    return {"stat_rel_err": stat_err, "prob_max_abs_err": prob_err, "support": len(sub),
+            "select_support": selections}
+
+
+def phase_scoring(seed: int, device_info: dict, work: str, classifier: dict) -> dict:
+    """Phase 30: ``select_users``, ``analyze_metrics`` and
+    ``generation_evaluator`` (feature and LPIPS diversity) at their CLI
+    defaults on phase 26's users and baseline classifier and phase 27's
+    filtered tree; ``domain_adaptation.main`` on a seeded random classifier
+    and a target split of 31 users × 10 images; the card against the CPU."""
+    seconds: dict = {}
+    real = os.path.join(work, "users")
+    split = _split_file(real, os.path.join(work, "users_split.json"))
+    generated = os.path.join(work, "filtered")
+    base = ["--classifier_ckpt", classifier["baseline"]["path"], "--split_file", split,
+            "--num_classes", str(CLF_MODES["baseline"]["num_classes"])]
+    lpips = LPIPS()
+    init_lpips_weights(lpips, torch.Generator().manual_seed(seed + 300))
+    lpips_path = os.path.join(work, "lpips_30.pth")
+    torch.save(lpips.state_dict(), lpips_path)
+    os.environ["VAVAE_LPIPS_WEIGHTS"] = lpips_path
+    try:
+        sel = _timed(select_users.main, seconds, "select_users")(base)
+        metrics = _timed(analyze_metrics.main, seconds, "analyze_metrics")(
+            base + ["--generated_dir", generated])
+        ev = _timed(generation_evaluator.main, seconds, "generation_evaluator")(
+            base + ["--generated_dir", generated])
+        ev_lpips = _timed(generation_evaluator.main, seconds, "generation_evaluator_lpips")(
+            base + ["--generated_dir", generated, "--diversity", "lpips"])
+    finally:
+        del os.environ["VAVAE_LPIPS_WEIGHTS"]
+    if len(sel["selected"]) != 10 or len(sel["stats"]) != CLF_USERS:
+        fail(f"select_users: {sel['selected']}, {len(sel['stats'])} users")
+    if not 0.0 <= metrics["generated_pass_rate"] <= 1.0:
+        fail(f"analyze_metrics: {metrics['generated_pass_rate']}")
+    for report in (ev, ev_lpips):
+        if not report or not all(np.isfinite(r["identity_acc"]) for r in report.values()):
+            fail(f"generation_evaluator: {report}")
+    lp = [r.get("lpips_diversity") for r in ev_lpips.values() if "lpips_diversity" in r]
+    if not lp or not all(np.isfinite(v) and v >= 0 for v in lp):
+        fail(f"generation_evaluator --diversity lpips: {lp}")
+
+    da_root = os.path.join(work, "target")
+    write_user_folder(da_root, seed + 30, per_user=DA_PER_USER)
+    da_split = _split_file(da_root, os.path.join(work, "target_split.json"))
+    trainer = ClassifierTrainer(num_classes=DA_USERS, device="cuda")
+    da_clf = save_classifier(os.path.join(work, "da_classifier.safetensors"), trainer,
+                             trainer.init_state(seed + 301))
+    del trainer
+    reset_counts()
+    da = _timed(domain_adaptation.main, seconds, "domain_adaptation")([
+        "--classifier_ckpt", da_clf, "--target_split_file", da_split, "--reference_grid",
+        "--limit", "8", "--ncc", "--ensemble", "confidence_weighted"])
+    expect_counts(counts(), {}, "domain adaptation")
+    if len(da["grid_results"]) != 8 or not 0 <= da["best_accuracy"] <= 1 \
+            or not da.get("ncc_results") or "ensemble_accuracy" not in da:
+        fail(f"domain_adaptation: {da}")
+    t0 = time.perf_counter()
+    check = _da_check(da_clf, da_split, seed)
+    seconds["da_check"] = time.perf_counter() - t0
+    res = {"seconds": seconds, "selected": sel["selected"],
+           "generated_pass_rate": metrics["generated_pass_rate"],
+           "users_scored": sorted(int(u) for u in ev), "lpips_diversity": lp,
+           "da": {k: da[k] for k in ("baseline_accuracy", "best_accuracy", "best_config",
+                                     "ncc_results", "ensemble_accuracy")}, "da_check": check}
+    log(f"[scoring] select_users {seconds['select_users']:.2f} s (selected {sel['selected']}), "
+        f"analyze_metrics {seconds['analyze_metrics']:.2f} s (pass rate "
+        f"{metrics['generated_pass_rate']:.3f}), generation_evaluator "
+        f"{seconds['generation_evaluator']:.2f} s, with LPIPS diversity "
+        f"{seconds['generation_evaluator_lpips']:.2f} s (users {res['users_scored']}, LPIPS "
+        f"{[round(v, 4) for v in lp]}) at 224² [{device_info['smi']}]")
+    log(f"[scoring] domain_adaptation.main {DA_USERS} users × {DA_PER_USER} at 224², reference "
+        f"grid limit 8, NCC, ensemble: {seconds['domain_adaptation']:.2f} s, baseline "
+        f"{da['baseline_accuracy']:.4f}, best {da['best_accuracy']:.4f}, ensemble "
+        f"{da['ensemble_accuracy']:.4f}; card vs CPU ({check['support']} support images, TF32 "
+        f"off): target BN statistics {check['stat_rel_err']:.2e} (limit {DA_STAT_TOL}), "
+        f"probabilities {check['prob_max_abs_err']:.2e} (limit {DA_PROB_TOL}); select_support "
+        + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in check["select_support"].items())
+        + f" [{device_info['smi']}]")
+    return res
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
@@ -2643,7 +3104,7 @@ def main(argv=None) -> int:
                        "vae_training": vae_training, "apps": apps,
                        "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-27: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-30: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

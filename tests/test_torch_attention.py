@@ -24,6 +24,9 @@ from vavae_tpu_torch.ops.flash_attention import (
     fused_qkv_attention_bwd_reference,
     fused_qkv_attention_reference,
 )
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

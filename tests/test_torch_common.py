@@ -7,6 +7,7 @@ to ``vavae_tpu_torch``. TF32 is off on the torch side and the JAX side runs
 at ``highest`` matmul precision (tests/conftest.py), so fp32 results agree
 to rounding.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -26,15 +27,36 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    """torch on one thread for the importing module's tests: their tensors
-    are small, and the suite's workers share the host's cores. Import it
-    and name it in ``pytestmark`` (``usefixtures``)."""
+@contextlib.contextmanager
+def _single_threaded():
+    from threadpoolctl import threadpool_limits
+
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch, BLAS (numpy, scipy) and OpenMP (scikit-learn) on one thread
+    for the importing module's tests: their tensors are small, and the
+    suite's workers share the host's cores, where threads that spin-wait for
+    one another multiply a test's time (a 2048² ``sqrtm`` or a t-SNE takes
+    several times as long as alone). Import it and name it in ``pytestmark``
+    (``usefixtures``)."""
+    with _single_threaded():
+        yield
+
+
+@pytest.fixture
+def one_thread_test():
+    """``one_thread`` for one test."""
+    with _single_threaded():
+        yield
 
 
 def randomize(tree, seed: int):
@@ -180,6 +202,11 @@ def test_config_overrides_parse_as_yaml(tmp_path):
     assert got.model.params.ch == 128
 
 
+APP_LAYER = ("ops.quant", "apps.quantize_dit", "apps.select_users", "apps.analyze_metrics",
+             "apps.generation_evaluator", "apps.iterative_finetune", "utils.kmeans",
+             "apps.domain_adaptation")
+
+
 def _port_sources():
     return sorted((REPO / "vavae_tpu_torch").rglob("*.py"))
 
@@ -205,7 +232,14 @@ def test_port_imports_nothing_of_jax():
         "models.discriminator", "models.vit", "train.vae_loss", "train.vae_trainer",
         "utils.image_grid", "pipelines.train_vavae", "utils.msgpack_io", "train.lora",
         "train.lora_trainer", "models.resnet", "apps.lora_finetune", "apps.regularization",
-        "apps.train_classifier", "apps.classifier_eval", "apps.generate_and_filter")} <= set(mods)
+        "apps.train_classifier", "apps.classifier_eval", "apps.generate_and_filter")
+        + APP_LAYER} <= set(mods)
+    # the rest of the application layer runs on the card's machine whole: no
+    # sklearn and no PIL, not even imported lazily
+    for m in APP_LAYER:
+        text = (REPO / "vavae_tpu_torch" / (m.replace(".", "/") + ".py")).read_text()
+        for word in ("import sklearn", "from sklearn", "import PIL", "from PIL"):
+            assert word not in text, f"{m} contains {word!r}"
     code = (
         "import sys\n"
         "class Block:\n"

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import max_rel, tiny_dit_pair
+from test_torch_common import max_rel, one_thread, tiny_dit_pair  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-4
 

@@ -7,6 +7,9 @@ import torch
 
 from torch_emulation import *  # noqa: F401,F403
 from torch_emulation import _run, _small_bwd_error, _tables  # noqa: F401
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,9 @@ import pytest
 
 from vavae_tpu.utils.torch_convert import dit_params_from_torch, vae_params_from_torch
 from vavae_tpu.utils.torch_export import dit_params_to_torch, vae_params_to_torch
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _tree_equal(a, b):

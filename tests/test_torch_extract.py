@@ -15,7 +15,7 @@ import pytest
 import torch
 import yaml
 
-from test_torch_common import randomize
+from test_torch_common import one_thread, randomize  # noqa: F401
 from test_torch_image_folder import _write
 from vavae_tpu.data.latent_dataset import ImgLatentDataset as JaxLatents
 from vavae_tpu.pipelines import extract_features as jext
@@ -25,6 +25,8 @@ from vavae_tpu_torch.pipelines import extract_features as text
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.utils.safetensors_io import read_safetensors
 from vavae_tpu_torch.utils.weights import vae_state_from_jax
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 S = 32
 TINY = {"embed_dim": 4, "ddconfig": dict(ch=32, ch_mult=[1, 1], num_res_blocks=1,

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import max_rel
+from test_torch_common import max_rel, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _random_inception_variables(seed: int):

@@ -28,6 +28,9 @@ from vavae_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

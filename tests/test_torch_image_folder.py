@@ -15,6 +15,9 @@ from vavae_tpu_torch.data import image_folder as tif
 from vavae_tpu_torch.data.prefetch import prefetch
 from vavae_tpu_torch.tokenizer import center_crop_arr, preprocess_images
 from vavae_tpu_torch.utils.png import decode_png, read_image_rgb
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 S = 32  # target size: 70-px sides and up take one BOX halving first
 

@@ -24,6 +24,9 @@ from vavae_tpu.models.posembed import rope_2d_freqs
 from vavae_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
 from vavae_tpu.ops.pallas import flash_attention as jfa
 from vavae_tpu_torch.ops import flash_attention as fa
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -9,6 +9,9 @@ from hypothesis import strategies as st
 from PIL import Image
 
 from vavae_tpu_torch.utils.pil_resize import coefficients, resize_uint8
+from test_torch_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 PIL_FILTERS = {"box": Image.BOX, "bicubic": Image.BICUBIC}
 

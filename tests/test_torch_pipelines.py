@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import tiny_dit_pair
+from test_torch_common import one_thread, tiny_dit_pair  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # the JAX sampler's invalid ``sample_ode_cfg`` configs, one per build-time
 # check (vavae_tpu/transport/sampler.py), each beside valid defaults

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import max_rel
+from test_torch_common import max_rel, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-5
 

@@ -13,8 +13,11 @@ integer boundaries).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from test_torch_common import max_rel, tiny_dit_pair, tiny_vae_pair
+from test_torch_common import max_rel, one_thread, tiny_dit_pair, tiny_vae_pair  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CFG = {
     "data": {"image_size": 16, "num_classes": 10, "latent_norm": False,

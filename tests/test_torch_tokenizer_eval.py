@@ -12,7 +12,7 @@ import pytest
 import torch
 from PIL import Image
 
-from test_torch_common import max_rel
+from test_torch_common import max_rel, one_thread_test  # noqa: F401
 from test_torch_extract import folder, vaes  # noqa: F401  (module fixtures)
 from vavae_tpu.eval import latent_vis as jvis
 from vavae_tpu.eval import metrics as jmetrics
@@ -215,6 +215,7 @@ def test_evaluate_tokenizer_main_on_the_cpu(vaes, folder, tmp_path, no_fid_weigh
     assert res["num_images"] == 3 and np.isfinite(res["psnr"]) and -1 <= res["ssim"] <= 1
 
 
+@pytest.mark.usefixtures("one_thread_test")  # t-SNE's OpenMP threads
 def test_latent_vis_matches_jax(tmp_path):
     lat = np.random.default_rng(6).standard_normal((3, 8, 8, 4)).astype(np.float32)
     np.testing.assert_array_equal(tvis.sample_latent_pixels(lat, 100, seed=2),

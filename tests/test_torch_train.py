@@ -20,8 +20,10 @@ import pytest
 import scipy.stats
 import torch
 
-from test_torch_common import max_rel, tiny_dit_pair
+from test_torch_common import max_rel, one_thread, tiny_dit_pair  # noqa: F401
 from vavae_tpu_torch.transport import create_transport
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N_DRAWS = 20000
 

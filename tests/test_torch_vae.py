@@ -8,9 +8,12 @@ differ by rounding only.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from test_torch_common import max_rel, tiny_vae_pair
+from test_torch_common import max_rel, one_thread, tiny_vae_pair  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-4
 

@@ -36,6 +36,8 @@ class BatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            # the moments this pass normalised by (read by domain adaptation)
+            self.batch_moments = (mean.detach(), var.detach())
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_(mean.detach(), alpha=1.0 - MOMENTUM)
                 self.running_var.mul_(MOMENTUM).add_(var.detach(), alpha=1.0 - MOMENTUM)

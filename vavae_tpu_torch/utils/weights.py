@@ -43,7 +43,13 @@ def _conv(sd: dict, tree: Mapping, prefix: str) -> None:
 
 
 def _dense(sd: dict, tree: Mapping, prefix: str) -> None:
-    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(tree["kernel"]), (1, 0)))
+    kernel = tree["kernel"]
+    if isinstance(kernel, Mapping):  # int8 (ops/quant.py): values (in, out), scales (1, out)
+        values = np.ascontiguousarray(np.asarray(kernel["values"], np.int8).T)
+        sd[f"{prefix}.weight"] = {"values": torch.from_numpy(values),
+                                  "scales": _t(np.asarray(kernel["scales"]).T)}
+    else:
+        sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(kernel), (1, 0)))
     if "bias" in tree:
         sd[f"{prefix}.bias"] = _t(tree["bias"])
 
@@ -244,7 +250,7 @@ def dit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     sd["y_embedder.embedding_table.weight"] = _t(params["y_embedder"]["table"]["embedding"])
     if "blocks" in params:
         stacked = params["blocks"]["block"]
-        depth = len(np.asarray(stacked["adaLN"]["kernel"]))
+        depth = len(np.asarray(stacked["adaLN"]["bias"]))
 
         def take(tree, i):
             if isinstance(tree, Mapping):
@@ -266,10 +272,44 @@ def dit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def _dense_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
-    out = {"kernel": _np(sd[f"{prefix}.weight"]).T}
+    w = sd[f"{prefix}.weight"]
+    if isinstance(w, Mapping):  # int8 (ops/quant.py): values stay int8
+        out = {"kernel": {"values": w["values"].detach().cpu().numpy().T,
+                          "scales": _np(w["scales"]).T}}
+    else:
+        out = {"kernel": _np(w).T}
     if f"{prefix}.bias" in sd:
         out["bias"] = _np(sd[f"{prefix}.bias"])
     return out
+
+
+_DIT_BLOCK_NAMES = {"adaLN_modulation.1": "adaLN"}
+_DIT_TOP_NAMES = {"t_embedder.mlp.0": ["t_embedder", "fc1"],
+                  "t_embedder.mlp.2": ["t_embedder", "fc2"],
+                  "y_embedder.embedding_table": ["y_embedder", "table"],
+                  "final_layer.adaLN_modulation.1": ["final_layer", "adaLN"]}
+
+
+def dit_jax_path(key: str) -> list[str]:
+    """The JAX tree path of a port LightningDiT parameter (the path under
+    the scan-stacked ``blocks/block`` for ``blocks.{i}.…``, whose leaves
+    carry the block on their leading axis): ``blocks.3.attn.qkv.weight`` →
+    ``[blocks, block, attn, qkv, kernel]``, ``t_embedder.mlp.0.weight`` →
+    ``[t_embedder, fc1, kernel]``. A Linear's weight is its ``kernel``, so
+    ``path[-2]`` is the module name the JAX package's quantization targets
+    match."""
+    *mod, leaf = key.split(".")
+    mod_key = ".".join(mod)
+    if mod[0] == "blocks":
+        rest = ".".join(mod[2:])
+        path = ["blocks", "block"] + _DIT_BLOCK_NAMES.get(rest, rest).split(".")
+    else:
+        path = _DIT_TOP_NAMES.get(mod_key, mod)
+    if mod_key == "y_embedder.embedding_table":
+        return path + ["embedding"]
+    if path[-1] in ("q_norm", "k_norm") or path[-1].startswith("norm"):
+        return path + [leaf]  # RMSNorm weight (a LayerNorm's scale/bias: see the bridge)
+    return path + ["kernel" if leaf == "weight" else leaf]
 
 
 def _dit_block_to_jax(sd: Mapping[str, torch.Tensor], p: str) -> dict:
