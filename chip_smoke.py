@@ -176,7 +176,34 @@ Phases, each fatal on failure:
      reference grid limited to 8, NCC, confidence-weighted ensemble); the
      target BN statistics and adapted probabilities on the card against
      the CPU (1e-5 relative and 1e-5 max-abs, TF32 off); ``select_support``
-     with each strategy; each entry point's seconds.
+     with each strategy; each entry point's seconds;
+  31. ``autotune_sampler.main`` on the production XL/1 (full width and
+     depth, bf16, seeded random weights in a DiT train-state file, the
+     production ``sample:`` block, config given as JSON) with ``--n 8
+     --batch 8 --ref_steps 250``, the full ladder: the exact euler-250
+     reference, the noise-floor probe, euler 125/100/50, AB3 100/62, heun
+     83/62, the fixed cache k = 3, 6 and the adaptive cache at its three
+     tolerances; #1's launches exactly 28 × the model calls of all those
+     runs by the samplers' evaluation rules (the adaptive runs' from their
+     ``cfg_evals``), no other kernel; the JSON evidence, the overlay, and
+     the recommended block equal to ``_method_config`` of the winner with the
+     production keys carried through; each method's seconds and cost;
+  32. the tools: ``python -m vavae_tpu_torch --help`` (exit 0) and an
+     unknown command (exit 2) as subprocesses; ``preflight.main`` on the
+     XL/1 config and checkpoint (28 #1 launches); ``export_torch --kind
+     dit`` reloaded by ``load_dit_params`` (the XL/1 forward at batch 16
+     bit-equal) and ``--kind vae`` of phase 24's last state loaded by
+     ``VA_VAE`` (decode bit-equal); ``prepare_dataset_split`` on phase 26's
+     seeded users and ``validate_export.main`` on that split with the
+     exported VAE, the VF check from phase 24's checkpoint and config (random
+     ViT-L) and ``--export_encoder`` (read back equal); ``convert_latents``
+     of a seeded legacy dump read back by ``ImgLatentDataset``; phase 8's
+     ``do_train`` with ``train.async_checkpoint`` on and ``VAVAE_PROFILE``
+     set (each save also written in line at the same moment), then off: the
+     checkpoints byte-equal, one trace a run, the events files' CRCs; the
+     production XL/1 under ``VAVAE_ATTN_NATURAL=0`` (forward at batch 16 and
+     loss gradients as phases 5-6, #3 and #6 in place of #1 and #2) against
+     plain attention and against the natural route, within 3e-2.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -237,6 +264,8 @@ from vavae_tpu_torch.eval.fid import (
 from vavae_tpu_torch.apps import analyze_metrics, domain_adaptation, generation_evaluator
 from vavae_tpu_torch.apps import generate_and_filter as gen_filter
 from vavae_tpu_torch.apps import iterative_finetune, lora_finetune, quantize_dit, select_users
+from vavae_tpu_torch.apps import autotune_sampler, convert_latents, export_torch, preflight
+from vavae_tpu_torch.apps import prepare_dataset_split, validate_export
 from vavae_tpu_torch.apps.train_classifier import (
     ClassifierTrainer,
     restore_classifier,
@@ -272,12 +301,23 @@ from vavae_tpu_torch.transport.cost import (
     fixed_grid_cost,
     split_idx,
 )
-from vavae_tpu_torch.utils.config import Config
+from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
-from vavae_tpu_torch.utils.msgpack_io import write_msgpack
+from vavae_tpu_torch.utils.metrics_logger import read_events
+from vavae_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
 from vavae_tpu_torch.utils.png import read_png, write_pngs
-from vavae_tpu_torch.utils.safetensors_io import flatten, read_safetensors, write_safetensors
-from vavae_tpu_torch.utils.weights import dit_state_to_jax, randomize_, vae_state_to_jax
+from vavae_tpu_torch.utils.safetensors_io import (
+    flatten,
+    read_safetensors,
+    unflatten,
+    write_safetensors,
+)
+from vavae_tpu_torch.utils.weights import (
+    dit_state_to_jax,
+    randomize_,
+    vae_state_from_jax,
+    vae_state_to_jax,
+)
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -352,6 +392,13 @@ BRANCHES = {
         "fwd": "attn_small_fwd", "bwd": "attn_small_bwd",
         "op": "dot_product_attention", "plain": flash_attention_reference,
         "groups": {"attn.q_norm/k_norm": (".attn.q_norm.", ".attn.k_norm.")},
+    },
+    # a model without qk-norm under VAVAE_ATTN_NATURAL=0: the separate q, k, v
+    # route of the qk-norm branch, without the norms
+    "ab_route": {
+        "model": {}, "fwd": "attn_small_fwd_rope", "bwd": "attn_small_bwd",
+        "op": "dot_product_attention", "plain": flash_attention_reference,
+        "groups": {"attn.qkv": (".attn.qkv.",)},
     },
     # 1024²: both branches take the long route; its backward is autograd of
     # the exact op, so there is no backward kernel
@@ -2128,8 +2175,10 @@ def phase_vae_entry_point(seed: int, device_info: dict, work: str, folder: str) 
     return res
 
 
-def run_vae_training(seed: int, device_info: dict) -> dict:
-    """Phases 23-24, on phase 21's seeded image folder."""
+def run_vae_training(seed: int, device_info: dict, keep: str | None = None) -> dict:
+    """Phases 23-24, on phase 21's seeded image folder. With ``keep``, phase
+    24's last stage-3 checkpoint and its config are copied there (for
+    phase 32)."""
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_vavae_")
     try:
@@ -2137,6 +2186,11 @@ def run_vae_training(seed: int, device_info: dict) -> dict:
         write_image_folder(folder, seed)
         out = {"train": phase_vae_train(seed, device_info, folder),
                "entry_point": phase_vae_entry_point(seed, device_info, work, folder)}
+        if keep is not None:
+            shutil.copy(ckpt_lib.latest_checkpoint(os.path.join(work, "vavae", "stage3")),
+                        os.path.join(keep, "vae_state.safetensors"))
+            shutil.copy(os.path.join(work, "stages_longer.json"),
+                        os.path.join(keep, "vae_config.json"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
@@ -2206,15 +2260,12 @@ def _fp32_attention_bound(B: int, H: int, N: int, D: int, flops_per: float,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def lora_kernel_rows(seed: int, B: int = LORA_BATCH, H: int = 6, tag: str = "lora",
-                     device_times: bool = True) -> dict:
+def lora_kernel_rows(seed: int, B: int = LORA_BATCH, H: int = 6, tag: str = "lora") -> dict:
     """Kernels #1 and #2 at the LoRA step's attention shape (B 16, 6 heads,
     N 64, D 64, RoPE, fp32 as the config computes; other B and H for other
     micro-Doppler DiTs): each against its plain version, its time, the
     plain version's, SDPA's (forward; backward of q, k, v rotated
-    beforehand) and the bound; with ``device_times`` also the kernel's and
-    SDPA's device time (profiler traces: at B 8, H 12 the backward's
-    traces lost the first call's launches five times running)."""
+    beforehand), the bound, and the kernel's and SDPA's device time."""
     N, D = 64, 64
     gen = torch.Generator(device="cuda").manual_seed(seed + 250)
     qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda")
@@ -2244,13 +2295,12 @@ def lora_kernel_rows(seed: int, B: int = LORA_BATCH, H: int = 6, tag: str = "lor
             fail(f"{name} fp32 at {(B, H, N, D)}: max-rel {rel} against its plain version")
         row = {"shape": [B, H, N, D], "dtype": "fp32", "rope": True, "max_abs_err": err,
                "max_rel_err": rel, "ms": time_ms(fn),
-               "device_ms": sum(device_kernels(fn).values()) if device_times else None,
+               "device_ms": sum(device_kernels(fn).values()),
                "plain_ms": time_ms(ref), "library_ms": time_ms(library),
-               "library_device_ms": device_ms(library) if device_times else None}
+               "library_device_ms": device_ms(library)}
         row["bound_ms"], row["bound_by"] = _fp32_attention_bound(B, H, N, D, flops_per, tensors)
         rows[name] = row
-        dev, lib_dev = ((f"{row['device_ms']:.4f}", f"{row['library_device_ms']:.4f}")
-                        if device_times else ("not measured",) * 2)
+        dev, lib_dev = f"{row['device_ms']:.4f}", f"{row['library_device_ms']:.4f}"
         log(f"[{tag}-kernels] {name} fp32 B={B} H={H} N={N} D={D} rope: max-abs {err:.3e} "
             f"(max-rel {rel:.3e}), kernel {row['ms']:.4f} ms (device {dev}), "
             f"plain {row['plain_ms']:.4f} ms, SDPA{' backward' if 'bwd' in name else ''} "
@@ -2889,9 +2939,9 @@ def phase_iterative(seed: int, device_info: dict, work: str) -> dict:
     grads = phase_train_path(cfg, trainer.model.train(), seed, batch=ITER_BATCH, tol=B2_GRAD_TOL)
     # #1 and #2 at the B/2 train step's shape (B 8 is also sampling's CFG
     # batch, 4 samples twice), and #1 at sampling's cond-only batch of 4
-    kernels = lora_kernel_rows(seed + 1, B=ITER_BATCH, H=12, tag="b2", device_times=False)
+    kernels = lora_kernel_rows(seed + 1, B=ITER_BATCH, H=12, tag="b2")
     kernels["nat_attention_fwd_sampling"] = lora_kernel_rows(
-        seed + 2, B=ITER_SAMPLES, H=12, tag="b2-sampling", device_times=False)["nat_attention_fwd"]
+        seed + 2, B=ITER_SAMPLES, H=12, tag="b2-sampling")["nat_attention_fwd"]
     res = {"wall_s": wall, "rounds": rounds, "accepted": accepted, "final_losses": losses,
            "sampling_calls": n_sample, "launches": [got["nat_attention_fwd"],
                                                     got["nat_attention_bwd"]],
@@ -3045,6 +3095,369 @@ def phase_scoring(seed: int, device_info: dict, work: str, classifier: dict) -> 
         + f" [{device_info['smi']}]")
     return res
 
+# -- phases 31-32: the tools and the CLI ------------------------------------------
+
+AUTOTUNE_N, AUTOTUNE_BATCH, AUTOTUNE_REF = 8, 8, 250  # --n, --batch, --ref_steps
+TOOLS_DEPTH = 2  # phase 8's do_train: an XL/1-width DiT at depth 2
+LEGACY_LATENTS = 40  # phase 32's legacy latent dump (N, 32, 16, 16), shards of 16
+
+
+def _write_dit_state(path: str, model) -> None:
+    """A DiT train-state file of ``model``'s weights (params = EMA), as the
+    JAX package and the port write them."""
+    tree = flatten(dit_state_to_jax(model.state_dict()))
+    write_safetensors(path, {"step": np.asarray(0, np.int32),
+                             **{f"params|{k}": v for k, v in tree.items()},
+                             **{f"ema_params|{k}": v for k, v in tree.items()}})
+
+
+def _autotune_calls(doc: dict, cfg: Config) -> int:
+    """Model calls of an autotune run, by the samplers' evaluation rules:
+    the reference and the fixed-grid methods per batch (euler N − 1, heun
+    2(N − 1), Adams–Bashforth 3 and the fixed cache by ``_fixed_grid_calls``
+    over the cond-only and CFG phases), the adaptive cache s + its
+    ``cfg_evals`` per batch, the probe s + its ``cfg_evals``."""
+    transport = build_transport(cfg)
+    shift, start = cfg.sample.timestep_shift, cfg.sample.cfg_interval_start
+    n_batches = doc["n_samples"] // AUTOTUNE_BATCH
+
+    def calls(rec: dict) -> int:
+        steps = rec["num_steps"] - 1
+        s = split_idx(transport, rec["num_steps"], shift, start)
+        name = {"euler": None, "heun": "heun", "ab": f"ab{rec.get('order')}",
+                "vcache": f"cache_k{rec.get('k')}_o1"}[rec["kind"]]
+        return steps if name is None else sum(_fixed_grid_calls(name, s, steps))
+
+    total = n_batches * calls({"kind": "euler", "num_steps": AUTOTUNE_REF})
+    total += split_idx(transport, AUTOTUNE_REF, shift, start) + doc["probe_cfg_evals"]
+    for row in doc["methods"].values():
+        rec = row["rec"]
+        if rec["kind"] == "vcacheA":
+            s = split_idx(transport, rec["num_steps"], shift, start)
+            total += sum(s + e for e in row["cfg_evals"])
+        else:
+            total += n_batches * calls(rec)
+    return total
+
+
+def phase_autotune(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 31: ``autotune_sampler.main`` on XL/1 (full width and depth,
+    bf16, seeded random weights in a train-state file, the production
+    ``sample:`` block) with the full ladder: the exact euler-250 reference,
+    the noise-floor probe, euler 125/100/50, AB3 100/62, heun 83/62, the
+    fixed cache k = 3, 6 and the adaptive cache at its three tolerances."""
+    cfg, model = build_xl(seed)
+    depth = model.depth
+    ckpt = os.path.join(work, "xl_state.safetensors")
+    _write_dit_state(ckpt, model)
+    del model
+    torch.cuda.empty_cache()
+    cfg_path = os.path.join(work, "xl.json")
+    with open(cfg_path, "w") as f:
+        json.dump({**cfg, "ckpt_path": ckpt}, f)
+    out_json, overlay = os.path.join(work, "autotune.json"), os.path.join(work, "overlay.yaml")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = autotune_sampler.main(["--config", cfg_path, "--n", str(AUTOTUNE_N), "--batch",
+                                str(AUTOTUNE_BATCH), "--ref_steps", str(AUTOTUNE_REF), "--out",
+                                out_json, "--emit_yaml", overlay])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    with open(out_json) as f:
+        doc = json.load(f)
+    calls = _autotune_calls(doc, cfg)
+    expect_counts(got, {"nat_attention_fwd": depth * calls}, "autotune_sampler")
+    want = [label for label, _ in autotune_sampler.ladder(
+        False, True, AUTOTUNE_REF, autotune_sampler.tolerance_candidates(doc["noise_floor"]))]
+    if rc != 0 or list(doc["methods"]) != want or len(want) < 10:
+        fail(f"autotune_sampler: rc {rc}, methods {list(doc['methods'])}, expected {want}")
+    winner = doc["recommendation"]["winner"]
+    rec = (doc["methods"][winner]["rec"] if winner in doc["methods"]
+           else {"kind": "euler", "num_steps": AUTOTUNE_REF})
+    block = {**autotune_sampler._method_config(rec),
+             **{k: cfg.sample[k] for k in autotune_sampler.CARRIED if k in cfg.sample}}
+    with open(overlay) as f:
+        text = f.read()
+    if doc["recommendation"]["sample_block"] != block or \
+            not text.endswith(autotune_sampler.sample_block_yaml(block)):
+        fail(f"autotune_sampler: recommended {doc['recommendation']['sample_block']}, "
+             f"expected {block}; overlay {text!r}")
+    for label, row in doc["methods"].items():
+        if not (np.isfinite(row["rel_l2_p99"]) and np.isfinite(row["latent_fid"])):
+            fail(f"autotune_sampler: {label} has non-finite evidence {row}")
+        log(f"[autotune] {label}: {row['seconds']:.2f} s, cost {row['cost']:.1f} "
+            f"({row['cost_pct']:.1f}%), rel-L2 p99 {row['rel_l2_p99']:.5f}, latent FID "
+            f"{row['latent_fid']:.4f}")
+    log(f"[autotune] XL/1 autotune_sampler --n {AUTOTUNE_N} --batch {AUTOTUNE_BATCH} --ref_steps "
+        f"{AUTOTUNE_REF}: {seconds:.1f} s, reference {doc['reference_seconds']:.2f} s, noise floor "
+        f"{doc['noise_floor']}, {len(want)} methods, {calls} model calls ({got['nat_attention_fwd']} "
+        f"nat_attention_fwd launches), winner {winner} [{device_info['smi']}]")
+    return {"seconds": seconds, "model_calls": calls, "launches": got["nat_attention_fwd"],
+            "noise_floor": doc["noise_floor"], "winner": winner,
+            "reference_seconds": doc["reference_seconds"],
+            "methods": {k: {key: v[key] for key in ("seconds", "cost", "cost_pct", "rel_l2_p50",
+                                                    "rel_l2_p99", "latent_fid")}
+                        for k, v in doc["methods"].items()},
+            "ckpt": ckpt, "config": cfg_path}
+
+
+def _cli(*args: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "vavae_tpu_torch", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+
+
+def _tools_do_train(seed: int, work: str) -> dict:
+    """Phase 8's ``do_train`` with ``train.async_checkpoint`` on and
+    ``VAVAE_PROFILE`` set (steps 2-3 traced), every save also written in
+    line beside it at the same moment, then a run with it off: the same
+    checkpoint files byte for byte, one trace, the events file's CRCs."""
+    rs = np.random.default_rng(seed)
+    data = os.path.join(work, "latents")
+    for i in range(2):
+        lat = rs.standard_normal((24, 32, 16, 16)).astype(np.float32)
+        write_safetensors(os.path.join(data, f"shard_{i:03d}.safetensors"), {
+            "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+            "labels": rs.integers(0, 1000, (24,)).astype(np.int32)})
+    mirror = os.path.join(work, "mirror")
+    real_save = ckpt_lib.AsyncCheckpointer.save
+
+    # smoke-only: each async save is also written in line, at the same moment
+    def mirrored(self, ckpt_dir, step, state, config=None, on_complete=None):
+        ckpt_lib.save_checkpoint(os.path.join(mirror, os.path.basename(ckpt_dir)), step, state)
+        return real_save(self, ckpt_dir, step, state, config, on_complete)
+
+    prof = os.path.join(work, "prof")
+    trees, seconds = {}, {}
+    reset_counts()
+    for mode in (True, False):
+        out = os.path.join(work, f"out_{mode}")
+        cfg = branch_config("production").merged_with({
+            "data": {"data_path": data},
+            "train": {"max_steps": 4, "global_batch_size": 8, "ckpt_every": 2, "log_every": 2,
+                      "output_dir": out, "exp_name": "smoke", "async_checkpoint": mode}})
+        os.environ.update(VAVAE_PROFILE=prof, VAVAE_PROFILE_AT="2", VAVAE_PROFILE_STEPS="2")
+        ckpt_lib.AsyncCheckpointer.save = mirrored
+        try:
+            with xl_depth(TOOLS_DEPTH):
+                t0 = time.perf_counter()
+                do_train(cfg, device="cuda")
+                seconds[mode] = time.perf_counter() - t0
+        finally:
+            ckpt_lib.AsyncCheckpointer.save = real_save
+            for k in ("VAVAE_PROFILE", "VAVAE_PROFILE_AT", "VAVAE_PROFILE_STEPS"):
+                del os.environ[k]
+        ckpts = os.path.join(out, "smoke", "checkpoints")
+        trees[mode] = {n: open(os.path.join(ckpts, n), "rb").read()
+                       for n in sorted(os.listdir(ckpts)) if n.endswith(".safetensors")}
+        events = [os.path.join(out, "smoke", "tb", n)
+                  for n in os.listdir(os.path.join(out, "smoke", "tb")) if n.startswith("events")]
+        records = [len(read_events(e)) for e in events]  # each record's CRCs checked
+        if len(events) != 1 or records[0] < 4:
+            fail(f"do_train (async {mode}): events files {events} with {records} records")
+    expect_counts(counts(), {"nat_attention_fwd": 2 * 4 * 2 * TOOLS_DEPTH,
+                             "nat_attention_bwd": 2 * 4 * TOOLS_DEPTH}, "do_train async/sync")
+    names = ["0000002.safetensors", "0000004.safetensors"]
+    mirrored_files = {n: open(os.path.join(mirror, "checkpoints", n), "rb").read()
+                      for n in names}
+    if list(trees[True]) != names or trees[True] != mirrored_files:
+        fail(f"do_train with async checkpoints: files {list(trees[True])} differ from the same "
+             "states saved in line")
+    if trees[True] != trees[False]:
+        fail("do_train: the async run's checkpoints differ from the synchronous run's")
+    traces = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
+    if len(traces) != 2:  # one window a run
+        fail(f"VAVAE_PROFILE: traces {traces}, expected one a run")
+    size = os.path.getsize(os.path.join(prof, traces[0]))
+    return {"async_s": seconds[True], "sync_s": seconds[False], "trace_bytes": size,
+            "events_records": records[0], "checkpoint_bytes": sum(map(len, trees[True].values()))}
+
+
+def _ab_route(seed: int) -> dict:
+    """The production XL/1 (no qk-norm) under ``VAVAE_ATTN_NATURAL=0``: its
+    forward at batch 16 and loss gradients against plain attention (with
+    the launches of #3 and #6 held, phases 5-6's checks), and against the
+    natural route."""
+    cfg, model = build_xl(seed, "ab_route")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    B, s = 2 * BATCH, model.input_size
+    x = torch.randn((B, s, s, model.in_channels), generator=gen, device="cuda")
+    t = torch.rand((B,), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    transport = build_transport(cfg)
+    g2 = torch.Generator(device="cuda").manual_seed(seed + 2)
+    xg = torch.randn((B, s, s, model.in_channels), generator=g2, device="cuda")
+    yg = torch.randint(0, cfg.data.num_classes, (B,), generator=g2, device="cuda")
+    tg = transport.sample_t(B, g2)
+    x0 = torch.randn((B, s, s, model.in_channels), generator=g2, device="cuda")
+    drop = (torch.rand((B,), generator=g2, device="cuda") < 0.1).long()
+    params = list(model.parameters())
+
+    def run():
+        with torch.no_grad():
+            out = model(x, t, y).float()
+        grads = torch.autograd.grad(_training_loss(model, transport, xg, yg, tg, x0, drop), params)
+        return out, torch.cat([g.float().flatten() for g in grads])
+
+    os.environ["VAVAE_ATTN_NATURAL"] = "0"
+    try:
+        res = {"kernel_on_path": phase_kernel_on_path(model, seed, "ab_route"),
+               "train_path": phase_train_path(cfg, model, seed, "ab_route")}
+        reset_counts()
+        out_ab, grad_ab = run()
+        expect_counts(counts(), {"attn_small_fwd_rope": 3 * model.depth,
+                                 "attn_small_bwd": model.depth}, "VAVAE_ATTN_NATURAL=0")
+    finally:
+        del os.environ["VAVAE_ATTN_NATURAL"]
+    reset_counts()
+    out_nat, grad_nat = run()
+    expect_counts(counts(), {"nat_attention_fwd": 3 * model.depth,
+                             "nat_attention_bwd": model.depth}, "the natural route")
+    rel = ((out_ab - out_nat).norm() / out_nat.norm()).item()
+    rel_grad = ((grad_ab - grad_nat).norm() / grad_nat.norm()).item()
+    if not (rel <= PATH_TOL and rel_grad <= PATH_TOL):
+        fail(f"VAVAE_ATTN_NATURAL=0 vs the natural route: forward {rel}, gradients {rel_grad} "
+             f"(limit {PATH_TOL})")
+    del model
+    torch.cuda.empty_cache()
+    res.update(rel_err_vs_natural=rel, grad_rel_err_vs_natural=rel_grad)
+    log(f"[tools] VAVAE_ATTN_NATURAL=0 XL/1 B={B}: vs plain attention forward "
+        f"{res['kernel_on_path']['rel_err']:.3e}, gradients {res['train_path']['rel_err']:.3e}; "
+        f"vs the natural route forward {rel:.3e}, gradients {rel_grad:.3e}; 28 "
+        f"attn_small_fwd_rope a forward, 28 attn_small_bwd a backward")
+    return res
+
+
+def phase_tools(seed: int, device_info: dict, work: str, autotune: dict, keep: str) -> dict:
+    """Phase 32: the dispatcher, ``preflight``, both exports, the split,
+    ``validate_export``, ``convert_latents``, async checkpoints with a
+    profiler window, and the ``VAVAE_ATTN_NATURAL=0`` route."""
+    res, t0 = {}, time.perf_counter()
+    listed, unknown = _cli("--help"), _cli("no_such_command")
+    if listed.returncode != 0 or "autotune_sampler" not in listed.stdout or unknown.returncode != 2:
+        fail(f"python -m vavae_tpu_torch: --help rc {listed.returncode}, unknown command rc "
+             f"{unknown.returncode}\n{listed.stdout}{listed.stderr}{unknown.stderr}")
+    res["cli_s"] = time.perf_counter() - t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        preflight.main(["--config", autotune["config"]])
+    except SystemExit as e:
+        fail(f"preflight on the XL/1 config exited {e.code}")
+    res["preflight_s"] = time.perf_counter() - t0
+    expect_counts(counts(), {"nat_attention_fwd": 28}, "preflight's forward")
+
+    # the DiT's export, reloaded by the port's loader: the same forward bit for bit
+    cfg = load_config(autotune["config"])
+    pt = os.path.join(work, "xl_export.pt")
+    t0 = time.perf_counter()
+    export_torch.main(["--kind", "dit", "--config", autotune["config"], "--ckpt",
+                       autotune["ckpt"], "--out", pt])
+    res["export_dit_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    x = torch.randn((2 * BATCH, 16, 16, 32), generator=gen, device="cuda")
+    t = torch.rand((2 * BATCH,), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (2 * BATCH,), generator=gen, device="cuda")
+    outs = []
+    for path in (autotune["ckpt"], pt):
+        model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda").eval()
+        load_dit_params(model, path)
+        with torch.no_grad():
+            outs.append(model(x, t, y))
+        del model
+    torch.cuda.empty_cache()
+    if not torch.equal(outs[0], outs[1]):
+        fail("the XL/1 forward from the exported .pt differs from the checkpoint's")
+
+    # phase 24's VA-VAE state exported, loaded by VA_VAE: the same decode bit for bit
+    vae_state = os.path.join(keep, "vae_state.safetensors")
+    vae_ckpt = os.path.join(work, "vae_export.ckpt")
+    export_torch.main(["--kind", "vae", "--ckpt", vae_state, "--out", vae_ckpt])
+    exported = VA_VAE(embed_dim=32, ckpt_path=vae_ckpt, device="cuda")
+    direct = VA_VAE(embed_dim=32, device="cuda")
+    prefix = "gen_params|vae|"
+    direct.model.load_state_dict(vae_state_from_jax(unflatten(
+        {k[len(prefix):]: v for k, v in ckpt_lib.read_state_file(vae_state).items()
+         if k.startswith(prefix)})), strict=True)
+    z = torch.randn((4, 16, 16, 32), generator=gen, device="cuda")
+    if not torch.equal(exported.decode(z), direct.decode(z)):
+        fail("the VA-VAE decode from the exported .ckpt differs from the train state's")
+    del direct
+
+    # phase 26's users: the split, then validate_export with VF alignment
+    users, split = os.path.join(work, "users"), os.path.join(work, "split.json")
+    write_user_folder(users, seed)
+    prepare_dataset_split.main(["--data_root", users, "--output", split])
+    enc, rep = os.path.join(work, "encoder.msgpack"), os.path.join(work, "report.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    report = validate_export.main([
+        "--split_file", split, "--vae_ckpt", vae_ckpt, "--num_users", str(CLF_USERS),
+        "--train_ckpt", vae_state, "--train_config", os.path.join(keep, "vae_config.json"),
+        "--vf_kind", "dinov2", "--allow_random_foundation", "--export_encoder", enc,
+        "--out", rep])
+    res["validate_s"] = time.perf_counter() - t0
+    expect_counts(counts(), {}, "validate_export")
+    recon, vf = report["per_user_reconstruction"], report["vf_alignment"]
+    tree = read_msgpack(enc)
+    want_tree = vae_state_to_jax(exported.model.state_dict())
+    if (len(recon) != CLF_USERS or not all(np.isfinite(r["psnr"]) for r in recon.values())
+            or not -1 <= vf["min_cosine"] <= vf["mean_cosine"] <= 1
+            or set(tree) != {"encoder", "quant_conv"}
+            or not np.array_equal(tree["encoder"]["conv_in"]["kernel"],
+                                  want_tree["encoder"]["conv_in"]["kernel"])):
+        fail(f"validate_export: {len(recon)} users, VF {vf}, encoder keys {set(tree)}")
+    del exported
+    torch.cuda.empty_cache()
+    res.update(users=len(recon), mean_psnr=float(np.mean([r["psnr"] for r in recon.values()])),
+               vf_mean_cosine=vf["mean_cosine"],
+               between_within=report["latent_user_discrimination"]["between_within_ratio"])
+
+    # a seeded legacy latent dump through convert_latents, read back by the dataset
+    legacy, conv_out = os.path.join(work, "legacy"), os.path.join(work, "converted")
+    os.makedirs(legacy)
+    cpu = torch.Generator().manual_seed(seed + 61)
+    torch.save({"latents": torch.randn((LEGACY_LATENTS, 32, 16, 16), generator=cpu),
+                "user_ids": [i % CLF_USERS for i in range(LEGACY_LATENTS)]},
+               os.path.join(legacy, "train_latents.pt"))
+    convert_latents.main(["--input_dir", legacy, "--output_dir", conv_out, "--splits", "train",
+                          "--shard_size", "16", "--use_labels"])
+    ds = ImgLatentDataset(os.path.join(conv_out, "train"), latent_norm=True)
+    xb, yb = next(ds.batches(8, shuffle=False, epochs=1))
+    if len(ds) != LEGACY_LATENTS or xb.shape != (8, 16, 16, 32) or list(yb) != list(range(8)) \
+            or not np.isfinite(xb).all():
+        fail(f"convert_latents: {len(ds)} latents, batch {xb.shape}, labels {list(yb)}")
+
+    res["do_train"] = _tools_do_train(seed, work)
+    res["ab_route"] = _ab_route(seed)
+    d = res["do_train"]
+    log(f"[tools] dispatcher {res['cli_s']:.1f} s; preflight {res['preflight_s']:.1f} s (28 "
+        f"nat_attention_fwd); export_torch --kind dit {res['export_dit_s']:.1f} s, forward "
+        f"bit-equal; --kind vae decode bit-equal; validate_export {res['validate_s']:.1f} s "
+        f"({res['users']} users, mean PSNR {res['mean_psnr']:.2f}, VF mean cosine "
+        f"{res['vf_mean_cosine']:.4f}); convert_latents {LEGACY_LATENTS} latents; do_train "
+        f"async {d['async_s']:.1f} s vs in line {d['sync_s']:.1f} s, files byte-equal, a trace "
+        f"of {d['trace_bytes']} bytes, {d['events_records']} event records [{device_info['smi']}]")
+    return res
+
+
+def run_tools(seed: int, device_info: dict, keep: str) -> dict:
+    """Phases 31-32."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        out = {"autotune": phase_autotune(seed, device_info, work)}
+        t1 = time.perf_counter()
+        out["tools"] = phase_tools(seed, device_info, work, out["autotune"], keep)
+        out["tools"]["phase_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tools] phases 31-32: {out['seconds']:.1f} s (32: {out['tools']['phase_s']:.1f} s)")
+    return out
+
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
@@ -3079,8 +3492,13 @@ def main(argv=None) -> int:
     hires = phase_hires(SEED, device)
     samplers = run_samplers(SEED, device)
     tokenizer = run_tokenizer(SEED, device)
-    vae_training = run_vae_training(SEED, device)
-    apps = run_microdoppler_apps(SEED, device)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    try:
+        vae_training = run_vae_training(SEED, device, keep)
+        apps = run_microdoppler_apps(SEED, device)
+        tools = run_tools(SEED, device, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -3101,10 +3519,10 @@ def main(argv=None) -> int:
             json.dump({"device": device, "build": builds, "kernels": kernels,
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
-                       "vae_training": vae_training, "apps": apps,
+                       "vae_training": vae_training, "apps": apps, "tools": tools,
                        "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-30: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-32: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

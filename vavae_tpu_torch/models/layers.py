@@ -10,6 +10,7 @@ fp32 and cast at use; the norms compute in fp32 inside.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +19,14 @@ from torch import nn
 # rotate_half lives in the JAX layers module; it is re-exported here
 from vavae_tpu_torch.ops.attention import dot_product_attention, rotate_half  # noqa: F401
 from vavae_tpu_torch.ops.flash_attention import fused_qkv_attention
+
+
+def natural_attention_enabled() -> bool:
+    """Attention straight off the fused qkv tensor (the default);
+    ``VAVAE_ATTN_NATURAL=0`` sends a model without QK-norm through the
+    separate q, k, v route instead, for A/B comparison. Read at every
+    forward, as the JAX package reads it at every trace."""
+    return os.environ.get("VAVAE_ATTN_NATURAL", "1") != "0"
 
 
 class Linear(nn.Linear):
@@ -169,7 +178,9 @@ class Attention(nn.Module):
     Both run hand-written kernels on the card and the plain versions on the
     CPU. Beyond 1024 tokens both reach the long route, whose output is fp32
     for RoPE models (q, k rotated with the fp32 tables, as in JAX); ``proj``
-    casts it to the compute dtype, as the JAX ``nn.Dense`` does."""
+    casts it to the compute dtype, as the JAX ``nn.Dense`` does. With
+    ``VAVAE_ATTN_NATURAL=0`` a model without QK-norm takes the separate
+    q, k, v route too (``natural_attention_enabled``)."""
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
                  use_rmsnorm: bool = False, dtype: torch.dtype = torch.float32):
@@ -196,11 +207,12 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         B, N, C = x.shape
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
-        if not self.qk_norm:
+        if not self.qk_norm and natural_attention_enabled():
             out = fused_qkv_attention(qkv, rope=rope)
             return self.proj(out.reshape(B, N, C))
         q, k, v = qkv.unbind(dim=2)
-        q = self._norm(self.q_norm, q)
-        k = self._norm(self.k_norm, k)
+        if self.qk_norm:
+            q = self._norm(self.q_norm, q)
+            k = self._norm(self.k_norm, k)
         out = dot_product_attention(q, k, v, rope=rope)
         return self.proj(out.reshape(B, N, C))

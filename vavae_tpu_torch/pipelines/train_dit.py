@@ -6,7 +6,10 @@ and runs the step loop: ``(step=…) Train Loss …, Train Steps/Sec …`` log
 lines every ``log_every`` steps (and ``metrics.jsonl``), a checkpoint every
 ``ckpt_every`` steps with validation and early stopping when
 ``data.valid_path`` is set, EMA sample grids every ``sample_every`` steps, a
-checkpoint on SIGTERM, and a final checkpoint. One process drives one card:
+checkpoint on SIGTERM, and a final checkpoint. Checkpoints are written from
+a background thread unless ``train.async_checkpoint`` is false;
+``VAVAE_PROFILE=/dir`` traces a window of steps (``utils/profiling.py``);
+the config goes to TensorBoard as text. One process drives one card:
 ``train.global_batch_size`` is the batch of each step. Runs on the card
 unless ``--device cpu`` is passed.
 
@@ -33,6 +36,7 @@ from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.metrics_logger import MetricsLogger
 from vavae_tpu_torch.utils.png import encode_png
 from vavae_tpu_torch.utils.preemption import PreemptionGuard
+from vavae_tpu_torch.utils.profiling import WindowTracer
 from vavae_tpu_torch.utils.msgpack_io import load_state_tree
 from vavae_tpu_torch.utils.weights import dit_state_from_jax, dit_state_from_reference
 
@@ -100,7 +104,11 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     logger = create_logger()
 
     latent_size = cfg.data.image_size // cfg.get("vae", {}).get("downsample_ratio", 16)
-    model = create_dit(cfg.model, latent_size, cfg.data.num_classes, device=dev)
+    # the fresh weights draw from torch's global stream: seeded here, so two
+    # runs of one config start alike, as the JAX package's PRNGKey(global_seed)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(cfg.train.get("global_seed", 0))
+        model = create_dit(cfg.model, latent_size, cfg.data.num_classes, device=dev)
     dataset = _dataset(cfg, cfg.data.data_path)
     valid_dataset = _dataset(cfg, cfg.data.valid_path) if cfg.data.get("valid_path") else None
 
@@ -128,9 +136,19 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     logger.info(f"LightningDiT parameters: {n_params / 1e6:.2f}M on {dev}")
     logger.info(f"dataset: {len(dataset):,} latents; batch {global_bs}")
     metrics_log = MetricsLogger(os.path.join(exp_dir, "tb"))
+    metrics_log.log_text("config", str(dict(cfg)))
+    # train.async_checkpoint (default on): the snapshot is taken here, the
+    # write overlaps the next steps
+    writer = ckpt_lib.AsyncCheckpointer() if cfg.train.get("async_checkpoint", True) else None
 
-    def save(dir_: str, at_step: int, with_cfg: bool = True) -> None:
-        ckpt_lib.save_checkpoint(dir_, at_step, state, dict(cfg) if with_cfg else None)
+    def save(dir_: str, at_step: int, with_cfg: bool = True, sync: bool = False) -> None:
+        config = dict(cfg) if with_cfg else None
+        if writer is None:
+            ckpt_lib.save_checkpoint(dir_, at_step, state, config)
+        else:
+            writer.save(dir_, at_step, state, config)
+            if sync:
+                writer.wait()
 
     log_every = cfg.train.get("log_every", 100)
     if cfg.train.get("ckpt_every_epoch"):
@@ -143,6 +161,7 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     latent_stats = dataset.latent_stats if cfg.data.get("latent_norm") else None
 
     it = dataset.batches(global_bs, seed=cfg.train.get("global_seed", 0))
+    tracer = WindowTracer()  # VAVAE_PROFILE=/dir traces a window of steps
     loss_acc, log_steps, t_start = [], 0, time.time()
     step = state.step
     guard = PreemptionGuard().__enter__()
@@ -150,11 +169,12 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     try:
         while step < max_steps:
             if guard.should_stop:
-                save(ckpt_dir, step)
+                save(ckpt_dir, step, sync=True)
                 logger.info(f"preempted: checkpointed at step {step}, exiting")
                 break
             metrics = trainer.train_step(state, next(it))
             step = state.step
+            tracer.step(step, sync_on=metrics["loss"])
             loss_acc.append(metrics["loss"])  # stays on the device until a log point
             log_steps += 1
 
@@ -190,13 +210,14 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
         completed = True
     finally:
         guard.__exit__()
+        tracer.close()
         if not completed:  # best effort, without masking the original error
             try:
-                save(ckpt_dir, step)
+                save(ckpt_dir, step, sync=True)
             except Exception as e:  # noqa: BLE001
                 logger.error(f"final checkpoint after failure also failed: {e}")
             metrics_log.close()
-    save(ckpt_dir, step)
+    save(ckpt_dir, step, sync=True)
     metrics_log.close()
     logger.info("training done")
     return state

@@ -14,9 +14,10 @@ prefetches batches, logs ``epoch e step s: rec …, … it/s`` and
 ``val/rec_loss`` goes to ``best/`` with ``best/metric.json``), checkpoints
 every epoch with ``epoch.json``, logs each epoch's duration and peak
 device memory, and on SIGTERM checkpoints mid-epoch and stops. Checkpoints
-are written in line. The stage-1 ``weight_init`` (or ``ckpt_path``) is a
-train-state ``.safetensors`` (weights only, shape-checked) or a reference
-``.ckpt``/``.pt``.
+are written from a background thread unless ``train.async_checkpoint`` is
+false; ``VAVAE_PROFILE=/dir`` traces a window of steps. The stage-1
+``weight_init`` (or ``ckpt_path``) is a train-state ``.safetensors``
+(weights only, shape-checked) or a reference ``.ckpt``/``.pt``.
 
     python -m vavae_tpu_torch.pipelines.train_vavae --base VAE.yaml --data_path DIR
         [--val_path DIR] [--output_dir OUT] [--batch_size 8] [--stages official|single]
@@ -30,6 +31,7 @@ weights with ``--allow_random_foundation``) and ``VAVAE_LPIPS_WEIGHTS`` /
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -54,6 +56,7 @@ from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.image_grid import log_reconstructions
 from vavae_tpu_torch.utils.metrics_logger import MetricsLogger
 from vavae_tpu_torch.utils.preemption import PreemptionGuard
+from vavae_tpu_torch.utils.profiling import WindowTracer
 
 # the official 3-stage recipe (f16d32_vfdinov2_long.yaml)
 OFFICIAL_STAGES = [
@@ -132,12 +135,14 @@ def _write_json(path: str, record: dict) -> None:
 def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: int,
                  batch_size: int, logger: logging.Logger, ckpt_dir: str, log_every: int = 100,
                  seed: int = 0, val_dataset=None, start_epoch: int = 0,
-                 log_images_every: int = 750):
+                 async_ckpt: bool = True, log_images_every: int = 750):
     """Returns (state, best_val_path, preempted). ``dataset.batches`` yields
     (B, H, W, 3) images in [-1, 1] (or (images, labels)); ``preempted`` is
     True when SIGTERM ended the run mid-epoch, and the caller must stop.
     ``start_epoch`` keeps the per-epoch shuffles on their schedule when a
-    stage resumes."""
+    stage resumes. With ``async_ckpt`` the epoch's checkpoints are written
+    from a background thread while the next epoch runs, and ``epoch.json``
+    and ``best/metric.json`` are written after their checkpoint is on disk."""
     best_dir = os.path.join(ckpt_dir, "best")
     metric_file = os.path.join(best_dir, "metric.json")
     best_val, best_path = float("inf"), None
@@ -147,6 +152,16 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
             best_val = float(json.load(f).get("val", float("inf")))
         best_path = ckpt_lib.latest_checkpoint(best_dir)
     cuda = trainer.device.type == "cuda"
+    writer = ckpt_lib.AsyncCheckpointer() if async_ckpt else None
+
+    def save(dir_: str, on_complete) -> str:
+        if writer is not None:
+            return writer.save(dir_, state.step, state, on_complete=on_complete)
+        path = ckpt_lib.save_checkpoint(dir_, state.step, state)
+        on_complete()
+        return path
+
+    tracer = WindowTracer()  # VAVAE_PROFILE=/dir traces a window of steps
     mlog = MetricsLogger(os.path.join(ckpt_dir, "tb"))
     guard = PreemptionGuard().__enter__()
     loss_acc, log_steps, run_steps, t0 = [], 0, 0, time.time()
@@ -161,6 +176,7 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
                 loss_acc.append(metrics["rec_loss"])  # read at the log point only
                 log_steps += 1
                 run_steps += 1
+                tracer.step(run_steps, sync_on=metrics["rec_loss"])
                 if log_images_every and run_steps % log_images_every == 0:
                     dec = trainer.reconstruct(state, images)
                     log_reconstructions(os.path.join(ckpt_dir, "images"), state.step,
@@ -168,6 +184,8 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
                 if guard.should_stop:
                     # epoch.json counts the completed epochs only: resume
                     # re-runs this one on the saved (newer) weights
+                    if writer is not None:
+                        writer.wait()  # after the epoch's write in flight
                     ckpt_lib.save_checkpoint(ckpt_dir, state.step, state)
                     _write_json(os.path.join(ckpt_dir, "epoch.json"), {"epochs_done": epoch})
                     logger.info(f"preempted at step {state.step}: checkpoint saved")
@@ -190,20 +208,25 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
                 mlog.log_scalars(state.step, {"val/rec_loss": val})
                 if val < best_val:
                     best_val = val
-                    best_path = ckpt_lib.save_checkpoint(best_dir, state.step, state)
-                    _write_json(metric_file, {"val": val, "step": state.step})
+                    best_path = save(best_dir, functools.partial(
+                        _write_json, metric_file, {"val": val, "step": state.step}))
             # an explicit count: a zero-step epoch saves under an unchanged
             # step number, which counting checkpoints would miss
-            ckpt_lib.save_checkpoint(ckpt_dir, state.step, state)
-            _write_json(os.path.join(ckpt_dir, "epoch.json"), {"epochs_done": epoch + 1})
+            save(ckpt_dir, functools.partial(_write_json, os.path.join(ckpt_dir, "epoch.json"),
+                                             {"epochs_done": epoch + 1}))
             scalars = {"epoch/duration_s": time.time() - t_epoch}
             if cuda:
                 scalars["epoch/peak_mem_mb"] = torch.cuda.max_memory_allocated(trainer.device) / 1e6
             mlog.log_scalars(state.step, scalars)
             logger.info(f"epoch {epoch} done at step {state.step}: "
                         + ", ".join(f"{k} {v:.2f}" for k, v in scalars.items()))
+        if writer is not None:
+            # the stage's last write is on disk before the next stage chains
+            # from it (resume counts the files)
+            writer.wait()
     finally:
         guard.__exit__()
+        tracer.close()
         mlog.close()
     return state, best_path, False
 
@@ -295,7 +318,8 @@ def run_stages(cfg: Config, dataset, val_dataset=None, stages: Sequence[dict] = 
         state, _, preempted = train_epochs(
             trainer, state, dataset, epochs=stage["epochs"], batch_size=batch_size,
             logger=logger, ckpt_dir=stage_dir, val_dataset=val_dataset,
-            start_epoch=epochs_done, log_images_every=train_cfg.get("log_images_every", 750))
+            start_epoch=epochs_done, async_ckpt=train_cfg.get("async_checkpoint", True),
+            log_images_every=train_cfg.get("log_images_every", 750))
         if preempted:
             logger.info(f"preempted during stage {si + 1}: exiting for relaunch "
                         "(auto-resume continues this stage)")

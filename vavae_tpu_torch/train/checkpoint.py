@@ -15,7 +15,8 @@ JAX package's tree:
     and optax's Adam states ``{gen,disc}_opt|0|{count,mu|…,nu|…}`` with
     the empty ``{gen,disc}_opt|1``; so the JAX package's
     ``restore_checkpoint`` reads a port file and the port reads a JAX one.
-``config.json`` sits beside the files. Resume takes the highest step
+``config.json`` sits beside the files. ``AsyncCheckpointer`` writes the
+same files from a background thread. Resume takes the highest step
 number, not the largest file, and reads the JAX package's legacy
 ``.msgpack`` files too (flax's msgpack, ``utils/msgpack_io.py``), whose
 flattened tree has the same keys; a JAX-written DiT state's optax
@@ -28,7 +29,8 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -190,21 +192,86 @@ def restore_weights(path: str, state: VAETrainState) -> tuple[int, int]:
 # -- both states -------------------------------------------------------------------
 
 
+def _state_file(state: TrainState | VAETrainState) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """The tensors and the metadata of ``state``'s file."""
+    if isinstance(state, VAETrainState):
+        tensors, empty = vae_state_tensors(state)
+        return tensors, tree_metadata(empty_keys=empty)
+    tensors, bf16 = state_tensors(state)
+    return tensors, tree_metadata(bf16)
+
+
+def _write_config(ckpt_dir: str, config: Optional[dict]) -> None:
+    if config is not None:
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState | VAETrainState,
                     config: Optional[dict] = None) -> str:
     """Write ``state`` to ``{ckpt_dir}/{step:07d}.safetensors`` (and
     ``config.json`` beside it); returns the path."""
     path = os.path.join(ckpt_dir, f"{step:07d}.safetensors")
-    if isinstance(state, VAETrainState):
-        tensors, empty = vae_state_tensors(state)
-        write_safetensors(path, tensors, tree_metadata(empty_keys=empty))
-    else:
-        tensors, bf16 = state_tensors(state)
-        write_safetensors(path, tensors, tree_metadata(bf16))
-    if config is not None:
-        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
-            json.dump(config, f, indent=2, default=str)
+    write_safetensors(path, *_state_file(state))
+    _write_config(ckpt_dir, config)
     return path
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training (``train.async_checkpoint``).
+
+    ``save`` takes the device-to-host snapshot on the caller's thread, so the
+    file holds the state as it was at the call, and hands the serialisation
+    and the write to one background thread. At most one write is in flight:
+    a new ``save`` first waits for the one before, which bounds host memory
+    to one snapshot. A writer's error is raised by the next ``save`` or
+    ``wait``; call ``wait()`` at the loop's end, and before a preemption
+    exit, so that the last write is on disk. The file is byte for byte the
+    one ``save_checkpoint`` writes for the same state."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _drain(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, ckpt_dir: str, step: int, state: TrainState | VAETrainState,
+             config: Optional[dict] = None, on_complete: Optional[Callable[[], None]] = None) -> str:
+        """Snapshot ``state`` and schedule its write; returns the path at
+        once. ``on_complete()`` runs on the writer's thread after the file
+        is written: for the resume records (``epoch.json``,
+        ``best/metric.json``) that must never exist without their file."""
+        self._drain()
+        tensors, metadata = _state_file(state)
+        live = (state.gen_params if isinstance(state, VAETrainState) else state.params)[0]
+        if live.device.type == "cpu":
+            # the host arrays of CPU tensors are views of the live weights,
+            # which the next optimizer step updates in place: copy them
+            tensors = {k: np.array(v) for k, v in tensors.items()}
+        path = os.path.join(ckpt_dir, f"{step:07d}.safetensors")
+
+        def work() -> None:
+            try:
+                write_safetensors(path, tensors, metadata)
+                _write_config(ckpt_dir, config)
+                if on_complete is not None:
+                    on_complete()
+            except BaseException as e:  # raised by the next save or wait
+                self._error = e
+
+        self._thread = threading.Thread(target=work, name=f"ckpt-write-{step}", daemon=True)
+        self._thread.start()
+        return path
+
+    def wait(self) -> None:
+        """Block until the write in flight, if any, is on disk."""
+        self._drain()
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -34,16 +34,27 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 
 def _trace(fn, reps: int) -> list:
     """The CUDA events of ``reps`` calls of ``fn``, aggregated by name. The
-    card idles ``GUARD_S`` after the trace starts and before it stops: the
-    records of the kernels in a trace's first moments are often missing."""
+    profiler runs ``reps`` calls as a warm-up step, whose records it
+    discards, before the ``reps`` it keeps: the records of the kernels in a
+    trace's first moments are often missing. The card idles ``GUARD_S``
+    before each step ends."""
     cuda = torch.autograd.DeviceType.CUDA
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        time.sleep(GUARD_S)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(GUARD_S)
-    return [ev for ev in prof.key_averages() if getattr(ev, "device_type", None) == cuda]
+    kept: list = []
+
+    def ready(prof) -> None:
+        kept.extend(ev for ev in prof.key_averages()
+                    if getattr(ev, "device_type", None) == cuda)
+
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=schedule, on_trace_ready=ready) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(GUARD_S)
+            prof.step()
+    return kept
 
 
 def device_kernels(fn, reps: int = 20) -> dict:

@@ -3,7 +3,9 @@
 The file is an 8-byte little-endian header length, a JSON header mapping
 each name to ``{dtype, shape, data_offsets}`` (plus optional
 ``__metadata__``), then the raw bytes. Neither direction needs the
-``safetensors`` package. ``load_tree`` also undoes the JAX package's
+``safetensors`` package; the writer lays a file out as the package does
+(metadata first, tensors by descending dtype, then by name), so the two
+write the same bytes. ``load_tree`` also undoes the JAX package's
 train-state encoding (``vavae_tpu/train/checkpoint.py``): keys joined with
 ``|``, bf16 leaves stored as uint16 and named in the ``tree`` metadata;
 ``tree_metadata`` writes it.
@@ -24,6 +26,10 @@ _DTYPES = {
     "BOOL": np.bool_, "BF16": np.uint16,
 }
 _NAMES = {np.dtype(v): k for k, v in _DTYPES.items() if k != "BF16"}
+# the safetensors package's dtype order: it writes tensors by this rank,
+# descending, then by name
+_RANK = {k: i for i, k in enumerate(
+    ("BOOL", "U8", "I8", "I16", "U16", "F16", "BF16", "I32", "U32", "F32", "F64", "I64", "U64"))}
 SEP = "|"
 
 
@@ -67,28 +73,30 @@ def read_safetensors(path: str) -> tuple[dict[str, np.ndarray], dict[str, str]]:
 def write_safetensors(path: str, tensors: Mapping[str, np.ndarray],
                       metadata: Mapping[str, str] | None = None) -> None:
     """Write ``tensors`` to ``path`` atomically (a temporary file, then a
-    rename, so a reader never sees half a file). Arrays are written in C
+    rename, so a reader never sees half a file), byte for byte as
+    ``safetensors.numpy.save_file`` writes them. Arrays are written in C
     order whatever their strides; 0-d arrays keep their shape."""
-    header: dict[str, Any] = {}
-    offset = 0
-    for name, a in tensors.items():
-        a = np.asarray(a)
+    arrays = {name: np.asarray(a) for name, a in tensors.items()}
+    for name, a in arrays.items():
         if a.dtype not in _NAMES:
             raise TypeError(f"{name}: dtype {a.dtype} has no safetensors name")
+    order = sorted(arrays, key=lambda n: (-_RANK[_NAMES[arrays[n].dtype]], n))
+    header: dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for name in order:
+        a = arrays[name]
         header[name] = {"dtype": _NAMES[a.dtype], "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
         offset += a.nbytes
-    if metadata:
-        header["__metadata__"] = dict(metadata)
-    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode()
     raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
-        for a in tensors.values():
-            f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8).data)
+        for name in order:
+            f.write(np.ascontiguousarray(arrays[name]).reshape(-1).view(np.uint8).data)
     os.replace(tmp, path)
 
 
