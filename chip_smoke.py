@@ -3459,6 +3459,351 @@ def run_tools(seed: int, device_info: dict, keep: str) -> dict:
     return out
 
 
+# -- phase 33: the multi-device paths ------------------------------------------------------
+
+DIST_DEPTH = 4          # (b)'s XL/1-width DiT
+DIST_BATCH = 32         # (b)'s global batch: 16 a rank at world 2
+DIST_STEPS = 2
+DIST_WAIT_S = 600       # each launch's limit
+# (b): world 2 over gloo against world 1, relative differences (bf16 model):
+# the losses of both steps, and the parameters after them (Frobenius over
+# all), and the gradient's global norm at both steps (an all-reduce that
+# sums where it should average doubles it; Adam would hide that in the
+# parameters). Measured on an H100 80GB HBM3 (700 W): losses 5.1e-6 to
+# 1.1e-5, parameters 2.4e-5 (DP, FSDP) to 9.7e-5 (TP), gradient norms 2.4e-5
+# (TP) to 9.2e-5 (DP, FSDP); the limits are about 5x those
+DIST_LOSS_TOL = 5e-5
+DIST_PARAM_TOL = 5e-4
+DIST_NORM_TOL = 5e-4
+DIST_LAYOUTS = {  # name -> ((data, fsdp, tensor), branch)
+    "dp": ((2, 1, 1), "production"),
+    "fsdp": ((1, 2, 1), "production"),
+    "tp": ((1, 1, 2), "production"),
+    "tp_qknorm": ((1, 1, 2), "qknorm"),
+}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_start(case: str, world: int, work: str, backend: str) -> list:
+    """Start ``world`` copies of this script running ``case``
+    (``--dist-case``), joined through ``multihost_init``'s environment
+    contract (torchrun's variables); ``backend`` gloo puts every rank on
+    card 0."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), VAVAE_DIST_TIMEOUT="300",
+                   LOCAL_RANK=str(0 if backend == "gloo" else rank),
+                   CHIP_SMOKE_DIST_BACKEND=backend)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-case", case, "--dist-work", work],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _dist_wait(procs: list, case: str, work: str) -> list[dict]:
+    """Each rank's result once every rank has exited (killed past
+    DIST_WAIT_S); fails if one did not exit 0."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_WAIT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 33 {case}: rank {rank} of {len(procs)} exited {p.returncode}:\n"
+                 f"{out[-4000:]}")
+    results = []
+    for rank in range(len(procs)):
+        with open(os.path.join(work, f"{case}_{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _dist_worker(case: str, work: str) -> None:
+    """A rank of a phase-33 world: join it, run ``case``, write the result."""
+    import datetime
+
+    import torch.distributed as torch_dist
+
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if os.environ.get("CHIP_SMOKE_DIST_BACKEND") == "gloo":
+        # two ranks on one card: NCCL refuses that, gloo takes CUDA tensors
+        torch.cuda.set_device(0)
+        torch_dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+            world_size=int(os.environ["WORLD_SIZE"]), rank=int(os.environ["RANK"]),
+            timeout=datetime.timedelta(seconds=300))
+    mesh_lib.multihost_init("cuda")
+    result = {"world": mesh_lib.process_count(), "rank": mesh_lib.process_index(),
+              "backend": torch_dist.get_backend()}
+    result.update({"entry": _dist_case_entry, "layouts": _dist_case_layouts}[case](work))
+    with open(os.path.join(work, f"{case}_{mesh_lib.process_index()}.json"), "w") as f:
+        json.dump(result, f)
+    mesh_lib.barrier()
+    mesh_lib.shutdown()
+
+
+def _entry_config(work: str, out: str, parallel: dict | None = None) -> Config:
+    """Phase 8's ``do_train`` setup: 4 steps at batch 8, a checkpoint every 2."""
+    cfg = branch_config("production").merged_with({
+        "data": {"data_path": os.path.join(work, "latents")},
+        "train": {"max_steps": 4, "global_batch_size": 8, "ckpt_every": 2, "log_every": 2,
+                  "output_dir": os.path.join(work, out), "exp_name": "smoke"}})
+    return cfg.merged_with({"parallel": parallel}) if parallel else cfg
+
+
+def _entry_layouts(world: int) -> dict:
+    """(a)'s ``parallel:`` blocks: the data, fsdp and tensor axes each
+    spanning the world; at world 1 every axis has size 1, so the three are
+    one mesh and one run."""
+    layouts = {"dp": {"data": -1}, "fsdp": {"fsdp": world}, "tp": {"tensor": world}}
+    return layouts if world > 1 else {"dp": layouts["dp"]}
+
+
+def _dist_case_entry(work: str) -> dict:
+    """(a), a rank at world = the card count over NCCL: ``do_train`` under
+    each of ``_entry_layouts``, then one rank-striped sampling call; XL/1
+    width at depth 2 throughout."""
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
+
+    world, fwd, bwd, depth = mesh_lib.process_count(), "nat_attention_fwd", "nat_attention_bwd", 2
+    out = {}
+    for name, par in _entry_layouts(world).items():
+        with xl_depth(depth):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = do_train(_entry_config(work, name, par), device="cuda")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        got = counts()
+        expect_counts(got, {fwd: 4 * 2 * depth, bwd: 4 * depth}, f"do_train {name}")
+        out[name] = {"step": state.step, "seconds": seconds, "launches": [got[fwd], got[bwd]],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del state
+        torch.cuda.empty_cache()
+    cfg = Config(PRODUCTION).merged_with({
+        "ckpt_path": os.path.join(work, "xl.safetensors"),
+        "sample_folder": os.path.join(work, "samples"), "data": {"latent_norm": False},
+        "sample": {"num_sampling_steps": SAMPLER_STEPS, "fid_num": BATCH * world}})
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with xl_depth(depth):
+        folder = do_sample(cfg, device="cuda")
+    got = counts()
+    expect_counts(got, {fwd: depth * (SAMPLER_STEPS - 1)}, "rank-striped sampling")
+    out["sample"] = {"seconds": time.perf_counter() - t0, "launches": got[fwd],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "names": sorted(os.listdir(folder))}
+    return out
+
+
+def _dist_batches(seed: int) -> list:
+    rs = np.random.default_rng(seed + 33)
+    return [(rs.standard_normal((DIST_BATCH, 16, 16, 32)).astype(np.float32),
+             rs.integers(0, 1000, (DIST_BATCH,)).astype(np.int32)) for _ in range(DIST_STEPS)]
+
+
+def _dist_trainer(branch: str, mesh=None):
+    """An XL/1-width DiT at depth DIST_DEPTH (seeded random weights) and its
+    production trainer, on ``mesh``."""
+    cfg = branch_config(branch)
+    with xl_depth(DIST_DEPTH):
+        model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
+    randomize_(model, SEED)
+    return build_trainer(cfg, model, steps_per_epoch=1, max_steps=DIST_STEPS, mesh=mesh)
+
+
+def _dist_case_layouts(work: str) -> dict:
+    """(b), a rank of two sharing the card over gloo: DIST_STEPS train steps
+    under DP, FSDP and tensor parallelism (both attention branches) on its
+    rows of the global batches; the gathered parameters to a file."""
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for name, (shape, branch) in DIST_LAYOUTS.items():
+        mesh = mesh_lib.make_mesh(*shape)
+        trainer = _dist_trainer(branch, mesh)
+        state = trainer.distribute(trainer.init_state())
+        fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, ms = [], [], []
+        for x, y in _dist_batches(SEED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.train_step(state, mesh_lib.shard_batch(mesh, (x, y)))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = counts()
+        expect_counts(got, {fwd: DIST_STEPS * 2 * DIST_DEPTH, bwd: DIST_STEPS * DIST_DEPTH},
+                      f"{name} train steps")
+        full = state.gathered()
+        if mesh_lib.process_index() == 0:
+            torch.save([p.detach().float().cpu() for p in full.params],
+                       os.path.join(work, f"{name}_params.pt"))
+        out[name] = {"losses": losses, "grad_norms": norms, "ms_per_step": ms,
+                     "launches": [got[fwd], got[bwd]], "local_heads":
+                     trainer.model.blocks[0].attn.num_heads,
+                     "rank_batch": mesh_lib.shard_batch(mesh, _dist_batches(SEED)[0])[0].shape[0],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del trainer, state, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
+    """Phase 33: the multi-device paths. (a) A world of
+    ``torch.cuda.device_count()`` processes over NCCL (torchrun's
+    variables): ``do_train`` on phase 8's setup with the data, fsdp and
+    tensor axes each spanning the world, every checkpoint bit-equal to one
+    process's ``do_train`` (at world 1 the three axes have size 1, so one
+    run covers them: the data-parallel path, NCCL, the mesh, the
+    rank-striped loader and the rank-0 writes), and one rank-striped euler split-CFG sampling call, all
+    at XL/1 width cut to depth 2. (b) Two ranks sharing the card over gloo, each on its rows of
+    batch-32 global batches: an XL/1-width DiT at depth 4, DIST_STEPS steps
+    under DP, FSDP = 2, tensor = 2 and tensor = 2 with QK-norm (#1/#2 and
+    #3/#6 on 8 local heads of 72), against one process at batch 32 (the
+    losses, the gradient norms and the parameters). (a)'s
+    and (b)'s ranks and this process's references run side by side, so
+    their times include each other's load. On a
+    machine of several cards (a) runs a world of each card; its
+    checkpoints are then held to DIST_PARAM_TOL, and ``with_b=False``
+    leaves (b) out."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    procs, procs_b = [], []
+    try:
+        rs = np.random.default_rng(seed)
+        for i in range(2):
+            lat = rs.standard_normal((24, 32, 16, 16)).astype(np.float32)
+            write_safetensors(os.path.join(work, "latents", f"shard_{i:03d}.safetensors"), {
+                "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+                "labels": rs.integers(0, 1000, (24,)).astype(np.int32)})
+        with xl_depth(2):
+            _, model = build_xl(seed)
+        write_safetensors(os.path.join(work, "xl.safetensors"),
+                          flatten(dit_state_to_jax(model.state_dict()), "params"))
+        del model
+        # (a)'s and (b)'s ranks start together (importing this script takes
+        # seconds, and (b)'s collective-bound steps need little of the card)
+        # while this process runs the world-1 references of both
+        t0 = time.perf_counter()
+        procs = _dist_start("entry", world, work, "nccl")
+        procs_b = _dist_start("layouts", 2, work, "gloo") if with_b else []
+        with xl_depth(2):
+            do_train(_entry_config(work, "single"), device="cuda")
+        ref = {}
+        for branch in ("production", "qknorm"):
+            trainer = _dist_trainer(branch)
+            state = trainer.init_state()
+            metrics = [trainer.train_step(state, b) for b in _dist_batches(seed)]
+            ref[branch] = ([m["loss"].item() for m in metrics],
+                           [m["grad_norm"].item() for m in metrics],
+                           [p.detach().float().cpu() for p in state.params])
+            del trainer, state
+        torch.cuda.empty_cache()
+        entry = _dist_wait(procs, "entry", work)
+        entry_s = time.perf_counter() - t0
+        single = os.path.join(work, "single", "smoke", "checkpoints")
+        rel_a = {}
+        for name in _entry_layouts(world):
+            ckpts = os.path.join(work, name, "smoke", "checkpoints")
+            for f in ("0000002.safetensors", "0000004.safetensors"):
+                a, b = os.path.join(single, f), os.path.join(ckpts, f)
+                if world == 1:  # one rank's all-reduce is a copy: bit-equal
+                    with open(a, "rb") as fa, open(b, "rb") as fb:
+                        if fa.read() != fb.read():
+                            fail(f"phase 33 (a): {name} do_train's {f} differs from one "
+                                 "process's")
+                    continue
+                want, got = read_safetensors(a)[0], read_safetensors(b)[0]
+                keys = [k for k in want if k.startswith(("params|", "ema_params|"))]
+                rel_a[f"{name} {f}"] = _frob([torch.from_numpy(got[k]) for k in keys],
+                                             [torch.from_numpy(want[k]) for k in keys])
+                if not rel_a[f"{name} {f}"] <= DIST_PARAM_TOL:
+                    fail(f"phase 33 (a): {name} do_train's {f} is {rel_a[f'{name} {f}']:.3e} "
+                         f"from one process's (limit {DIST_PARAM_TOL})")
+        names = entry[0]["sample"]["names"]
+        if names != [f"{i:06d}.png" for i in range(BATCH * world)]:
+            fail(f"phase 33 (a): sample names {names}")
+        for r in entry:
+            log(f"[dist] (a) rank {r['rank']}/{r['world']} {r['backend']}: do_train "
+                + ", ".join(f"{n} {r[n]['seconds']:.1f} s launches {r[n]['launches']} peak "
+                            f"{r[n]['peak_bytes'] / 2**30:.2f} GiB" for n in _entry_layouts(world))
+                + f"; sampling XL/1 width depth 2 euler-{SAMPLER_STEPS} batch {BATCH}: "
+                f"{r['sample']['seconds']:.1f} s, {r['sample']['launches']} launches, peak "
+                f"{r['sample']['peak_bytes'] / 2**30:.2f} GiB [{device_info['smi']}]")
+        same = ("bit-equal to one process's" if world == 1 else "params and EMA within "
+                + ", ".join(f"{k}: {v:.3e}" for k, v in rel_a.items()) + " of one process's")
+        log(f"[dist] (a) world {world}: {'/'.join(_entry_layouts(world))} do_train checkpoints "
+            f"{same}; sample names "
+            f"{names[0]}..{names[-1]}; {entry_s:.1f} s")
+        result = {"world_a": world, "entry": entry, "entry_s": entry_s, "rel_a": rel_a}
+        if not with_b:
+            result["seconds"] = time.perf_counter() - t_phase
+            return result
+
+        ranks = _dist_wait(procs_b, "layouts", work)
+        layouts_s = time.perf_counter() - t0
+        result.update({"layouts": ranks, "layouts_s": layouts_s, "rel": {}})
+        for name, (shape, branch) in DIST_LAYOUTS.items():
+            r0, r1 = (r[name] for r in ranks)
+            if r0["losses"] != r1["losses"]:
+                fail(f"phase 33 (b) {name}: the ranks' losses differ: {r0['losses']} {r1['losses']}")
+            want_losses, want_norms, want_params = ref[branch]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want_losses))
+            norm_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], want_norms))
+            params = torch.load(os.path.join(work, f"{name}_params.pt"))
+            param_rel = _frob(params, want_params)
+            result["rel"][name] = {"loss": loss_rel, "grad_norm": norm_rel, "params": param_rel}
+            if not (loss_rel <= DIST_LOSS_TOL and norm_rel <= DIST_NORM_TOL
+                    and param_rel <= DIST_PARAM_TOL):
+                fail(f"phase 33 (b) {name}: loss rel {loss_rel:.3e} (limit {DIST_LOSS_TOL}), "
+                     f"grad norm rel {norm_rel:.3e} (limit {DIST_NORM_TOL}), "
+                     f"params rel {param_rel:.3e} (limit {DIST_PARAM_TOL})")
+            heads = 16 // shape[2]
+            if r0["local_heads"] != heads:
+                fail(f"phase 33 (b) {name}: {r0['local_heads']} local heads, expected {heads}")
+            log(f"[dist] (b) {name} {shape} gloo world 2 ({branch}, {r0['local_heads']} local "
+                f"heads of 72, rank batch {r0['rank_batch']}): loss rel {loss_rel:.3e}, grad norm "
+                f"rel {norm_rel:.3e}, params rel {param_rel:.3e} against world 1 at batch "
+                f"{DIST_BATCH}; ms/step "
+                + " | ".join(f"rank {i}: " + ", ".join(f"{t:.0f}" for t in r[name]['ms_per_step'])
+                             + f" peak {r[name]['peak_bytes'] / 2**30:.2f} GiB launches "
+                             f"{r[name]['launches']}" for i, r in enumerate(ranks))
+                + f" [{device_info['smi']}]")
+    finally:
+        for p in procs + procs_b:  # a failure leaves no rank running
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[dist] phase 33: {result['seconds']:.1f} s ((a) done after {entry_s:.1f} s, (b) "
+        f"after {layouts_s:.1f} s, side by side)")
+    return result
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary: dict) -> dict:
     row = summary["rows"][0]  # the main path's shape (B=16 forward, B=32 backward, B=4 long)
     return {"name": name, "route": "cuda", "source": f"vavae_tpu_torch/ops/csrc/{source}",
@@ -3472,10 +3817,15 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
+    ap.add_argument("--dist-case", help=argparse.SUPPRESS)  # a rank of phase 33's worlds
+    ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_case:
+        _dist_worker(args.dist_case, args.dist_work)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3499,6 +3849,7 @@ def main(argv=None) -> int:
         tools = run_tools(SEED, device, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    multidevice = run_multidevice(SEED, device)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -3520,9 +3871,9 @@ def main(argv=None) -> int:
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
                        "vae_training": vae_training, "apps": apps, "tools": tools,
-                       "seconds": time.perf_counter() - t0},
+                       "multidevice": multidevice, "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-32: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-33: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -133,7 +133,11 @@ def run(config_path: str, user_ids: Optional[List[int]] = None,
         device: str | torch.device = "cuda") -> Dict[int, Dict]:
     """DiT (``ckpt_path``) + VA-VAE + classifier over the users
     (``num_real_users`` of the config by default). The classifier is a
-    baseline one of ``data.num_classes`` classes, as in the JAX package."""
+    baseline one of ``data.num_classes`` classes, as in the JAX package.
+    Under a launcher (``parallel/mesh.py``) process r takes users r,
+    r + world, … (each user's draws are seeded by its id, so together the
+    processes write what one would) and returns its own users' results,
+    once every process's files are written."""
     from vavae_tpu_torch.apps.train_classifier import ClassifierTrainer, restore_classifier
     from vavae_tpu_torch.models.dit import create_dit
     from vavae_tpu_torch.pipelines.sample import (
@@ -142,10 +146,10 @@ def run(config_path: str, user_ids: Optional[List[int]] = None,
         load_latent_stats,
     )
     from vavae_tpu_torch.tokenizer import VA_VAE
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
     from vavae_tpu_torch.utils.config import load_config, num_real_users
-    from vavae_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh_lib.multihost_init(device)
     cfg = load_config(config_path, overrides=overrides)
     filter_cfg = filter_cfg or FilterConfig()
     if filter_cfg.cfg_scale is not None:
@@ -170,6 +174,7 @@ def run(config_path: str, user_ids: Optional[List[int]] = None,
 
     if user_ids is None:
         user_ids = list(range(num_real_users(cfg)))
+    user_ids = user_ids[mesh_lib.process_index()::mesh_lib.process_count()]
     seed = cfg.train.get("global_seed", 0)
     results = {}
     for uid in user_ids:
@@ -179,6 +184,7 @@ def run(config_path: str, user_ids: Optional[List[int]] = None,
             classifier_fn, filter_cfg, gen, feature_fn=feature_fn, save_dir=save_dir)
         print(f"user {uid}: {stats}")
         results[uid] = stats
+    mesh_lib.barrier()
     return results
 
 

@@ -9,7 +9,10 @@ synthetic set in a seeded order, the real set reshuffled with the round as
 its seed) and finetunes the DiT for ``steps_per_iteration`` steps. The
 sampler is built once over a copy of the DiT, whose weights are swapped for
 the EMA weights each round. Runs on the card unless ``--device cpu`` is
-passed.
+passed. Under a launcher (``parallel/mesh.py``) the finetune is
+data-parallel: ``--batch_size`` is the global batch and each process reads
+its rows of every batch, real and synthetic, one process would read; every
+process generates the (same) synthetic set, and process 0 writes the state.
 
     python -m vavae_tpu_torch.apps.iterative_finetune --config CFG.yaml \\
         --classifier_ckpt clf.safetensors ckpt_path=DIT.safetensors data.data_path=LATENTS
@@ -105,24 +108,30 @@ class IterativeTraining:
         return state, history
 
 
-def interleaved_batches(dataset, batch_size: int, extra_z, extra_y, iteration: int):
+def interleaved_batches(dataset, batch_size: int, extra_z, extra_y, iteration: int,
+                        rows: tuple = (0, 1)):
     """The real set's batches (shuffled with ``iteration`` as the seed),
     each followed by one full batch of the synthetic set, in an order drawn
-    from ``iteration``, while any remain."""
+    from ``iteration``, while any remain. ``rows`` = (i, n): data rank i's
+    rows of each of those global batches."""
     extras = None
     if extra_z is not None and len(extra_z):
         order = np.random.default_rng(iteration).permutation(len(extra_z))
         extras = (extra_z[order], extra_y[order])
     ei = 0
-    # one process per card: the whole set is this process's (process 0 of 1)
-    for lats, labels in dataset.batches(batch_size, seed=iteration):
+    i, n = rows
+    b = batch_size // n
+    real = (dataset.batches(batch_size, seed=iteration, rows=rows) if n > 1
+            else dataset.batches(batch_size, seed=iteration))
+    for lats, labels in real:
         yield lats, labels
         if extras is not None and ei < len(extras[0]):
             ez = extras[0][ei : ei + batch_size]
             ey = extras[1][ei : ei + batch_size]
             ei += len(ez)
             if len(ez) == batch_size:
-                yield ez.astype(np.float32), ey.astype(np.int32)
+                yield (ez[i * b:(i + 1) * b].astype(np.float32),
+                       ey[i * b:(i + 1) * b].astype(np.int32))
 
 
 def main(argv=None) -> tuple:
@@ -132,13 +141,13 @@ def main(argv=None) -> tuple:
     from vavae_tpu_torch.apps.train_classifier import ClassifierTrainer, restore_classifier
     from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
     from vavae_tpu_torch.models.dit import create_dit
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
     from vavae_tpu_torch.pipelines.sample import build_sample_fn, load_dit_params
     from vavae_tpu_torch.tokenizer import VA_VAE
     from vavae_tpu_torch.train.checkpoint import save_checkpoint
     from vavae_tpu_torch.train.dit_trainer import DiTTrainer
     from vavae_tpu_torch.transport import build_transport
     from vavae_tpu_torch.utils.config import load_config, num_real_users
-    from vavae_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True, help="DiT config (ckpt_path set)")
@@ -153,7 +162,11 @@ def main(argv=None) -> tuple:
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = mesh_lib.multihost_init(args.device)
+    mesh = mesh_lib.make_mesh()
+    world = mesh_lib.process_count()
+    if args.batch_size % world:
+        raise SystemExit(f"global batch {args.batch_size} must divide the process count ({world})")
     cfg = load_config(args.config, overrides=args.overrides)
     latent_size = cfg.data.image_size // cfg.get("vae", {}).get("downsample_ratio", 16)
     num_users = num_real_users(cfg)
@@ -163,6 +176,7 @@ def main(argv=None) -> tuple:
         model, build_transport(cfg),
         lr=cfg.get("optimizer", {}).get("lr", 5e-5),
         ema_decay=cfg.train.get("ema_decay", 0.999),
+        mesh=mesh,
     )
     state = trainer.init_state()  # EMA = the loaded weights
 
@@ -214,8 +228,9 @@ def main(argv=None) -> tuple:
         batch_size=args.batch_size,
         device=dev,
     )
+    rows = (mesh_lib.process_index(), world)
     state, history = it.run(
-        state, lambda z, y, i: interleaved_batches(dataset, args.batch_size, z, y, i))
+        state, lambda z, y, i: interleaved_batches(dataset, args.batch_size, z, y, i, rows))
     for h in history:
         print(h)
     path = save_checkpoint(args.out_dir, state.step, state)

@@ -17,6 +17,18 @@ and no autocast, so the card's step holds to the CPU's. Random draws (mixup,
 dropout) come from a generator seeded from ``(seed, step)``; ``train_step``
 also takes them as ``draws`` (tests hand in the JAX package's).
 
+Data-parallel (``mesh``; ``train_classifier`` under torchrun or the JAX
+package's ``JAX_*`` variables): each rank steps on its rows of the global
+batch, and the step is the global batch's, as the JAX step on its sharded
+batch. The batch norms take the global moments (``sync_batch_norms``);
+mixup mixes the gathered global batch with the global permutation and
+each rank keeps its rows; the dropout masks are drawn at the global
+shape; the contrastive term runs on the all-gathered projections (the
+differentiable all-gather, whose backward returns each rank its rows'
+gradient of every rank's copy of the term) and the memory and prototype
+banks take the gathered batch; the gradients, the loss and the accuracy
+are averaged over the ranks.
+
 The state file is the JAX package's ``ClassifierState`` tree
 (``classifier_state_tensors``): ``step``, ``params|…``, ``batch_stats|…``,
 optax's AdamW state (``opt_state|0|…``, or under
@@ -57,6 +69,9 @@ from vavae_tpu_torch.models.resnet import (
     init_flax_,
     update_feature_bank,
 )
+from vavae_tpu_torch.models.discriminator import sync_batch_norms
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import DP, Mesh
 from vavae_tpu_torch.train.checkpoint import find_adam, read_state_file
 from vavae_tpu_torch.train.dit_trainer import AdamState, adam_init, adamw_update, step_seed
 from vavae_tpu_torch.utils.device import full_fp32, resolve_device
@@ -104,6 +119,8 @@ class ClassifierTrainer:
     freeze_stages: Optional[int] = None
     seed: int = 0
     device: str | torch.device = "cuda"
+    # data-parallel processes (parallel/mesh.py); None: one process
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -122,6 +139,11 @@ class ClassifierTrainer:
             model = ResNet18(self.num_classes, head_dim=256 if improved else 0,
                              proj_dim=64 if improved else 0)
         self.model = model.to(self.device)
+        self.distributed = self.mesh is not None and self.mesh.distributed
+        if self.distributed:
+            if self.mesh.size(DP) != self.mesh.world:
+                raise ValueError(f"the classifier is data-parallel only, got mesh {self.mesh.shape}")
+            sync_batch_norms(self.model, self.mesh.group(DP))
         stem = "backbone." if self.mode == "domain_adaptive" else ""
         self.frozen_prefixes = tuple(
             [f"{stem}conv1.", f"{stem}bn1."]
@@ -167,14 +189,39 @@ class ClassifierTrainer:
             loss = supcon_loss(proj, y, self.contrastive_temperature)
         return loss, extras
 
+    def _gather(self, t: torch.Tensor, grad: bool = False) -> torch.Tensor:
+        """The global batch's ``t`` (this rank's ``t`` in one process)."""
+        if not self.distributed:
+            return t
+        return mesh_lib.all_gather_cat(t, self.mesh.group(DP), grad=grad)
+
+    def _rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """This rank's ``b`` rows of a global-batch tensor."""
+        if not self.distributed:
+            return t
+        i = self.mesh.index(DP)
+        return t[i * b:(i + 1) * b]
+
     def _loss(self, state: ClassifierState, x, y, gen, draws: dict):
+        b = x.shape[0]
+        y_all = self._gather(y)
         y_soft = None
         if self.use_mixup:
             lam, perm = draws.get("mixup", (None, None))
-            x, y_soft = mixup(x, y, self.num_classes, self.mixup_alpha, gen, lam=lam, perm=perm)
+            x_mix, y_soft = mixup(self._gather(x), y_all, self.num_classes, self.mixup_alpha,
+                                  gen, lam=lam, perm=perm)
+            x, y_soft = self._rows(x_mix, b), self._rows(y_soft, b)
         if self.mode == "domain_adaptive":
+            masks = draws.get("dropout")
+            if masks is None and self.distributed and self.model.dropout_rate > 0:
+                # the draws the model takes in one process, at the global shape
+                keep, n = 1.0 - self.model.dropout_rate, len(y_all)
+                masks = [torch.rand((n, d), generator=gen, device=x.device) < keep
+                         for d in (self.model.feature_dim, self.model.cls_fc1.out_features)]
+            if masks is not None:
+                masks = [self._rows(torch.as_tensor(m, device=x.device), b) for m in masks]
             logits, feat, proj = self.model(x, train=True, return_all=True, generator=gen,
-                                            dropout_masks=draws.get("dropout"))
+                                            dropout_masks=masks)
         else:
             logits, feat, proj = self.model(x, train=True, return_all=True)
         extras = state.extras
@@ -186,12 +233,12 @@ class ClassifierTrainer:
         else:
             loss = F.cross_entropy(logits, y)
         if self.mode == "improved" and proj is not None:
-            c_loss, extras = self._contrastive(proj, y, extras)
+            c_loss, extras = self._contrastive(self._gather(proj, grad=True), y_all, extras)
             loss = loss + self.supcon_weight * c_loss
         elif self.mode == "domain_adaptive":
-            c_loss, _ = self._contrastive(proj, y, None)
+            c_loss, _ = self._contrastive(self._gather(proj, grad=True), y_all, None)
             loss = loss + self.supcon_weight * c_loss
-            extras = update_feature_bank(extras.clone(), feat, y)
+            extras = update_feature_bank(extras.clone(), self._gather(feat.detach()), y_all)
         acc = torch.mean((torch.argmax(logits, -1) == y).float())
         return loss, acc, extras
 
@@ -207,11 +254,14 @@ class ClassifierTrainer:
         with full_fp32():
             loss, acc, extras = self._loss(state, x, y, gen, draws or {})
             train = [p for p, t in zip(state.params, state.trainable) if t]
-            grads = torch.autograd.grad(loss, train)
-            adamw_update(train, list(grads), state.opt, self.lr, 0.999, self.weight_decay)
+            grads = list(torch.autograd.grad(loss, train))
+            loss = loss.detach().clone()
+            if self.distributed:
+                mesh_lib.all_reduce_mean_(grads + [loss, acc], self.mesh.group(DP))
+            adamw_update(train, grads, state.opt, self.lr, 0.999, self.weight_decay)
         state.extras = extras
         state.step += 1
-        return {"loss": loss.detach(), "acc": acc}
+        return {"loss": loss, "acc": acc}
 
     @torch.no_grad()
     def logits(self, x) -> torch.Tensor:
@@ -348,14 +398,23 @@ def train_classifier(dataset, val_dataset=None, *, mode: str = "baseline",
                      device: str | torch.device = "cuda") -> tuple:
     """Train for ``epochs`` (early stopping on validation accuracy after
     ``patience`` epochs without a gain); returns (trainer, state), the
-    state of the best validation epoch when a validation set is given."""
+    state of the best validation epoch when a validation set is given.
+    Under a launcher the processes train data-parallel, each on its stripe
+    of every epoch at ``batch_size`` a process, and validate on their
+    stripes of the validation set, the counts summed."""
+    device = mesh_lib.multihost_init(device)
+    world = mesh_lib.process_count()
     trainer = ClassifierTrainer(num_classes=num_classes, mode=mode, lr=lr,
-                                contrastive_type=contrastive_type, seed=seed, device=device)
+                                contrastive_type=contrastive_type, seed=seed, device=device,
+                                mesh=mesh_lib.make_mesh() if world > 1 else None)
+    # this process's stripe of every epoch (any dataset with ``batches``
+    # serves a single process)
+    stripe = dict(process_index=mesh_lib.process_index(), process_count=world) if world > 1 else {}
     state = trainer.init_state(seed)
     best_acc, since_best, best = 0.0, 0, None
     for epoch in range(epochs):
         t0, steps = time.time(), 0
-        for batch in prefetch(dataset.batches(batch_size, seed=seed + epoch, epochs=1)):
+        for batch in prefetch(dataset.batches(batch_size, seed=seed + epoch, epochs=1, **stripe)):
             metrics = trainer.train_step(state, batch)
             steps += 1
             if steps % log_every == 0:
@@ -364,10 +423,13 @@ def train_classifier(dataset, val_dataset=None, *, mode: str = "baseline",
         if val_dataset is None:
             continue
         correct, total = 0, 0
-        for x, y in val_dataset.batches(batch_size, shuffle=False, drop_last=False, epochs=1):
+        for x, y in val_dataset.batches(batch_size, shuffle=False, drop_last=False, epochs=1,
+                                        **stripe):
             probs = trainer.predict_fn(state)(x)
             correct += int((probs.argmax(axis=-1) == np.asarray(y)).sum())
             total += len(y)
+        correct, total = (int(v) for v in mesh_lib.process_allgather(
+            np.asarray([correct, total], np.int64)).sum(axis=0))
         if total == 0:
             import warnings
 
@@ -434,7 +496,7 @@ def main(argv=None) -> tuple:
 
     from vavae_tpu_torch.data.image_folder import MixedDomainDataset, SplitFileDataset
 
-    resolve_device(args.device)
+    mesh_lib.multihost_init(args.device)
     if args.real_dir or args.generated_dir:
         if not args.real_dir:
             raise SystemExit("--generated_dir requires --real_dir")
@@ -456,8 +518,10 @@ def main(argv=None) -> tuple:
         num_classes=args.num_classes, lr=args.lr, patience=args.patience, epochs=args.epochs,
         batch_size=args.batch_size, image_size=args.image_size, device=args.device)
     out = args.out if args.out.endswith(".safetensors") else args.out + ".safetensors"
-    save_classifier(out, trainer, state)
-    print(f"saved classifier state to {out}")
+    if mesh_lib.process_index() == 0:
+        save_classifier(out, trainer, state)
+        print(f"saved classifier state to {out}")
+    mesh_lib.barrier()
     return trainer, state
 
 

@@ -21,6 +21,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from vavae_tpu_torch.parallel.mesh import process_index
 from vavae_tpu_torch.utils.safetensors_io import map_safetensors, write_safetensors
 
 STATS_FILE = "latents_stats.safetensors"
@@ -63,7 +64,8 @@ class ImgLatentDataset:
             stats = torch.load(pt_cache, map_location="cpu", weights_only=False)
             return stats["mean"].numpy(), stats["std"].numpy()
         mean, std = self.compute_latent_stats()
-        write_safetensors(np_cache, {"mean": mean, "std": std})
+        if process_index() == 0:  # every process computes the same; one writes
+            write_safetensors(np_cache, {"mean": mean, "std": std})
         return mean, std
 
     def compute_latent_stats(self, num_samples: int = 10000) -> Tuple[np.ndarray, np.ndarray]:
@@ -92,10 +94,16 @@ class ImgLatentDataset:
     # -- batching ----------------------------------------------------------------
 
     def batches(self, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
-                seed: int = 0, epochs: Optional[int] = None
+                seed: int = 0, rows: Optional[Tuple[int, int]] = None,
+                epochs: Optional[int] = None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yields (latents (B, H, W, C) float32, labels (B,) int32) forever, or
-        for ``epochs`` passes."""
+        for ``epochs`` passes. ``rows`` = (i, n) yields rows [i·b, (i+1)·b),
+        b = batch_size / n, of each batch one process would yield, with that
+        batch's flips: n processes then read together exactly the global
+        batches of one, each as many (a process with one more would wait
+        forever in a collective), so a world of n takes a world of 1's
+        steps."""
         epoch = 0
         while epochs is None or epoch < epochs:
             order = np.arange(len(self))
@@ -113,6 +121,10 @@ class ImgLatentDataset:
             for s in range(0, stop, batch_size):
                 idxs = order[s: s + batch_size]
                 flips = flip_rng.random(len(idxs)) > 0.5
+                if rows is not None:
+                    i, n = rows
+                    b = len(idxs) // n
+                    idxs, flips = idxs[i * b:(i + 1) * b], flips[i * b:(i + 1) * b]
                 lats = np.stack([self._read("latents_flip" if fl else "latents", int(i))
                                  for i, fl in zip(idxs, flips)]).astype(np.float32)
                 labels = np.array([self._read("labels", int(i)) for i in idxs], np.int32)

@@ -11,10 +11,17 @@ normalises by the batch's own mean and biased variance (E[x²] − E[x]²,
 clipped at 0) and moves the running stats by hand, ``r = 0.9·r + 0.1·b``,
 storing the biased variance, so a checkpoint's ``batch_stats`` equal the
 JAX package's. In eval mode it normalises by the running stats.
+
+Across data-parallel processes (``sync_batch_norms``) the train-mode
+moments are those of the global batch, as the JAX trainers take them over
+one sharded array: each rank's mean of x and of x² (equal shards) are
+averaged with the differentiable ``torch.distributed.nn`` all-reduce, so
+the gradient flows through the global moments to every rank's inputs.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -23,6 +30,8 @@ MOMENTUM, EPS = 0.9, 1e-5
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW channels."""
+
+    sync_group = None  # a process group: moments over the global batch
 
     def __init__(self, channels: int):
         super().__init__()
@@ -35,7 +44,13 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+            if self.sync_group is not None:
+                from torch.distributed.nn.functional import all_reduce
+
+                both = all_reduce(torch.stack([mean, mean_sq]), group=self.sync_group)
+                mean, mean_sq = both / dist.get_world_size(self.sync_group)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             # the moments this pass normalised by (read by domain adaptation)
             self.batch_moments = (mean.detach(), var.detach())
             with torch.no_grad():
@@ -45,6 +60,15 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + EPS) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+def sync_batch_norms(module: nn.Module, group) -> nn.Module:
+    """Take every ``BatchNorm`` of ``module``'s train-mode moments over the
+    processes of ``group`` (None: this process's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
+    return module
 
 
 class NLayerDiscriminator(nn.Module):

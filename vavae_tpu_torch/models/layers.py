@@ -205,14 +205,14 @@ class Attention(nn.Module):
         return norm(x)
 
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
-        B, N, C = x.shape
+        B, N, _ = x.shape  # num_heads is the local count under tensor parallelism
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
         if not self.qk_norm and natural_attention_enabled():
             out = fused_qkv_attention(qkv, rope=rope)
-            return self.proj(out.reshape(B, N, C))
+            return self.proj(out.reshape(B, N, -1))
         q, k, v = qkv.unbind(dim=2)
         if self.qk_norm:
             q = self._norm(self.q_norm, q)
             k = self._norm(self.k_norm, k)
         out = dot_product_attention(q, k, v, rope=rope)
-        return self.proj(out.reshape(B, N, C))
+        return self.proj(out.reshape(B, N, -1))

@@ -3,9 +3,12 @@
 
 Encodes and decodes an image folder, computes PSNR, SSIM and LPIPS on the
 card on the [0, 1] pairs, writes the reference and decoded PNGs
-(``ref/00_{i:06d}.png``, ``dec/00_{i:06d}.png``) and the rFID between the
-two folders. LPIPS is skipped without its weights, rFID without Inception
-weights, as in the JAX package.
+(``ref/{rank:02d}_{i:06d}.png``, ``dec/…``) and the rFID between the two
+folders. LPIPS is skipped without its weights, rFID without Inception
+weights, as in the JAX package. Under a launcher (``parallel/mesh.py``)
+process r takes items r, r + world, …; the metrics are the ranks' summed
+(value, count) pairs, all-gathered, and process 0 computes the rFID once
+every process's PNGs are on disk.
 
     python -m vavae_tpu_torch.pipelines.evaluate_tokenizer --data_path IMAGES \\
         [--output_path OUT] [--vae_ckpt CKPT] [--metrics_json M.json] [--device cuda]
@@ -21,12 +24,10 @@ import numpy as np
 import torch
 
 from vavae_tpu_torch.eval.metrics import psnr, ssim
+from vavae_tpu_torch.parallel import mesh as mesh_lib
 from vavae_tpu_torch.pipelines.extract_features import iter_batches, list_image_folder
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.utils.png import write_pngs
-
-TAG = "00"  # the JAX package's process-0 tag in the PNG names
-
 
 def evaluate_tokenizer(
     vae: VA_VAE,
@@ -43,8 +44,11 @@ def evaluate_tokenizer(
     items = list_image_folder(data_path)
     if max_images:
         items = items[:max_images]
+    rank = mesh_lib.process_index()
+    items = items[rank::mesh_lib.process_count()]
     if not items:
-        raise ValueError(f"no images — empty or wrong --data_path {data_path!r}")
+        raise ValueError(f"no images for process {rank} — empty or wrong --data_path "
+                         f"{data_path!r}, or max_images below the process count")
 
     lpips_fn = None
     try:
@@ -79,20 +83,29 @@ def evaluate_tokenizer(
             lpips_vals.append(lp.cpu().numpy())
 
         if output_path:
-            names = [f"{TAG}_{n_done + i:06d}.png" for i in range(len(x))]
+            names = [f"{rank:02d}_{n_done + i:06d}.png" for i in range(len(x))]
             for folder, img01 in (("ref", a01), ("dec", b01)):
                 write_pngs((img01 * 255).astype(np.uint8),
                            [os.path.join(output_path, folder, n) for n in names])
         n_done += len(x)
 
+    # the ranks' (value, count) sums, all-gathered: a size-weighted mean
+    sums = np.asarray([
+        np.concatenate(psnrs).sum(), np.concatenate(ssims).sum(),
+        np.concatenate(lpips_vals).sum() if lpips_vals else 0.0,
+        float(n_done), float(sum(len(v) for v in lpips_vals)),
+    ], np.float64)
+    sums = mesh_lib.process_allgather(sums).sum(axis=0)
     results = {
-        "psnr": float(np.concatenate(psnrs).sum()) / n_done,
-        "ssim": float(np.concatenate(ssims).sum()) / n_done,
-        "num_images": n_done,
+        "psnr": float(sums[0] / sums[3]),
+        "ssim": float(sums[1] / sums[3]),
+        "num_images": int(sums[3]),
     }
-    if lpips_vals:
-        results["lpips"] = float(np.concatenate(lpips_vals).sum()) / n_done
+    if sums[4] > 0:
+        results["lpips"] = float(sums[2] / sums[4])
     if output_path:
+        mesh_lib.barrier()  # every process's PNGs are on disk
+    if output_path and rank == 0:
         try:
             from vavae_tpu_torch.eval.fid import fid_given_paths
 
@@ -120,11 +133,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     vae = VA_VAE(args.config, ckpt_path=args.vae_ckpt, img_size=args.image_size,
-                 device=args.device)
+                 device=mesh_lib.multihost_init(args.device))
     results = evaluate_tokenizer(vae, args.data_path, output_path=args.output_path,
                                  max_images=args.max_images, image_size=args.image_size)
     print(results)
-    if args.metrics_json:
+    if args.metrics_json and mesh_lib.process_index() == 0:
         os.makedirs(os.path.dirname(os.path.abspath(args.metrics_json)), exist_ok=True)
         with open(args.metrics_json, "w") as f:
             json.dump(results, f, indent=2)

@@ -4,10 +4,12 @@ VAE-encode an image folder into safetensors shards.
 Two passes, the images and their horizontal flips, are encoded with a
 posterior draw and written as shards ``{latents, latents_flip, labels}`` of
 at most ``shard_size`` images, CHW fp32 latents and int32 labels, named
-``latents_rank00_shard{k:03d}.safetensors`` as the JAX package's process 0
-names them; then ``ImgLatentDataset`` builds the channel-stats cache. The
-draws come from one ``torch.Generator`` seeded with ``seed`` (the JAX key
-stream cannot be replayed). A prefetch thread decodes and crops, and batch
+``latents_rank{r:02d}_shard{k:03d}.safetensors`` as the JAX package names
+them; then ``ImgLatentDataset`` builds the channel-stats cache. The draws
+come from one ``torch.Generator`` seeded with ``seed + rank`` (the JAX key
+stream cannot be replayed). Under a launcher (``parallel/mesh.py``)
+process r encodes items r, r + world, …; once every process has written its
+shards, process 0 builds the statistics over all of them. A prefetch thread decodes and crops, and batch
 i+1's encode is queued on the card before batch i is copied back.
 
     python -m vavae_tpu_torch.pipelines.extract_features --data_path IMAGES \\
@@ -28,6 +30,7 @@ import torch
 from vavae_tpu_torch.data.image_folder import IMG_EXTS, SplitFileDataset
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.data.prefetch import prefetch
+from vavae_tpu_torch.parallel import mesh as mesh_lib
 from vavae_tpu_torch.tokenizer import VA_VAE, preprocess_images
 from vavae_tpu_torch.utils.png import read_image_rgb
 from vavae_tpu_torch.utils.safetensors_io import write_safetensors
@@ -103,8 +106,10 @@ def extract(
         items = SplitFileDataset(split_file, split, image_size=image_size, root=data_path).items
     else:
         items = list_image_folder(data_path)
+    rank = mesh_lib.process_index()
+    items = items[rank::mesh_lib.process_count()]
 
-    gen = torch.Generator(device=vae.device).manual_seed(seed)
+    gen = torch.Generator(device=vae.device).manual_seed(seed + rank)
     lat_acc: list[np.ndarray] = []
     flip_acc: list[np.ndarray] = []
     lab_acc: list[np.ndarray] = []
@@ -115,7 +120,7 @@ def extract(
         nonlocal shard_idx, lat_acc, flip_acc, lab_acc
         if not lab_acc:
             return
-        fname = f"latents_rank00_shard{shard_idx:03d}.safetensors"  # process 0's name
+        fname = mesh_lib.process_fname("latents", ".safetensors", shard_idx)
         write_safetensors(os.path.join(output_path, fname), {
             # CHW, the reference shard format
             "latents": np.transpose(np.concatenate(lat_acc), (0, 3, 1, 2)),
@@ -146,9 +151,12 @@ def extract(
     if pending is not None:
         collect(pending)
     flush()
-    print(f"encoded {count} images")
-    ImgLatentDataset(output_path, latent_norm=True)  # builds the stats cache
-    print("latent stats cached")
+    print(f"process {rank}: encoded {count} images")
+    mesh_lib.barrier()  # every process's shards are on disk
+    if rank == 0:
+        ImgLatentDataset(output_path, latent_norm=True)  # builds the stats cache
+        print("latent stats cached")
+    mesh_lib.barrier()
 
 
 def main(argv=None) -> None:
@@ -169,7 +177,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     vae = VA_VAE(args.config, ckpt_path=args.vae_ckpt, img_size=args.image_size,
                  dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
-                 device=args.device)
+                 device=mesh_lib.multihost_init(args.device))
     extract(args.data_path, args.output_path, vae, batch_size=args.batch_size,
             image_size=args.image_size, split_file=args.split_file,
             split=args.split)

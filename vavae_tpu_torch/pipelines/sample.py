@@ -25,6 +25,8 @@ import torch
 
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.models.dit import LightningDiT, create_dit
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import process_index
 from vavae_tpu_torch.tokenizer import VA_VAE
 from vavae_tpu_torch.transport import Sampler, build_transport
 from vavae_tpu_torch.utils.config import Config, load_config
@@ -35,9 +37,11 @@ from vavae_tpu_torch.utils.weights import dit_state_from_jax, dit_state_from_ref
 
 
 def create_logger() -> logging.Logger:
+    """The port's stdout logger; INFO on process 0, warnings only on the
+    others (the JAX package logs on process 0)."""
     logger = logging.getLogger("vavae_tpu_torch")
+    logger.setLevel(logging.INFO if process_index() == 0 else logging.WARNING)
     if not logger.handlers:
-        logger.setLevel(logging.INFO)
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s", "%Y-%m-%d %H:%M:%S"))
         logger.addHandler(handler)
@@ -217,7 +221,12 @@ def demo_grid(imgs: np.ndarray, cols: int = 4) -> np.ndarray:
 
 
 def do_sample(cfg: Config, demo: bool = False, device: str | torch.device = "cuda") -> str:
-    dev = resolve_device(device)
+    """Sample into ``sample_folder``. Under a launcher every process draws
+    its own images from ``global_seed + rank`` and names them
+    rank-interleaved, as the JAX package's ``:345-350``: batch i of rank r
+    holds ``(i·world + r)·per_batch + j``. Returns once every process's
+    images are on disk."""
+    dev = mesh_lib.multihost_init(device)
     logger = create_logger()
     latent_stats = load_latent_stats(cfg)
     if not cfg.get("ckpt_path"):
@@ -237,16 +246,17 @@ def do_sample(cfg: Config, demo: bool = False, device: str | torch.device = "cud
     folder = cfg.get("sample_folder",
                      os.path.join(cfg.train.get("output_dir", "output"), f"{exp_name}_samples"))
     os.makedirs(folder, exist_ok=True)
-    n_proc, rank = 1, 0  # one process per card
+    n_proc, rank = mesh_lib.process_count(), process_index()
     gen = torch.Generator(device=dev).manual_seed(cfg.train.get("global_seed", 0) + rank)
 
     if demo:
         labels = list(cfg.get("demo_labels", list(range(8))))
         imgs = vae.decode_to_images(generate(labels, generator=gen))
         out = os.path.join(folder, "demo_grid.png")
-        with open(out, "wb") as f:
-            f.write(encode_png(demo_grid(imgs)))
-        logger.info(f"saved demo grid to {out}")
+        if rank == 0:
+            with open(out, "wb") as f:
+                f.write(encode_png(demo_grid(imgs)))
+            logger.info(f"saved demo grid to {out}")
         return folder
 
     per_batch = sc.get("per_proc_batch_size", 4)
@@ -261,6 +271,7 @@ def do_sample(cfg: Config, demo: bool = False, device: str | torch.device = "cud
         write_pngs(imgs, [os.path.join(folder, f"{base + j:06d}.png") for j in range(len(imgs))])
         if (i + 1) % 50 == 0:
             logger.info(f"{(i + 1) * per_batch} images done on proc {rank}")
+    mesh_lib.barrier()  # the folder is complete on return, every process's PNGs on disk
     return folder
 
 
@@ -274,10 +285,12 @@ def main(argv=None) -> None:
     cfg = load_config(args.config, overrides=args.overrides)
     folder = do_sample(cfg, demo=args.demo, device=args.device)
     if not args.demo and cfg.data.get("fid_reference_file"):
-        from vavae_tpu_torch.eval.fid import fid_folder_vs_npz
+        if process_index() == 0:
+            from vavae_tpu_torch.eval.fid import fid_folder_vs_npz
 
-        score = fid_folder_vs_npz(folder, cfg.data.fid_reference_file, device=args.device)
-        print(f"FID: {score:.4f}")
+            score = fid_folder_vs_npz(folder, cfg.data.fid_reference_file,
+                                      device=mesh_lib.multihost_init(args.device))
+            print(f"FID: {score:.4f}")
 
 
 if __name__ == "__main__":

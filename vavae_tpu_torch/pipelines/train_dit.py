@@ -9,16 +9,23 @@ lines every ``log_every`` steps (and ``metrics.jsonl``), a checkpoint every
 checkpoint on SIGTERM, and a final checkpoint. Checkpoints are written from
 a background thread unless ``train.async_checkpoint`` is false;
 ``VAVAE_PROFILE=/dir`` traces a window of steps (``utils/profiling.py``);
-the config goes to TensorBoard as text. One process drives one card:
-``train.global_batch_size`` is the batch of each step. Runs on the card
-unless ``--device cpu`` is passed.
+the config goes to TensorBoard as text. Runs on the card unless
+``--device cpu`` is passed.
 
-    python -m vavae_tpu_torch.pipelines.train_dit --config CFG.yaml [key.path=value ...]
+One process drives one card. Under a launcher (torchrun, or the JAX
+package's ``JAX_*`` variables; ``parallel/mesh.py``) the processes form
+the config's ``parallel:`` mesh (``data: -1`` takes the rest, ``fsdp``,
+``tensor``); ``train.global_batch_size`` is split over data × fsdp, each
+data rank reading its rows of the global batches a single process reads.
+Process 0 logs, writes TensorBoard, the sample grids (from the EMA
+gathered from every rank's shards) and the checkpoints (gathered
+likewise). The ranks agree on a preemption signal before acting on it.
+
+    torchrun --nproc_per_node=N -m vavae_tpu_torch.pipelines.train_dit --config CFG.yaml [key.path=value ...]
 """
 from __future__ import annotations
 
 import argparse
-import copy
 import os
 import time
 
@@ -27,12 +34,13 @@ import torch
 
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.models.dit import create_dit
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import DP
 from vavae_tpu_torch.pipelines.sample import build_sample_fn, create_logger, demo_grid
 from vavae_tpu_torch.train import checkpoint as ckpt_lib
 from vavae_tpu_torch.train.dit_trainer import DiTTrainer, TrainState
 from vavae_tpu_torch.transport import build_transport
 from vavae_tpu_torch.utils.config import Config, load_config
-from vavae_tpu_torch.utils.device import resolve_device
 from vavae_tpu_torch.utils.metrics_logger import MetricsLogger
 from vavae_tpu_torch.utils.png import encode_png
 from vavae_tpu_torch.utils.preemption import PreemptionGuard
@@ -69,7 +77,8 @@ def load_weight_init(init_path: str, state: TrainState, model, logger) -> TrainS
     return state
 
 
-def build_trainer(cfg: Config, model, steps_per_epoch: int, max_steps: int) -> DiTTrainer:
+def build_trainer(cfg: Config, model, steps_per_epoch: int, max_steps: int,
+                  mesh: mesh_lib.Mesh | None = None) -> DiTTrainer:
     opt_cfg = cfg.get("optimizer", Config())
     sched = cfg.get("scheduler", Config())
     return DiTTrainer(
@@ -89,6 +98,7 @@ def build_trainer(cfg: Config, model, steps_per_epoch: int, max_steps: int) -> D
         adam_mu_dtype=opt_cfg.get("adam_mu_dtype"),
         grad_accum=cfg.train.get("grad_accum", 1),
         global_seed=cfg.train.get("global_seed", 0),
+        mesh=mesh,
     )
 
 
@@ -98,7 +108,9 @@ def _dataset(cfg: Config, path: str) -> ImgLatentDataset:
 
 
 def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
-    dev = resolve_device(device)
+    dev = mesh_lib.multihost_init(device)
+    mesh = mesh_lib.mesh_from_config(cfg.get("parallel"))
+    rank0 = mesh_lib.process_index() == 0
     exp_dir = os.path.join(cfg.train.output_dir, cfg.train.get("exp_name") or "exp")
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
     logger = create_logger()
@@ -109,16 +121,28 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(cfg.train.get("global_seed", 0))
         model = create_dit(cfg.model, latent_size, cfg.data.num_classes, device=dev)
+
+    def sample_model():
+        """An unsharded model for the EMA sample grids, built without moving
+        the global random stream."""
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            return create_dit(cfg.model, latent_size, cfg.data.num_classes, device=dev).eval()
+
     dataset = _dataset(cfg, cfg.data.data_path)
     valid_dataset = _dataset(cfg, cfg.data.valid_path) if cfg.data.get("valid_path") else None
 
     global_bs = cfg.train.global_batch_size
+    n_dp = mesh.size(DP)
+    if global_bs % n_dp:
+        raise ValueError(f"train.global_batch_size {global_bs} does not split over "
+                         f"{n_dp} data ranks")
+    per_proc_bs = global_bs // n_dp
     steps_per_epoch = max(len(dataset) // global_bs, 1)
     if cfg.train.get("max_epochs"):
         max_steps = int(cfg.train.max_epochs) * steps_per_epoch
     else:
         max_steps = cfg.train.max_steps
-    trainer = build_trainer(cfg, model, steps_per_epoch, max_steps)
+    trainer = build_trainer(cfg, model, steps_per_epoch, max_steps, mesh)
     state = trainer.init_state()
 
     init_path = cfg.train.get("weight_init") or cfg.train.get("ckpt")
@@ -133,9 +157,11 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
             logger.info(f"resumed from {latest} at step {state.step}")
 
     n_params = sum(p.numel() for p in state.params)
-    logger.info(f"LightningDiT parameters: {n_params / 1e6:.2f}M on {dev}")
-    logger.info(f"dataset: {len(dataset):,} latents; batch {global_bs}")
-    metrics_log = MetricsLogger(os.path.join(exp_dir, "tb"))
+    state = trainer.distribute(state)
+    logger.info(f"LightningDiT parameters: {n_params / 1e6:.2f}M on {dev}; mesh {mesh.shape}")
+    logger.info(f"dataset: {len(dataset):,} latents; global batch {global_bs}, "
+                f"{per_proc_bs} a data rank")
+    metrics_log = MetricsLogger(os.path.join(exp_dir, "tb"), enabled=rank0)
     metrics_log.log_text("config", str(dict(cfg)))
     # train.async_checkpoint (default on): the snapshot is taken here, the
     # write overlaps the next steps
@@ -160,7 +186,10 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     best_val, bad_evals = float("inf"), 0
     latent_stats = dataset.latent_stats if cfg.data.get("latent_norm") else None
 
-    it = dataset.batches(global_bs, seed=cfg.train.get("global_seed", 0))
+    # each data rank reads its rows of the global batches one process would
+    # read, so a world of N takes a world of 1's steps
+    it = dataset.batches(global_bs, seed=cfg.train.get("global_seed", 0),
+                         rows=(mesh.index(DP), n_dp))
     tracer = WindowTracer()  # VAVAE_PROFILE=/dir traces a window of steps
     loss_acc, log_steps, t_start = [], 0, time.time()
     step = state.step
@@ -168,7 +197,10 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
     completed = False
     try:
         while step < max_steps:
-            if guard.should_stop:
+            # the ranks agree on the step to stop at: one that stopped alone
+            # would wait in the checkpoint's collectives while the others
+            # wait in the step's
+            if mesh_lib.any_process(guard.should_stop):
                 save(ckpt_dir, step, sync=True)
                 logger.info(f"preempted: checkpointed at step {step}, exiting")
                 break
@@ -189,7 +221,10 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
 
             sample_every = cfg.train.get("sample_every")
             if sample_every and step % sample_every == 0:
-                _sample_grid(cfg, trainer, state, exp_dir, step, logger, latent_stats=latent_stats)
+                ema = state.full(state.ema_params)  # collective when sharded
+                if rank0:
+                    _sample_grid(cfg, trainer, ema, exp_dir, step, logger, sample_model,
+                                 latent_stats=latent_stats)
 
             if step % ckpt_every == 0 and step > 0:
                 save(ckpt_dir, step)
@@ -212,10 +247,15 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
         guard.__exit__()
         tracer.close()
         if not completed:  # best effort, without masking the original error
-            try:
-                save(ckpt_dir, step, sync=True)
-            except Exception as e:  # noqa: BLE001
-                logger.error(f"final checkpoint after failure also failed: {e}")
+            if mesh_lib.process_count() > 1:
+                # the other ranks may never reach the checkpoint's collectives
+                logger.error("a failed step in a world of several processes: no final "
+                             "checkpoint (the last periodic one stands)")
+            else:
+                try:
+                    save(ckpt_dir, step, sync=True)
+                except Exception as e:  # noqa: BLE001
+                    logger.error(f"final checkpoint after failure also failed: {e}")
             metrics_log.close()
     save(ckpt_dir, step, sync=True)
     metrics_log.close()
@@ -224,15 +264,16 @@ def do_train(cfg: Config, device: str | torch.device = "cuda") -> TrainState:
 
 
 @torch.no_grad()
-def _sample_grid(cfg: Config, trainer: DiTTrainer, state: TrainState, exp_dir: str, step: int,
-                 logger, n: int = 8, latent_stats=None) -> None:
-    """Sample a small grid with the EMA weights mid-training: a PNG through
-    the VAE when ``vae.ckpt_path`` exists, else the raw latents (.npy). The
-    EMA model and the VAE are built once per trainer and kept."""
+def _sample_grid(cfg: Config, trainer: DiTTrainer, ema_params: list, exp_dir: str, step: int,
+                 logger, make_model, n: int = 8, latent_stats=None) -> None:
+    """Sample a small grid with the EMA weights (full tensors) mid-training:
+    a PNG through the VAE when ``vae.ckpt_path`` exists, else the raw
+    latents (.npy). The model to load them into (``make_model()``,
+    unsharded) and the VAE are built once per trainer and kept."""
     try:
         cache = trainer.__dict__.setdefault("_sample_cache", {})
         if "model" not in cache:
-            cache["model"] = copy.deepcopy(trainer.model).eval()
+            cache["model"] = make_model()
             cache["vae"] = None
             vae_ckpt = cfg.get("vae", {}).get("ckpt_path")
             if vae_ckpt and os.path.exists(str(vae_ckpt)):
@@ -241,7 +282,7 @@ def _sample_grid(cfg: Config, trainer: DiTTrainer, state: TrainState, exp_dir: s
                 cache["vae"] = VA_VAE(cfg.get("vae", {}).get("config"), ckpt_path=vae_ckpt,
                                       img_size=cfg.data.image_size, device=trainer.device)
         ema_model = cache["model"]
-        torch._foreach_copy_(list(ema_model.parameters()), state.ema_params)
+        torch._foreach_copy_(list(ema_model.parameters()), ema_params)
         generate = build_sample_fn(cfg, ema_model, latent_stats, device=trainer.device)
         labels = torch.arange(n) % cfg.data.num_classes
         gen = torch.Generator(device=trainer.device).manual_seed(step)

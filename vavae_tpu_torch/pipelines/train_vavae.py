@@ -23,7 +23,9 @@ false; ``VAVAE_PROFILE=/dir`` traces a window of steps. The stage-1
         [--val_path DIR] [--output_dir OUT] [--batch_size 8] [--stages official|single]
         [--no_resume] [--allow_random_foundation] [--device cuda] [key.path=value ...]
 
-Runs on the card unless ``--device cpu`` is passed. The frozen nets load
+Runs on the card unless ``--device cpu`` is passed; under torchrun (or the
+JAX package's ``JAX_*`` variables) the processes train data-parallel and
+``--batch_size`` is one process's batch. The frozen nets load
 from ``VAVAE_DINOV2_WEIGHTS`` / ``VAVAE_MAE_WEIGHTS`` (or seeded random
 weights with ``--allow_random_foundation``) and ``VAVAE_LPIPS_WEIGHTS`` /
 ``VAVAE_VGG16_WEIGHTS`` (no perceptual loss without them).
@@ -46,6 +48,7 @@ from vavae_tpu_torch.data.prefetch import prefetch
 from vavae_tpu_torch.models.lpips import LPIPS, load_lpips
 from vavae_tpu_torch.models.vae import vae_from_ddconfig
 from vavae_tpu_torch.models.vit import FoundationModel
+from vavae_tpu_torch.parallel import mesh as mesh_lib
 from vavae_tpu_torch.pipelines.sample import create_logger
 from vavae_tpu_torch.tokenizer import reference_vae_state
 from vavae_tpu_torch.train import checkpoint as ckpt_lib
@@ -71,7 +74,8 @@ COMPUTE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
 def build_vae_trainer(cfg: Config, stage_overrides: Optional[dict] = None,
                       foundation: Optional[FoundationModel] = None,
                       lpips: Optional[LPIPS] = None, vf_dim: int = 1024,
-                      device: str | torch.device = "cuda") -> VAETrainer:
+                      device: str | torch.device = "cuda",
+                      mesh: Optional[mesh_lib.Mesh] = None) -> VAETrainer:
     """A trainer over a fresh VAE built from the full ``ddconfig``, with the
     config's loss settings and a stage's overrides (``lr`` and ``epochs``
     are the stage's own)."""
@@ -98,7 +102,7 @@ def build_vae_trainer(cfg: Config, stage_overrides: Optional[dict] = None,
     return VAETrainer(vae, loss_cfg=loss_cfg, lr=lr, use_vf=bool(p.get("use_vf")),
                       vf_dim=vf_dim, foundation=foundation, lpips=lpips,
                       frozen_bf16=p.get("frozen_bf16", True),
-                      compute_dtype=COMPUTE_DTYPES[dtype_key])
+                      compute_dtype=COMPUTE_DTYPES[dtype_key], mesh=mesh)
 
 
 def make_aux_feature_fn(kind: str, weights_path: Optional[str] = None,
@@ -153,16 +157,21 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
         best_path = ckpt_lib.latest_checkpoint(best_dir)
     cuda = trainer.device.type == "cuda"
     writer = ckpt_lib.AsyncCheckpointer() if async_ckpt else None
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    # this process's stripe of every epoch (any dataset with ``batches``
+    # serves a single process)
+    stripe = dict(process_index=rank, process_count=world) if world > 1 else {}
 
     def save(dir_: str, on_complete) -> str:
         if writer is not None:
             return writer.save(dir_, state.step, state, on_complete=on_complete)
         path = ckpt_lib.save_checkpoint(dir_, state.step, state)
-        on_complete()
+        if rank == 0:
+            on_complete()
         return path
 
     tracer = WindowTracer()  # VAVAE_PROFILE=/dir traces a window of steps
-    mlog = MetricsLogger(os.path.join(ckpt_dir, "tb"))
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "tb"), enabled=rank == 0)
     guard = PreemptionGuard().__enter__()
     loss_acc, log_steps, run_steps, t0 = [], 0, 0, time.time()
     try:
@@ -170,24 +179,30 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
             t_epoch = time.time()
             if cuda:
                 torch.cuda.reset_peak_memory_stats(trainer.device)
-            for batch in prefetch(dataset.batches(batch_size, seed=seed + epoch, epochs=1)):
+            for batch in prefetch(dataset.batches(batch_size, seed=seed + epoch, epochs=1,
+                                                  **stripe)):
                 images = batch[0] if isinstance(batch, tuple) else batch
                 metrics = trainer.train_step(state, images)
                 loss_acc.append(metrics["rec_loss"])  # read at the log point only
                 log_steps += 1
                 run_steps += 1
                 tracer.step(run_steps, sync_on=metrics["rec_loss"])
-                if log_images_every and run_steps % log_images_every == 0:
+                # single-process only, as in the JAX package: the grid shows
+                # one process's batch
+                if log_images_every and run_steps % log_images_every == 0 and world == 1:
                     dec = trainer.reconstruct(state, images)
                     log_reconstructions(os.path.join(ckpt_dir, "images"), state.step,
                                         np.asarray(images), dec.cpu().numpy())
-                if guard.should_stop:
+                # the ranks agree on the step to stop at (one stopping alone
+                # would wait in the checkpoint's collectives)
+                if mesh_lib.any_process(guard.should_stop):
                     # epoch.json counts the completed epochs only: resume
                     # re-runs this one on the saved (newer) weights
                     if writer is not None:
                         writer.wait()  # after the epoch's write in flight
                     ckpt_lib.save_checkpoint(ckpt_dir, state.step, state)
-                    _write_json(os.path.join(ckpt_dir, "epoch.json"), {"epochs_done": epoch})
+                    if rank == 0:
+                        _write_json(os.path.join(ckpt_dir, "epoch.json"), {"epochs_done": epoch})
                     logger.info(f"preempted at step {state.step}: checkpoint saved")
                     return state, best_path, True
                 if log_steps % log_every == 0:
@@ -202,8 +217,13 @@ def train_epochs(trainer: VAETrainer, state: VAETrainState, dataset, *, epochs: 
             if val_dataset is not None:
                 vals = [trainer.eval_step(state, b[0] if isinstance(b, tuple) else b)
                         ["val/rec_loss"].item()
-                        for b in val_dataset.batches(batch_size, shuffle=False, epochs=1)]
-                val = float(np.mean(vals)) if vals else float("nan")
+                        for b in val_dataset.batches(batch_size, shuffle=False, epochs=1,
+                                                     **stripe)]
+                # every process's batches: one value, so every process
+                # takes the same best-checkpoint decision
+                total, count = mesh_lib.process_allgather(
+                    np.asarray([np.sum(vals), len(vals)], np.float64)).sum(axis=0)
+                val = float(total / count) if count else float("nan")
                 logger.info(f"epoch {epoch}: val/rec_loss {val:.4f}")
                 mlog.log_scalars(state.step, {"val/rec_loss": val})
                 if val < best_val:
@@ -276,8 +296,12 @@ def run_stages(cfg: Config, dataset, val_dataset=None, stages: Sequence[dict] = 
                allow_random_foundation: bool = False, resume: bool = True,
                device: str | torch.device = "cuda") -> VAETrainState:
     """The staged VF-alignment recipe with best-checkpoint chaining and
-    auto-resume (the reference launcher's resume from the newest epoch)."""
-    dev = resolve_device(device)
+    auto-resume (the reference launcher's resume from the newest epoch).
+    Under a launcher (``parallel/mesh.py``) the processes train
+    data-parallel, each on its stripe of every epoch at ``batch_size`` a
+    process; process 0 writes the checkpoints and records."""
+    dev = mesh_lib.multihost_init(device)
+    mesh = mesh_lib.make_mesh()
     logger = create_logger()
     use_vf = cfg.model.params.get("use_vf")
     foundation, vf_dim = (make_aux_feature_fn(use_vf, allow_random=allow_random_foundation,
@@ -288,7 +312,7 @@ def run_stages(cfg: Config, dataset, val_dataset=None, stages: Sequence[dict] = 
     state = None
     for si, stage in enumerate(stages):
         trainer = build_vae_trainer(cfg, stage_overrides=stage, foundation=foundation,
-                                    lpips=lpips, vf_dim=vf_dim, device=dev)
+                                    lpips=lpips, vf_dim=vf_dim, device=dev, mesh=mesh)
         stage_dir = os.path.join(output_dir, f"stage{si + 1}")
         if not resume and ckpt_lib.checkpoint_count(stage_dir) > 0:
             raise RuntimeError(
@@ -347,7 +371,7 @@ def main(argv=None) -> VAETrainState:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="key.path=value overrides")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = mesh_lib.multihost_init(args.device)
     cfg = load_config(args.base, overrides=args.overrides)
     size = cfg.model.params.ddconfig.resolution
     dataset = ImageFolderDataset(args.data_path, image_size=size)

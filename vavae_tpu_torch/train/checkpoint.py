@@ -16,7 +16,10 @@ JAX package's tree:
     the empty ``{gen,disc}_opt|1``; so the JAX package's
     ``restore_checkpoint`` reads a port file and the port reads a JAX one.
 ``config.json`` sits beside the files. ``AsyncCheckpointer`` writes the
-same files from a background thread. Resume takes the highest step
+same files from a background thread. Across processes every process
+takes part in the snapshot (a DiT state sharded over the mesh is gathered
+to full tensors first), process 0 writes, and every process waits for
+the file. Resume takes the highest step
 number, not the largest file, and reads the JAX package's legacy
 ``.msgpack`` files too (flax's msgpack, ``utils/msgpack_io.py``), whose
 flattened tree has the same keys; a JAX-written DiT state's optax
@@ -35,6 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vavae_tpu_torch.parallel import mesh as mesh_lib
 from vavae_tpu_torch.train.dit_trainer import TrainState
 from vavae_tpu_torch.train.vae_trainer import VAETrainState
 from vavae_tpu_torch.utils.msgpack_io import load_state_tree
@@ -193,11 +197,12 @@ def restore_weights(path: str, state: VAETrainState) -> tuple[int, int]:
 
 
 def _state_file(state: TrainState | VAETrainState) -> tuple[dict[str, np.ndarray], dict[str, str]]:
-    """The tensors and the metadata of ``state``'s file."""
+    """The tensors and the metadata of ``state``'s file (collective for a
+    sharded DiT state: every process calls it)."""
     if isinstance(state, VAETrainState):
         tensors, empty = vae_state_tensors(state)
         return tensors, tree_metadata(empty_keys=empty)
-    tensors, bf16 = state_tensors(state)
+    tensors, bf16 = state_tensors(state.gathered())
     return tensors, tree_metadata(bf16)
 
 
@@ -210,10 +215,16 @@ def _write_config(ckpt_dir: str, config: Optional[dict]) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState | VAETrainState,
                     config: Optional[dict] = None) -> str:
     """Write ``state`` to ``{ckpt_dir}/{step:07d}.safetensors`` (and
-    ``config.json`` beside it); returns the path."""
+    ``config.json`` beside it); returns the path ("" on processes other
+    than 0, which only take part in the gather and wait for the write)."""
     path = os.path.join(ckpt_dir, f"{step:07d}.safetensors")
-    write_safetensors(path, *_state_file(state))
-    _write_config(ckpt_dir, config)
+    tensors, metadata = _state_file(state)
+    if mesh_lib.process_index() == 0:
+        write_safetensors(path, tensors, metadata)
+        _write_config(ckpt_dir, config)
+    else:
+        path = ""
+    mesh_lib.barrier()
     return path
 
 
@@ -227,7 +238,10 @@ class AsyncCheckpointer:
     to one snapshot. A writer's error is raised by the next ``save`` or
     ``wait``; call ``wait()`` at the loop's end, and before a preemption
     exit, so that the last write is on disk. The file is byte for byte the
-    one ``save_checkpoint`` writes for the same state."""
+    one ``save_checkpoint`` writes for the same state. Across processes
+    every process snapshots (the gather is a collective), process 0
+    writes, and ``wait`` returns on every process once the file is on
+    disk."""
 
     def __init__(self) -> None:
         self._thread: Optional[threading.Thread] = None
@@ -244,11 +258,14 @@ class AsyncCheckpointer:
     def save(self, ckpt_dir: str, step: int, state: TrainState | VAETrainState,
              config: Optional[dict] = None, on_complete: Optional[Callable[[], None]] = None) -> str:
         """Snapshot ``state`` and schedule its write; returns the path at
-        once. ``on_complete()`` runs on the writer's thread after the file
-        is written: for the resume records (``epoch.json``,
-        ``best/metric.json``) that must never exist without their file."""
+        once ("" on processes other than 0). ``on_complete()`` runs on the
+        writer's thread after the file is written: for the resume records
+        (``epoch.json``, ``best/metric.json``) that must never exist without
+        their file."""
         self._drain()
         tensors, metadata = _state_file(state)
+        if mesh_lib.process_index() != 0:
+            return ""
         live = (state.gen_params if isinstance(state, VAETrainState) else state.params)[0]
         if live.device.type == "cpu":
             # the host arrays of CPU tensors are views of the live weights,
@@ -270,8 +287,10 @@ class AsyncCheckpointer:
         return path
 
     def wait(self) -> None:
-        """Block until the write in flight, if any, is on disk."""
+        """Block until the write in flight, if any, is on disk (on every
+        process: a collective)."""
         self._drain()
+        mesh_lib.barrier()
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -366,7 +385,10 @@ def restore_checkpoint(path: str, state: TrainState | VAETrainState):
     and a port DiT file must hold exactly the tensors ``save_checkpoint``
     writes for this state, with the same shapes; a JAX-package DiT file
     (optax's optimizer tree) must hold every parameter, EMA and Adam moment
-    of the model."""
+    of the model. Every process restores the full state, before the
+    trainer shards it (``DiTTrainer.distribute``)."""
+    if getattr(state, "layout", None) is not None:
+        raise ValueError("restore into the full state, before DiTTrainer.distribute")
     flat = read_state_file(path)
     vae = isinstance(state, VAETrainState)
     if not vae and not any(k.startswith(OPT + SEP) for k in flat):

@@ -1,4 +1,5 @@
-"""DiT training on one device (port of ``vavae_tpu/train/dit_trainer.py``).
+"""DiT training, on one card or over a (data, fsdp, tensor) mesh of
+processes (port of ``vavae_tpu/train/dit_trainer.py``).
 
 One ``train_step``: the transport's velocity MSE (+ cosine loss) of the
 model under label dropout, its gradient through the model's forward and
@@ -16,8 +17,27 @@ of the ~13.5 GB XL/1 train state instead of two.
 
 Randomness: every step draws from a ``torch.Generator`` seeded from
 ``(global_seed, step)`` (the JAX ``fold_in(rng, step)``), so a resumed run
-draws what an unbroken one would. Multi-device data parallelism is not
-ported yet.
+draws what an unbroken one would. t, x0 and the label-drop mask are drawn
+at the global batch's shape and each data rank takes its rows, as JAX's
+global-shape ``jax.random`` draws are sharded: a world of N takes the step
+a world of 1 takes on the global batch.
+
+Across processes (``mesh``, from ``parallel/mesh.py``; ``distribute``
+places the state after any restore):
+  - data: the batch rows split over data × fsdp; the gradients and the
+    step's losses averaged over those ranks in one flat fp32 all-reduce
+    before ``clip_by_global_norm``, so clipping and ``grad_norm`` read the
+    global gradient. With equal shards the mean of the ranks' mean losses
+    is the global mean loss;
+  - fsdp > 1: FSDP2 ``fully_shard`` on every block and on the root (the
+    parameters, sharded on dim 0 over fsdp, replicated over data); the EMA
+    and both Adam moments are sharded alike, as the JAX trainer shards
+    every state leaf. The gradient reaches ``.grad`` through FSDP2's
+    reduce-scatter, which is why the step takes ``loss.backward()``;
+  - tensor > 1: the blocks split by heads and MLP columns
+    (``parallel/tensor_parallel.py``).
+Norms over sharded tensors sum the ranks' squares over the groups that
+hold different parts (``StateLayout.global_norm``).
 """
 from __future__ import annotations
 
@@ -29,6 +49,9 @@ import numpy as np
 import torch
 
 from vavae_tpu_torch.models.dit import LightningDiT
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import DATA_AXIS, DP, FSDP_AXIS, TENSOR_AXIS, Mesh
+from vavae_tpu_torch.parallel.tensor_parallel import TensorSplit, parallelize_dit
 from vavae_tpu_torch.train.ema import update_ema
 from vavae_tpu_torch.transport.transport import Transport
 
@@ -44,10 +67,13 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(norms).square().sum())
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> list[torch.Tensor]:
     """``g`` where the global norm is below ``max_norm``, else ``g / norm ·
-    max_norm`` (``optax.clip_by_global_norm``; ``clip_grad_norm_`` adds 1e-6)."""
-    norm = global_norm(grads)
+    max_norm`` (``optax.clip_by_global_norm``; ``clip_grad_norm_`` adds 1e-6).
+    ``norm``: the norm when the caller has it (of a sharded gradient)."""
+    if norm is None:
+        norm = global_norm(grads)
     if norm.item() < max_norm:
         return grads
     out = torch._foreach_div(grads, norm)
@@ -126,6 +152,81 @@ def accumulate_mean(acc: list[torch.Tensor], grads: list[torch.Tensor], n: int) 
     torch._foreach_add_(acc, diff)
 
 
+# -- the state's layout over the mesh ------------------------------------------
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``t``: the local shard of an FSDP2 ``DTensor``
+    (a view, so in-place updates reach the parameter), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _chunk(t: torch.Tensor, parts: int, i: int) -> torch.Tensor:
+    """Chunk ``i`` of ``torch.chunk(t, parts)``, empty where ``torch.chunk``
+    returns fewer chunks: FSDP2's dim-0 sharding."""
+    chunks = torch.chunk(t, parts, dim=0)
+    if i < len(chunks):
+        return chunks[i]
+    return t.new_empty((0,) + tuple(t.shape[1:]))
+
+
+@dataclasses.dataclass
+class StateLayout:
+    """How each state tensor (by parameter index) is split over the mesh:
+    its tensor-parallel split, then FSDP's dim-0 chunk over fsdp."""
+
+    mesh: Mesh
+    splits: list[Optional[TensorSplit]]
+    shapes: list[torch.Size]  # full shapes
+
+    @property
+    def fsdp(self) -> int:
+        return self.mesh.size(FSDP_AXIS)
+
+    def local(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """Rank's part of parameter ``i``'s full tensor ``full``."""
+        x = full
+        split = self.splits[i]
+        if split is not None and split.sharded:
+            r = self.mesh.index(TENSOR_AXIS)
+            x = x.index_select(split.dim, split.index[r].to(x.device))
+        if self.fsdp > 1:
+            x = _chunk(x, self.fsdp, self.mesh.index(FSDP_AXIS))
+        return x.clone()
+
+    def gather(self, i: int, local: torch.Tensor) -> torch.Tensor:
+        """Parameter ``i``'s full tensor from every rank's part (collective)."""
+        x = local_tensor(local).detach()
+        if self.fsdp > 1:
+            x = torch.cat(mesh_lib.all_gather_rows(x.contiguous(), self.mesh.group(FSDP_AXIS)))
+        split = self.splits[i]
+        if split is not None and split.sharded:
+            parts = mesh_lib.all_gather_rows(x.movedim(split.dim, 0).contiguous(),
+                                             self.mesh.group(TENSOR_AXIS))
+            full = x.new_empty(self.shapes[i]).movedim(split.dim, 0)
+            for idx, part in zip(split.index, parts):
+                full[idx.to(x.device)] = part
+            x = full.movedim(0, split.dim)
+        return x.reshape(self.shapes[i])
+
+    def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """``optax.global_norm`` of the whole gradient from the ranks' parts:
+        the squares summed over fsdp, those of tensor-split parameters also
+        over tensor."""
+        sq = torch.stack(torch._foreach_norm([g.float() for g in grads])).square()
+        split = torch.tensor([s is not None and s.sharded for s in self.splits], device=sq.device)
+        v = torch.stack([sq[split].sum(), sq[~split].sum()])
+        if self.fsdp > 1:
+            mesh_lib.all_reduce_sum_([v], self.mesh.group(FSDP_AXIS))
+        if self.mesh.size(TENSOR_AXIS) > 1:
+            head = v[:1].clone()
+            mesh_lib.all_reduce_sum_([head], self.mesh.group(TENSOR_AXIS))
+            v = torch.cat([head, v[1:]])
+        return torch.sqrt(v.sum())
+
+
 # -- trainer ---------------------------------------------------------------------
 
 
@@ -138,6 +239,48 @@ class TrainState:
     opt: AdamState
     acc_grads: Optional[list[torch.Tensor]] = None  # MultiSteps accumulator
     mini_step: int = 0
+    # set by DiTTrainer.distribute when the tensors are this rank's parts
+    layout: Optional[StateLayout] = None
+
+    def full(self, tensors: Optional[list[torch.Tensor]]) -> Optional[list[torch.Tensor]]:
+        """``tensors``, one of this state's per-parameter lists, at full size
+        (collective when sharded: every rank calls it)."""
+        if self.layout is None or tensors is None:
+            return tensors
+        return [self.layout.gather(i, t) for i, t in enumerate(tensors)]
+
+    def gathered(self) -> "TrainState":
+        """The state with full tensors (collective when sharded: every rank
+        calls it); the state itself when it is not sharded."""
+        if self.layout is None:
+            return self
+        full = self.full
+        return TrainState(step=self.step, names=self.names, params=full(self.params),
+                          ema_params=full(self.ema_params),
+                          opt=AdamState(self.opt.count, full(self.opt.mu), full(self.opt.nu)),
+                          acc_grads=full(self.acc_grads), mini_step=self.mini_step)
+
+
+def global_draws(model: LightningDiT, transport: Transport, n: int, shape: tuple,
+                 gen: torch.Generator) -> tuple:
+    """t, x0 and the label-drop mask (None without label dropout) of a
+    global batch of ``n`` latents of ``shape``, in the order a single
+    process draws them (the model's own dropout draw comes last)."""
+    device = gen.device
+    t = transport.sample_t(n, gen, device=device)
+    x0 = torch.randn((n,) + tuple(shape), generator=gen, device=device, dtype=torch.float32)
+    p = model.y_embedder.dropout_prob
+    drop = None
+    if p > 0:
+        drop = (torch.rand((n,), generator=gen, device=device) < p).to(torch.int32)
+    return t, x0, drop
+
+
+def rank_rows(draws, index: int, rows: int, device) -> tuple:
+    """Data rank ``index``'s ``rows`` rows of each global draw (None stays
+    None)."""
+    return tuple(None if a is None else torch.as_tensor(a, device=device)[index * rows:(index + 1) * rows]
+                 for a in draws)
 
 
 def step_seed(global_seed: int, step: int) -> int:
@@ -166,6 +309,8 @@ class DiTTrainer:
     min_lr: float = 0.0
     grad_accum: int = 1
     global_seed: int = 0
+    # the process mesh (parallel/mesh.py); None: one process
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.ema_every < 1:
@@ -185,6 +330,50 @@ class DiTTrainer:
             acc_grads=[torch.zeros_like(p) for p in params] if self.grad_accum > 1 else None,
         )
 
+    def distribute(self, state: TrainState) -> TrainState:
+        """Place a full ``state`` (this trainer's model's) on the mesh: split
+        the blocks over tensor, FSDP2-shard the model over fsdp, and cut
+        the EMA, the Adam moments and the accumulator to match. Returns the
+        new state; the model's parameters are replaced. Call it once, after
+        any restore, on every rank."""
+        mesh = self.mesh
+        if mesh is None:
+            return state
+        tensor, fsdp = mesh.size(TENSOR_AXIS), mesh.size(FSDP_AXIS)
+        if tensor == 1 and fsdp == 1:
+            return state
+        shapes = [p.shape for p in state.params]
+        splits = {}
+        if tensor > 1:
+            splits = parallelize_dit(self.model, mesh.group(TENSOR_AXIS), tensor,
+                                     mesh.index(TENSOR_AXIS))
+        if fsdp > 1:
+            from torch.distributed.fsdp import fully_shard
+
+            axes = (DATA_AXIS, FSDP_AXIS) if mesh.size(DATA_AXIS) > 1 else (FSDP_AXIS,)
+            dmesh = mesh.device_mesh(axes, self.device.type)
+            for block in self.model.blocks:
+                fully_shard(block, mesh=dmesh)
+            fully_shard(self.model, mesh=dmesh)
+        names, params = zip(*self.model.named_parameters())
+        if list(names) != state.names:
+            raise RuntimeError("distributing changed the model's parameter names")
+        layout = StateLayout(mesh, [splits.get(n) for n in names], shapes)
+
+        def local(ts):
+            return None if ts is None else [layout.local(i, t) for i, t in enumerate(ts)]
+
+        ema = local(state.ema_params)
+        for name, p, e in zip(names, params, ema):
+            if local_tensor(p).shape != e.shape:
+                raise RuntimeError(f"{name}: the sharded parameter {tuple(local_tensor(p).shape)} "
+                                   f"and its state {tuple(e.shape)} differ")
+        return TrainState(step=state.step, names=list(names), params=list(params),
+                          ema_params=ema,
+                          opt=AdamState(state.opt.count, local(state.opt.mu), local(state.opt.nu)),
+                          acc_grads=local(state.acc_grads), mini_step=state.mini_step,
+                          layout=layout)
+
     def learning_rate(self, count: int) -> float:
         if self.lr_schedule != "cosine":
             return self.lr
@@ -195,11 +384,15 @@ class DiTTrainer:
     def generator(self, step: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(step_seed(self.global_seed, step))
 
+    def _norm(self, state: TrainState, grads: list[torch.Tensor]) -> torch.Tensor:
+        return global_norm(grads) if state.layout is None else state.layout.global_norm(grads)
+
     def _update(self, state: TrainState, grads: list[torch.Tensor]) -> None:
         if self.max_grad_norm:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
+            grads = clip_by_global_norm(grads, self.max_grad_norm, self._norm(state, grads))
         lr = self.learning_rate(state.opt.count)
-        adamw_update(state.params, grads, state.opt, lr, self.beta2, self.weight_decay)
+        adamw_update([local_tensor(p) for p in state.params], grads, state.opt, lr,
+                     self.beta2, self.weight_decay)
 
     def apply_gradients(self, state: TrainState, grads: list[torch.Tensor]) -> None:
         """The optimizer chain on one micro-step's gradients, in place: with
@@ -215,20 +408,20 @@ class DiTTrainer:
             self._update(state, list(grads))
 
     def train_step(self, state: TrainState, batch, draws=None) -> dict:
-        """One step on ``batch`` = (x NHWC, y labels), updating ``state`` in
-        place. ``draws`` = (t, x0, drop_mask or None) replaces the step's own
-        draws of t, x0 and the label dropout (tests hand in the JAX draws).
-        Returns {"loss": velocity MSE, "total_loss", "grad_norm"} as tensors."""
+        """One step on ``batch`` = (x NHWC, y labels), this data rank's rows
+        of the global batch, updating ``state`` in place. ``draws`` = (t, x0,
+        drop_mask or None) at the global batch's shape replaces the step's
+        own draws (tests hand in the JAX draws). Returns {"loss": velocity
+        MSE, "total_loss", "grad_norm"} of the global batch, as tensors."""
         x, y = (torch.as_tensor(a, device=self.device) for a in batch)
         y = y.long()
+        mesh = self.mesh
+        n_dp, i_dp = (mesh.size(DP), mesh.index(DP)) if mesh is not None else (1, 0)
+        b = x.shape[0]
         gen = self.generator(state.step)
         if draws is None:
-            t = self.transport.sample_t(x.shape[0], gen, device=self.device)
-            x0 = torch.randn(x.shape, generator=gen, device=self.device, dtype=torch.float32)
-            drop = None
-        else:
-            t, x0, drop = (None if a is None else torch.as_tensor(a, device=self.device)
-                           for a in draws)
+            draws = global_draws(self.model, self.transport, b * n_dp, x.shape[1:], gen)
+        t, x0, drop = rank_rows(draws, i_dp, b, self.device)
 
         def model_fn(xt, tt):
             return self.model(xt, tt, y, train=True, force_drop_ids=drop, generator=gen)
@@ -236,15 +429,28 @@ class DiTTrainer:
         terms = self.transport.losses_at(model_fn, t, x0.to(x.dtype), x)
         mse = terms["loss"].mean()
         loss = mse + terms["cos_loss"].mean() if "cos_loss" in terms else mse
-        grads = torch.autograd.grad(loss, state.params)
-        grad_norm = global_norm(grads)
+        for p in state.params:
+            p.grad = None
+        loss.backward()
+        grads = [local_tensor(p.grad) for p in state.params]
+        for p in state.params:
+            p.grad = None
+        mse, loss = mse.detach().clone(), loss.detach().clone()
+        if mesh is not None and mesh.distributed:
+            sharded = mesh.size(FSDP_AXIS) > 1  # FSDP2 reduced the gradients already
+            mesh_lib.all_reduce_mean_(([] if sharded else grads) + [mse, loss], mesh.group(DP))
+            if state.layout is not None:
+                partial = [g for g, s in zip(grads, state.layout.splits) if s is not None and s.partial]
+                mesh_lib.all_reduce_sum_(partial, mesh.group(TENSOR_AXIS))
+        grad_norm = self._norm(state, grads)
 
         self.apply_gradients(state, grads)
         period = self.ema_every * self.grad_accum  # counts optimizer steps
         if period == 1 or (state.step + 1) % period == 0:
-            update_ema(state.ema_params, state.params, self.ema_decay ** self.ema_every)
+            update_ema(state.ema_params, [local_tensor(p) for p in state.params],
+                       self.ema_decay ** self.ema_every)
         state.step += 1
-        return {"loss": mse.detach(), "total_loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": mse, "total_loss": loss, "grad_norm": grad_norm}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, generator: torch.Generator,

@@ -15,7 +15,13 @@ rides in the adapter tree frozen, so ``clip_by_global_norm`` (when
 trainer's ``weight_decay``) see A and B only; the fp32 EMA at
 ``ema_decay`` runs over the whole tree, ``alpha`` included. Each step draws
 t, x0 and the label dropout from a generator seeded from
-``(global_seed, step)``.
+``(global_seed, step)``, at the global batch's shape.
+
+Data-parallel (``mesh``): each rank steps on its rows of the global batch
+and takes its rows of the draws; the adapters' gradients and the losses
+are averaged over the ranks (one flat fp32 all-reduce) before the norm,
+so clipping reads the global gradient, as the JAX step on its sharded
+batch.
 """
 from __future__ import annotations
 
@@ -25,12 +31,16 @@ from typing import Optional
 import torch
 
 from vavae_tpu_torch.models.dit import LightningDiT
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import DP, Mesh
 from vavae_tpu_torch.train.dit_trainer import (
     AdamState,
     adam_init,
     adamw_update,
     clip_by_global_norm,
+    global_draws,
     global_norm,
+    rank_rows,
     step_seed,
 )
 from vavae_tpu_torch.train.ema import update_ema
@@ -75,8 +85,12 @@ class LoRATrainer:
     ema_decay: float = 0.999
     max_grad_norm: Optional[float] = None
     global_seed: int = 0
+    # data-parallel processes (parallel/mesh.py); None: one process
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
+        if self.mesh is not None and self.mesh.size(DP) != self.mesh.world:
+            raise ValueError(f"LoRA finetuning is data-parallel only, got mesh {self.mesh.shape}")
         self.model.requires_grad_(False)  # the base weights never change
         self.device = next(self.model.parameters()).device
 
@@ -120,23 +134,25 @@ class LoRATrainer:
         return total.detach(), mse.detach(), grads
 
     def train_step(self, state: LoRAState, batch, draws=None) -> dict:
-        """One step on ``batch`` = (x NHWC, y labels), updating ``state`` in
-        place. ``draws`` = (t, x0, drop_mask or None) replaces the step's own
-        draws (tests hand in the JAX draws). Returns {"loss", "total_loss",
-        "grad_norm"} as tensors."""
+        """One step on ``batch`` = (x NHWC, y labels), this data rank's rows
+        of the global batch, updating ``state`` in place. ``draws`` = (t, x0,
+        drop_mask or None) at the global batch's shape replaces the step's
+        own draws (tests hand in the JAX draws). Returns {"loss",
+        "total_loss", "grad_norm"} of the global batch, as tensors."""
         x, y = (torch.as_tensor(a, device=self.device) for a in batch)
         y = y.long()
+        n_dp, i_dp = (self.mesh.size(DP), self.mesh.index(DP)) if self.mesh else (1, 0)
+        b = x.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(
             step_seed(self.global_seed, state.step))
         if draws is None:
-            t = self.transport.sample_t(x.shape[0], gen, device=self.device)
-            x0 = torch.randn(x.shape, generator=gen, device=self.device, dtype=torch.float32)
-            drop = None
-        else:
-            t, x0, drop = (None if a is None else torch.as_tensor(a, device=self.device)
-                           for a in draws)
+            draws = global_draws(self.model, self.transport, b * n_dp, x.shape[1:], gen)
+        t, x0, drop = rank_rows(draws, i_dp, b, self.device)
         params = trainable(state.lora)
         total, mse, grads = self.loss_and_grads(state.lora, x, y, t, x0, drop, gen)
+        if self.mesh is not None and self.mesh.distributed:
+            total, mse = total.clone(), mse.clone()
+            mesh_lib.all_reduce_mean_(grads + [total, mse], self.mesh.group(DP))
         grad_norm = global_norm(grads)
         if self.max_grad_norm:
             grads = clip_by_global_norm(grads, self.max_grad_norm)

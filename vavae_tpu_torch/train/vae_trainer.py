@@ -1,6 +1,6 @@
-"""VA-VAE training on one device (port of ``vavae_tpu/train/vae_trainer.py``):
-the two-optimizer (autoencoder + discriminator) GAN step with the adaptive
-GAN and VF weights.
+"""VA-VAE training, on one card or data-parallel over processes (port of
+``vavae_tpu/train/vae_trainer.py``): the two-optimizer (autoencoder +
+discriminator) GAN step with the adaptive GAN and VF weights.
 
 One ``train_step``:
   - one forward of the VAE (the posterior sampled with the step's noise),
@@ -31,7 +31,18 @@ in place: their inputs go in as bf16, their outputs come back as fp32.
 Randomness: the posterior noise of step s comes from a ``torch.Generator``
 seeded from ``(seed, s)``, so a resumed run draws what an unbroken one
 would; ``train_step(..., noise=)`` takes it from the caller instead (JAX's
-``jax.random`` stream cannot be replayed in torch).
+``jax.random`` stream cannot be replayed in torch). The noise is drawn at
+the global batch's shape and each rank takes its rows.
+
+Data-parallel (``mesh``): each rank steps on its rows of the global batch.
+The JAX step differentiates the global batch's losses, so here: the
+discriminator's batch norms take the global moments (``sync_batch_norms``);
+the last layers' gradients of nll, g and vf are averaged over the ranks
+before their norms, so d_weight and vf_weight are the global batch's; both
+optimizers' gradients are averaged in one flat fp32 all-reduce each; the
+logged losses are averaged too. Every loss is a mean over the rank's equal
+shard (``nll_loss`` divides by the local batch), so the mean of the ranks'
+means is the global mean.
 """
 from __future__ import annotations
 
@@ -47,9 +58,12 @@ from vavae_tpu_torch.models.discriminator import (
     NLayerDiscriminator,
     hinge_d_loss,
     init_discriminator_weights,
+    sync_batch_norms,
     vanilla_d_loss,
 )
 from vavae_tpu_torch.models.vae import AutoencoderKL
+from vavae_tpu_torch.parallel import mesh as mesh_lib
+from vavae_tpu_torch.parallel.mesh import DP, Mesh
 from vavae_tpu_torch.tokenizer import init_vae_weights
 from vavae_tpu_torch.train.dit_trainer import AdamState, adam_init, adamw_update, step_seed
 from vavae_tpu_torch.train.vae_loss import (
@@ -96,6 +110,8 @@ class VAETrainer:
     frozen_bf16: bool = True
     compute_dtype: torch.dtype = torch.float32
     seed: int = 0  # the posterior noise's stream
+    # data-parallel processes (parallel/mesh.py); None: one process
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -107,6 +123,10 @@ class VAETrainer:
             embed_dim = self.vae.post_quant_conv.in_channels
             self.gen.proj = nn.Conv2d(embed_dim, self.vf_dim, 1, bias=False).to(self.device)
         self.disc = NLayerDiscriminator(n_layers=self.disc_layers).to(self.device)
+        if self.mesh is not None and self.mesh.distributed:
+            if self.mesh.size(DP) != self.mesh.world:
+                raise ValueError(f"VA-VAE training is data-parallel only, got mesh {self.mesh.shape}")
+            sync_batch_norms(self.disc, self.mesh.group(DP))
         for net in (self.foundation, self.lpips):
             if net is not None:
                 net.requires_grad_(False).eval()
@@ -158,6 +178,11 @@ class VAETrainer:
     def _images(self, images) -> torch.Tensor:
         return torch.as_tensor(images).to(self.device, torch.float32)
 
+    def _mean(self, tensors: list[torch.Tensor]) -> None:
+        """Average ``tensors`` over the data ranks, in place (one collective)."""
+        if self.mesh is not None and self.mesh.distributed:
+            mesh_lib.all_reduce_mean_(tensors, self.mesh.group(DP))
+
     # -- steps -------------------------------------------------------------------
 
     @full_fp32()
@@ -166,11 +191,14 @@ class VAETrainer:
         ``state`` in place. Returns the metrics as detached tensors."""
         cfg = self.loss_cfg
         x = self._images(images)
+        n_dp, i_dp = (self.mesh.size(DP), self.mesh.index(DP)) if self.mesh else (1, 0)
+        b = x.shape[0]
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, state.step))
-            noise = torch.randn(self._noise_shape(x), generator=gen, device=self.device)
+            shape = self._noise_shape(x)
+            noise = torch.randn((b * n_dp,) + shape[1:], generator=gen, device=self.device)
         noise = (noise if torch.is_tensor(noise) else torch.from_numpy(np.array(noise))).to(
-            self.device, torch.float32)
+            self.device, torch.float32)[i_dp * b:(i_dp + 1) * b]
         with torch.no_grad():
             aux = (self._frozen(self.foundation, x)
                    if self.use_vf and self.foundation is not None else None)
@@ -200,23 +228,28 @@ class VAETrainer:
         want_vf = self.use_vf and cfg.adaptive_vf
         targets = ([dec_w] if want_d else []) + ([enc_w] if want_vf else [])
         g_nll = list(torch.autograd.grad(nll, targets, retain_graph=True)) if targets else []
+        g_g_dec = torch.autograd.grad(g_loss, dec_w, retain_graph=True)[0] if want_d else None
+        g_vf = None
+        if want_vf:
+            g_vf = (torch.autograd.grad(vf, enc_w, retain_graph=True)[0] if vf_on
+                    else torch.zeros_like(enc_w))
+        # the global batch's gradients, before their norms
+        self._mean(g_nll + [g for g in (g_g_dec, g_vf) if g is not None])
         if want_d:
-            (g_g_dec,) = torch.autograd.grad(g_loss, dec_w, retain_graph=True)
             d_weight = adaptive_weight(_norm(g_nll.pop(0)), _norm(g_g_dec), cfg.disc_weight, 1e4)
         else:
             d_weight = zero
         if want_vf:
-            g_vf = (torch.autograd.grad(vf, enc_w, retain_graph=True)[0] if vf_on
-                    else torch.zeros_like(enc_w))
             vf_weight = adaptive_weight(_norm(g_nll.pop(0)), _norm(g_vf), cfg.vf_weight, 1e8)
         else:
             vf_weight = torch.full((), cfg.vf_weight if self.use_vf else 0.0, device=self.device)
         disc_factor = adopt_weight(cfg.disc_factor, state.step, cfg.disc_start)
 
         total = nll + cfg.kl_weight * kl + d_weight * disc_factor * g_loss + vf_weight * vf
-        grads = torch.autograd.grad(total, state.gen_params, allow_unused=True,
-                                    materialize_grads=True)
-        adamw_update(state.gen_params, list(grads), state.gen_opt, self.lr, B2, b1=B1)
+        grads = list(torch.autograd.grad(total, state.gen_params, allow_unused=True,
+                                         materialize_grads=True))
+        self._mean(grads)
+        adamw_update(state.gen_params, grads, state.gen_opt, self.lr, B2, b1=B1)
 
         # -- discriminator: pre-step weights, detached reconstruction -------------------
         dec = dec.detach()
@@ -224,11 +257,12 @@ class VAETrainer:
         logits_fake_d = self.disc(dec, train=True)
         d_loss_fn = hinge_d_loss if cfg.disc_loss == "hinge" else vanilla_d_loss
         disc_loss = disc_factor * d_loss_fn(logits_real, logits_fake_d)
-        disc_grads = torch.autograd.grad(disc_loss, state.disc_params)
-        adamw_update(state.disc_params, list(disc_grads), state.disc_opt, self.lr, B2, b1=B1)
+        disc_grads = list(torch.autograd.grad(disc_loss, state.disc_params))
+        self._mean(disc_grads)
+        adamw_update(state.disc_params, disc_grads, state.disc_opt, self.lr, B2, b1=B1)
         state.step += 1
 
-        return {k: v.detach() for k, v in {
+        metrics = {k: v.detach().clone() for k, v in {
             "rec_loss": rec_mean, "kl_loss": kl, "g_loss": g_loss, "vf_loss": vf,
             "vf_distmat": vf_dm, "vf_cos": vf_cos, "total_loss": total, "nll_loss": nll,
             "d_weight": d_weight, "vf_weight": vf_weight,
@@ -236,6 +270,9 @@ class VAETrainer:
             "disc_loss": disc_loss, "logits_real": logits_real.mean(),
             "logits_fake": logits_fake_d.mean(),
         }.items()}
+        # the global batch's means (d_weight, vf_weight and disc_factor are global already)
+        self._mean([v for k, v in metrics.items() if k not in ("d_weight", "vf_weight", "disc_factor")])
+        return metrics
 
     @torch.no_grad()
     @full_fp32()
