@@ -203,7 +203,31 @@ Phases, each fatal on failure:
      checkpoints byte-equal, one trace a run, the events files' CRCs; the
      production XL/1 under ``VAVAE_ATTN_NATURAL=0`` (forward at batch 16 and
      loss gradients as phases 5-6, #3 and #6 in place of #1 and #2) against
-     plain attention and against the natural route, within 3e-2.
+     plain attention and against the natural route, within 3e-2;
+  33. the multi-device paths (``run_multidevice``): a world of every card
+     over NCCL (``do_train`` and rank-striped sampling at XL/1 width, depth
+     2) and two ranks sharing the card over gloo (DP, FSDP and TP steps
+     against one process);
+  34. the data and I/O modules: the committed JPEG fixtures of
+     ``tests/data/jpeg`` through the port's decoder, bit-equal to PIL's
+     committed decodes; an ImageNet-layout tree of them (66 files, with
+     CMYK, YCCK, grayscale, progressive and a PNG under a ``.JPEG`` name),
+     whose ``ImageNetValidation`` filelist, items and labels equal the JAX
+     package's committed ones; ``extract`` over the tree at 256² with the
+     f16d32 VA-VAE at fp32 (its images/s a smoke reading: 66 small files,
+     first calls included); the native shard reader's batches of its
+     shards bit-equal to the Python reference's (``reference_batch``), and
+     ``do_train`` (XL/1 width, depth 2) 2 steps on them with #1 and #2
+     counted exactly; ``do_train``'s steps/s at the global batch of 1,024
+     with the native reader and with the Python reference (native, Python,
+     native, Python); two ``train_epochs`` steps of the VA-VAE at batch 8
+     over ``ImageNetTrain`` on phase 23's trainer (run at the end of phase
+     23: one ViT-L); a ``pipelines.sample`` FID folder of 16 images (XL/1
+     width, depth 2, euler-50) through the threaded PNG writer, each file
+     decoding to its image, #1 counted; the host rates: decode images/s of
+     the 500×375 4:2:0 fixture alone and on 8 threads, the JPEG check of
+     the tree's files, the reader's batches of 1,024 against the Python
+     reference and the writer's 256² PNGs on a pool against one thread.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -222,8 +246,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
+import logging
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -277,6 +304,7 @@ from vavae_tpu_torch.data.image_folder import (
     SplitFileDataset,
 )
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
+from vavae_tpu_torch.data.ldm_datasets import ImageNetTrain, ImageNetValidation
 from vavae_tpu_torch.eval.metrics import ssim
 from vavae_tpu_torch.models import lpips as lpips_mod
 from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights, load_lpips
@@ -305,7 +333,8 @@ from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
 from vavae_tpu_torch.utils.metrics_logger import read_events
 from vavae_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
-from vavae_tpu_torch.utils.png import read_png, write_pngs
+from vavae_tpu_torch.utils.jpeg import decode_jpeg, refused_jpegs
+from vavae_tpu_torch.utils.png import read_image_rgb, read_png, write_pngs
 from vavae_tpu_torch.utils.safetensors_io import (
     flatten,
     read_safetensors,
@@ -1616,11 +1645,13 @@ def write_image_folder(root: str, seed: int) -> None:
     rs = np.random.default_rng(seed)
     for name, c, w, h in EXTRACT_CLASSES:
         os.makedirs(os.path.join(root, name))
+        imgs = []
         for i in range(EXTRACT_PER_CLASS):
             cells = rs.integers(0, 256, (h // 16 + 1, w // 16 + 1, c)).astype(np.int16)
             img = np.repeat(np.repeat(cells, 16, 0), 16, 1)[:h, :w]
-            img = np.clip(img + rs.integers(-12, 13, img.shape), 0, 255).astype(np.uint8)
-            write_pngs(img[None], [os.path.join(root, name, f"{i:03d}.png")])
+            imgs.append(np.clip(img + rs.integers(-12, 13, img.shape), 0, 255).astype(np.uint8))
+        paths = [os.path.join(root, name, f"{i:03d}.png") for i in range(EXTRACT_PER_CLASS)]
+        write_pngs(np.stack(imgs), paths)
 
 
 def _extraction_run(folder: str, out: str, vae, seed: int) -> tuple[dict, np.ndarray]:
@@ -2007,11 +2038,14 @@ def phase_vae_cpu_check(seed: int, folder: str, cfg: Config, foundation, lpips) 
     return {"rel_err": rel, "card": m_card, "cpu": m_cpu, "cpu_s": cpu_s, "state_rel_err": fro}
 
 
-def phase_vae_train(seed: int, device_info: dict, folder: str) -> dict:
+def phase_vae_train(seed: int, device_info: dict, folder: str,
+                    imagenet: str | None = None) -> dict:
     """Phase 23: the f16d32 VA-VAE trainer at full width with ViT-L DINOv2,
     VGG16 LPIPS and the 3-layer PatchGAN (seeded random weights), VAE_STEPS
     steps at batch VAE_BATCH, the discriminator gated until step
-    VAE_DISC_START; then one step against the CPU."""
+    VAE_DISC_START; then one step against the CPU. With ``imagenet`` (a
+    tree), phase 34's ``train_epochs`` steps over ``ImageNetTrain`` run on
+    the same trainer after them (one ViT-L for both)."""
     cfg = Config(VAVAE_F16D32).merged_with(
         {"model": {"params": {"lossconfig": {"params": {"disc_start": VAE_DISC_START}}}}})
     foundation, _ = make_aux_feature_fn("dinov2", allow_random=True, device="cuda")
@@ -2089,6 +2123,8 @@ def phase_vae_train(seed: int, device_info: dict, folder: str) -> dict:
         + f" [{device_info['smi']}]")
     for name, t in res["top_kernels"].items():
         log(f"[vae-train]   {t:8.3f} ms  {vae_kernel_class(name):11s} {name[:110]}")
+    if imagenet is not None:
+        out["imagenet"] = phase_imagenet_vae(trainer, state, imagenet, device_info)
     del trainer, state, foundation, lpips
     torch.cuda.empty_cache()
     return out
@@ -2175,16 +2211,18 @@ def phase_vae_entry_point(seed: int, device_info: dict, work: str, folder: str) 
     return res
 
 
-def run_vae_training(seed: int, device_info: dict, keep: str | None = None) -> dict:
+def run_vae_training(seed: int, device_info: dict, keep: str | None = None,
+                     imagenet: str | None = None) -> dict:
     """Phases 23-24, on phase 21's seeded image folder. With ``keep``, phase
     24's last stage-3 checkpoint and its config are copied there (for
-    phase 32)."""
+    phase 32); with ``imagenet``, phase 34's VA-VAE steps run on phase 23's
+    trainer."""
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_vavae_")
     try:
         folder = os.path.join(work, "images")
         write_image_folder(folder, seed)
-        out = {"train": phase_vae_train(seed, device_info, folder),
+        out = {"train": phase_vae_train(seed, device_info, folder, imagenet),
                "entry_point": phase_vae_entry_point(seed, device_info, work, folder)}
         if keep is not None:
             shutil.copy(ckpt_lib.latest_checkpoint(os.path.join(work, "vavae", "stage3")),
@@ -3814,6 +3852,338 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary:
             "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"]}
 
 
+# -- phase 34: the data and I/O modules --------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+RATE_FIXTURE = "photo_420_q90.jpg"   # 500×375 4:2:0, the decode rates' file
+IMAGENET_VAE_BATCH, IMAGENET_VAE_STEPS = 8, 2
+IO_EXTRACT_BATCH, IO_EXTRACT_SHARD = 32, 64
+IO_TRAIN_DEPTH, IO_TRAIN_STEPS = 2, 2
+IO_SAMPLE_DEPTH, IO_SAMPLE_NUM = 2, 16
+IO_READER_ROWS, IO_READER_BATCH = 2048, 1024  # the production global batch
+IO_AB_STEPS, IO_AB_WINDOW = 6, 3  # do_train's A/B: steps/s over the last window
+IO_WRITER_IMAGES = 64
+IO_DECODE_N, IO_POOL = 64, 8
+
+
+def write_imagenet_tree(root: str) -> dict:
+    """The ImageNet-layout tree of ``tests/data/jpeg/manifest.json`` under
+    ``root`` (the committed fixtures copied to ``data/<synset>/*.JPEG``);
+    returns the manifest."""
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for t in manifest["tree"]:
+        dst = os.path.join(root, t["path"])
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copy(os.path.join(JPEG_FIXTURES, t["file"]), dst)
+    return manifest
+
+
+def phase_imagenet_vae(trainer, state, root: str, device_info: dict) -> dict:
+    """Phase 34's VA-VAE part, on phase 23's trainer (no second ViT-L):
+    ``train_epochs`` over the first IMAGENET_VAE_BATCH × IMAGENET_VAE_STEPS
+    items of ``ImageNetTrain`` at 256² (the port's JPEG decoder, BILINEAR,
+    random crops), one epoch of IMAGENET_VAE_STEPS steps."""
+    random.seed(0)
+    ds = ImageNetTrain(root, size=256)
+    ds.items = ds.items[:IMAGENET_VAE_BATCH * IMAGENET_VAE_STEPS]
+    metrics = []
+
+    class Recording:  # smoke-only: the trainer with each step's losses kept
+        def __getattr__(self, name):
+            return getattr(trainer, name)
+
+        def train_step(self, st, images):
+            m = trainer.train_step(st, images)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return m
+
+    step0 = state.step
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_imagenet_vae_")
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, preempted = train_vavae.train_epochs(
+            Recording(), state, ds, epochs=1, batch_size=IMAGENET_VAE_BATCH,
+            logger=logging.getLogger("chip_smoke"), ckpt_dir=ckpt, log_every=1, seed=0,
+            async_ckpt=False, log_images_every=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    expect_counts(counts(), {}, "VA-VAE train_epochs over ImageNetTrain")
+    if preempted or state.step - step0 != IMAGENET_VAE_STEPS or len(metrics) != IMAGENET_VAE_STEPS:
+        fail(f"train_epochs over ImageNetTrain: {state.step - step0} steps, {len(metrics)} "
+             f"recorded, preempted {preempted}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"train_epochs over ImageNetTrain: non-finite metrics {metrics}")
+    losses = ", ".join(f"{m['rec_loss']:.4f}" for m in metrics)
+    log(f"[imagenet] VA-VAE train_epochs over ImageNetTrain (256², batch {IMAGENET_VAE_BATCH}): "
+        f"{IMAGENET_VAE_STEPS} steps in {seconds:.2f} s (epoch checkpoint included), rec_loss "
+        f"{losses} [{device_info['smi']}]")
+    return {"steps": IMAGENET_VAE_STEPS, "seconds": seconds, "metrics": metrics}
+
+
+def _check_fixtures(manifest: dict) -> int:
+    """Every committed fixture through ``read_image_rgb`` (the port's JPEG
+    decoder; the PNG under a ``.JPEG`` name through ``read_png``) against
+    PIL's committed decode: bit-equal, or the decode's SHA-256."""
+    for entry in manifest["fixtures"]:
+        got = read_image_rgb(os.path.join(JPEG_FIXTURES, entry["file"]))
+        if list(got.shape) != entry["shape"]:
+            fail(f"{entry['file']}: decoded {got.shape}, PIL's is {entry['shape']}")
+        if "decode" in entry:
+            want = read_png(os.path.join(JPEG_FIXTURES, entry["decode"]))
+            if not np.array_equal(got, want):
+                fail(f"{entry['file']}: decode differs from PIL's at "
+                     f"{int((got != want).any(axis=2).sum())} pixels")
+        elif hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest() != \
+                entry["decode_sha256"]:
+            fail(f"{entry['file']}: decode's SHA-256 differs from PIL's")
+    return len(manifest["fixtures"])
+
+
+def _check_validation_crops(root: str, manifest: dict) -> int:
+    ds = ImageNetValidation(root, size=manifest["crop_size"])
+    with open(os.path.join(root, "filelist.txt")) as f:
+        if f.read() != manifest["filelist"]:
+            fail("ImageNetValidation's filelist.txt differs from the JAX package's")
+    want = np.load(os.path.join(JPEG_FIXTURES, "imagenet_val_crops.npz"))
+    if [os.path.relpath(p, root) for p, _ in ds.items] != list(want["paths"]):
+        fail("ImageNetValidation's items differ from the JAX package's")
+    for i in range(len(ds)):
+        x, y = ds[i]
+        crop = want["crops"][want["fixture"][i]]
+        if not np.array_equal(x, (crop / 127.5 - 1.0).astype(np.float32)) or y != want["labels"][i]:
+            fail(f"ImageNetValidation item {i} ({ds.items[i][0]}) differs from the JAX package's")
+    return len(ds)
+
+
+def _rate(fn, n: int, rounds: int = 3) -> float:
+    """Calls of ``fn`` a second (``n`` calls a round), the best of
+    ``rounds`` rounds after one warm-up call."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    return n / best
+
+
+def _python_batches(self, batch_size, **kw):  # smoke-only: the reference in do_train
+    for idxs, flips in self.index_batches(batch_size, **kw):
+        yield self.reference_batch(idxs, flips)
+
+
+def _rate_shards(work: str) -> str:
+    """IO_READER_ROWS seeded latents of the f16d32 shape in two shards."""
+    shards = os.path.join(work, "rate_shards")
+    rs = np.random.default_rng(0)
+    half = IO_READER_ROWS // 2
+    for i in range(2):
+        lat = rs.standard_normal((half, 32, 16, 16)).astype(np.float32)
+        write_safetensors(os.path.join(shards, f"shard_{i:03d}.safetensors"), {
+            "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+            "labels": rs.integers(0, 1000, (half,)).astype(np.int64)})
+    return shards
+
+
+def _host_rates(work: str, shards: str, tree: list, images: np.ndarray) -> dict:
+    """The host side: decode images/s of the 500×375 4:2:0 fixture alone and
+    on IO_POOL threads; files/s of the JPEG check over ``tree`` (as
+    ``extract`` runs it, on 8 threads); the shard reader's batches of
+    IO_READER_BATCH against the Python reference; the writer's PNGs of
+    ``images`` on a pool and on one thread."""
+    with open(os.path.join(JPEG_FIXTURES, RATE_FIXTURE), "rb") as f:
+        data = f.read()
+    out = {"decode_images_per_s": _rate(lambda: decode_jpeg(data), IO_DECODE_N)}
+    with ThreadPoolExecutor(IO_POOL) as pool:
+        out["decode_pool_images_per_s"] = _rate(
+            lambda: list(pool.map(decode_jpeg, [data] * IO_DECODE_N)), 1) * IO_DECODE_N
+    out["check_files_per_s"] = _rate(lambda: refused_jpegs(tree), 1) * len(tree)
+
+    per_epoch = IO_READER_ROWS // IO_READER_BATCH
+    ds = ImgLatentDataset(shards)
+    native = lambda: list(ds.batches(IO_READER_BATCH, epochs=1))  # noqa: E731
+    python = lambda: list(_python_batches(ds, IO_READER_BATCH, epochs=1))  # noqa: E731
+    out["reader_native_batches_per_s"] = _rate(native, 1) * per_epoch
+    out["reader_python_batches_per_s"] = _rate(python, 1) * per_epoch
+
+    batch = np.concatenate([images] * (IO_WRITER_IMAGES // len(images)))
+    paths = [os.path.join(work, f"w{i:03d}.png") for i in range(len(batch))]
+    out["writer_pool_images_per_s"] = _rate(lambda: write_pngs(batch, paths), 1) * len(batch)
+    out["writer_one_thread_images_per_s"] = _rate(
+        lambda: write_pngs(batch, paths, threads=1), 1) * len(batch)
+    return out
+
+
+def _train_reader_ab(shards: str, work: str) -> dict:
+    """``do_train``'s steps/s (XL/1 width, depth IO_TRAIN_DEPTH, global batch
+    IO_READER_BATCH, logging every IO_AB_WINDOW steps: the last window's
+    rate) with the native reader and with the Python reference in its place,
+    run native, Python, native, Python; #1 and #2 counted in each."""
+    fwd, bwd = BRANCHES["production"]["fwd"], BRANCHES["production"]["bwd"]
+    rates = {"native": [], "python": []}
+    for i, name in enumerate(("native", "python") * 2):
+        out_dir = os.path.join(work, f"ab{i}")
+        cfg = branch_config("production").merged_with({
+            "data": {"data_path": shards},
+            "train": {"max_steps": IO_AB_STEPS, "global_batch_size": IO_READER_BATCH,
+                      "ckpt_every": 10 ** 9, "log_every": IO_AB_WINDOW,
+                      "output_dir": out_dir, "exp_name": "ab"}})
+        with xl_depth(IO_TRAIN_DEPTH), contextlib.ExitStack() as stack:
+            if name == "python":
+                stack.enter_context(_patched(ImgLatentDataset, "batches", _python_batches))
+            reset_counts()
+            state = do_train(cfg, device="cuda")
+        expect_counts(counts(), {fwd: IO_AB_STEPS * 2 * IO_TRAIN_DEPTH,
+                                 bwd: IO_AB_STEPS * IO_TRAIN_DEPTH},
+                      f"do_train with the {name} reader")
+        with open(os.path.join(out_dir, "ab", "tb", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        rates[name].append([r for r in logged if "train/steps_per_sec" in r][-1]
+                           ["train/steps_per_sec"])
+        del state
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return rates
+
+
+def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest: dict) -> dict:
+    """Phase 34: the committed JPEG fixtures, ``ImageNetValidation``'s items,
+    ``extract`` over the ImageNet tree, the native shard reader against the
+    Python reference and ``do_train`` on its shards, ``do_train``'s steps/s
+    with each reader, a ``pipelines.sample`` FID folder through the threaded
+    PNG writer, and the host rates."""
+    t_phase = time.perf_counter()
+    out = {"fixtures": _check_fixtures(manifest),
+           "validation_items": _check_validation_crops(root, manifest)}
+
+    # extract over root/data at 256², the f16d32 VA-VAE at fp32
+    folder = os.path.join(root, "data")
+    items = list_image_folder(folder)
+    vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device="cuda")
+    vae.encode_moments(np.zeros((IO_EXTRACT_BATCH, 256, 256, 3), np.float32))  # cuDNN warm-up
+    shards = os.path.join(work, "latents")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extract(folder, shards, vae, batch_size=IO_EXTRACT_BATCH, image_size=256,
+            shard_size=IO_EXTRACT_SHARD, seed=seed)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    expect_counts(counts(), {}, "extraction over the ImageNet tree")
+    del vae
+    torch.cuda.empty_cache()
+    rows, labels = 0, []
+    for name in sorted(os.listdir(shards)):
+        if name.startswith("latents_rank"):
+            t = read_safetensors(os.path.join(shards, name))[0]
+            if not np.isfinite(t["latents"]).all() or t["latents"].shape[1:] != (32, 16, 16):
+                fail(f"{name}: latents {t['latents'].shape}, finite {np.isfinite(t['latents']).all()}")
+            rows += len(t["labels"])
+            labels.append(t["labels"])
+    if rows != len(items) or (np.concatenate(labels) != [c for _, c in items]).any():
+        fail(f"extraction over the ImageNet tree: {rows} rows for {len(items)} images")
+    out["extract"] = {"images": len(items), "seconds": extract_s,
+                      "images_per_s": len(items) / extract_s}
+
+    # the native reader against the Python reference, then do_train on the shards
+    ds = ImgLatentDataset(shards)
+    batches = list(ds.batches(8, seed=seed, epochs=2))
+    reference = list(_python_batches(ds, 8, seed=seed, epochs=2))
+    if len(batches) != len(reference):
+        fail(f"the native reader gave {len(batches)} batches, the reference {len(reference)}")
+    for (gx, gy), (wx, wy) in zip(batches, reference):
+        if not (np.array_equal(gx, wx) and np.array_equal(gy, wy)):
+            fail("the native shard reader's batches differ from the Python reference's")
+    cfg = branch_config("production").merged_with({
+        "data": {"data_path": shards},
+        "train": {"max_steps": IO_TRAIN_STEPS, "global_batch_size": 8,
+                  "ckpt_every": IO_TRAIN_STEPS, "log_every": 1,
+                  "output_dir": os.path.join(work, "train"), "exp_name": "imagenet"}})
+    fwd, bwd = BRANCHES["production"]["fwd"], BRANCHES["production"]["bwd"]
+    with xl_depth(IO_TRAIN_DEPTH):
+        reset_counts()
+        t0 = time.perf_counter()
+        state = do_train(cfg, device="cuda")
+        train_s = time.perf_counter() - t0
+    got = counts()
+    if state.step != IO_TRAIN_STEPS:
+        fail(f"do_train on the ImageNet shards reached step {state.step}")
+    expect_counts(got, {fwd: IO_TRAIN_STEPS * 2 * IO_TRAIN_DEPTH, bwd: IO_TRAIN_STEPS * IO_TRAIN_DEPTH},
+                  "do_train on the ImageNet shards")
+    del state
+    torch.cuda.empty_cache()
+    out["reader"] = {"batches": len(batches), "bit_equal": True}
+    out["train"] = {"seconds": train_s, "launches": [got[fwd], got[bwd]]}
+    rate_shards = _rate_shards(work)
+    out["train_reader_ab"] = ab = _train_reader_ab(rate_shards, work)
+
+    # a FID-folder sampling run through the native PNG writer
+    with xl_depth(IO_SAMPLE_DEPTH):
+        scfg, model = build_xl(seed)
+    ckpt = os.path.join(work, "xl_depth2.safetensors")
+    write_safetensors(ckpt, flatten(dit_state_to_jax(model.state_dict()), "params"))
+    del model
+    written = []
+
+    def recording_writer(images, paths, *a, **k):  # smoke-only: keep what was written
+        written.append((np.array(images), list(paths)))
+        return write_pngs(images, paths, *a, **k)
+
+    run = scfg.merged_with({"ckpt_path": ckpt, "sample_folder": os.path.join(work, "samples"),
+                            "data": {"latent_norm": False},
+                            "sample": {"num_sampling_steps": SAMPLER_STEPS, "fid_num": IO_SAMPLE_NUM}})
+    with xl_depth(IO_SAMPLE_DEPTH), _patched(sample_mod, "write_pngs", recording_writer):
+        reset_counts()
+        t0 = time.perf_counter()
+        sample_folder = do_sample(run, device="cuda")
+        sample_s = time.perf_counter() - t0
+    calls = IO_SAMPLE_NUM // scfg.sample.per_proc_batch_size
+    expect_counts(counts(), {fwd: IO_SAMPLE_DEPTH * (SAMPLER_STEPS - 1) * calls},
+                  "sampling into a FID folder")
+    n_png = 0
+    for images, paths in written:
+        for im, p in zip(images, paths):
+            if not np.array_equal(read_png(p), im):
+                fail(f"{p}: the writer's PNG does not decode to its image")
+            n_png += 1
+    if n_png != IO_SAMPLE_NUM or len(os.listdir(sample_folder)) != IO_SAMPLE_NUM:
+        fail(f"sampling wrote {n_png} PNGs ({len(os.listdir(sample_folder))} in the folder)")
+    out["sample"] = {"images": n_png, "seconds": sample_s, "launches": IO_SAMPLE_DEPTH
+                     * (SAMPLER_STEPS - 1) * calls}
+
+    out["rates"] = _host_rates(work, rate_shards, [p for p, _ in items],
+                               np.concatenate([w[0] for w in written]))
+    out["seconds"] = time.perf_counter() - t_phase
+    r = out["rates"]
+    log(f"[imagenet] {out['fixtures']} JPEG fixtures bit-equal to PIL's decodes; "
+        f"ImageNetValidation's {out['validation_items']} items equal the JAX package's")
+    log(f"[imagenet] extract over the ImageNet tree ({len(items)} small JPEG/PNG files, 256², "
+        f"fp32): {extract_s:.2f} s, {out['extract']['images_per_s']:.2f} images/s (a smoke "
+        f"reading, first calls included); reader bit-equal to the Python reference over "
+        f"{len(batches)} batches; do_train {IO_TRAIN_STEPS} steps {train_s:.1f} s, launches "
+        f"{got[fwd]} {fwd} / {got[bwd]} {bwd}; FID folder of {n_png} PNGs {sample_s:.1f} s "
+        f"[{device_info['smi']}]")
+    log(f"[imagenet] do_train steps/s at batch {IO_READER_BATCH}, depth {IO_TRAIN_DEPTH}, "
+        f"steps {IO_AB_STEPS - IO_AB_WINDOW + 1}-{IO_AB_STEPS}: native reader "
+        f"{', '.join(f'{x:.4f}' for x in ab['native'])}; Python reference "
+        f"{', '.join(f'{x:.4f}' for x in ab['python'])} [{device_info['smi']}]")
+    log(f"[imagenet] host rates: decode {RATE_FIXTURE} {r['decode_images_per_s']:.1f} images/s "
+        f"alone, {r['decode_pool_images_per_s']:.1f} on {IO_POOL} threads; JPEG check "
+        f"{r['check_files_per_s']:.1f} files/s of the tree; reader "
+        f"{r['reader_native_batches_per_s']:.2f} batches/s of {IO_READER_BATCH} (Python "
+        f"reference {r['reader_python_batches_per_s']:.2f}); writer "
+        f"{r['writer_pool_images_per_s']:.1f} PNGs/s of 256² on a pool "
+        f"({r['writer_one_thread_images_per_s']:.1f} on one thread); phase 34 "
+        f"{out['seconds']:.1f} s [{device_info['smi']}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -3843,13 +4213,21 @@ def main(argv=None) -> int:
     samplers = run_samplers(SEED, device)
     tokenizer = run_tokenizer(SEED, device)
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    io_work = tempfile.mkdtemp(prefix="chip_smoke_io_")
     try:
-        vae_training = run_vae_training(SEED, device, keep)
-        apps = run_microdoppler_apps(SEED, device)
-        tools = run_tools(SEED, device, keep)
+        imagenet_root = os.path.join(io_work, "imagenet")
+        manifest = write_imagenet_tree(imagenet_root)
+        try:
+            vae_training = run_vae_training(SEED, device, keep, imagenet_root)
+            apps = run_microdoppler_apps(SEED, device)
+            tools = run_tools(SEED, device, keep)
+        finally:
+            shutil.rmtree(keep, ignore_errors=True)
+        multidevice = run_multidevice(SEED, device)
+        data_io = phase_imagenet(SEED, device, io_work, imagenet_root, manifest)
+        data_io["vae"] = vae_training["train"].pop("imagenet")
     finally:
-        shutil.rmtree(keep, ignore_errors=True)
-    multidevice = run_multidevice(SEED, device)
+        shutil.rmtree(io_work, ignore_errors=True)
 
     line = {"kernels": [
         _kernel_entry("nat_attention_fwd", "nat_attention_fwd.cu", "215",
@@ -3871,9 +4249,10 @@ def main(argv=None) -> int:
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
                        "vae_training": vae_training, "apps": apps, "tools": tools,
-                       "multidevice": multidevice, "seconds": time.perf_counter() - t0},
+                       "multidevice": multidevice, "data_io": data_io,
+                       "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-33: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-34: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

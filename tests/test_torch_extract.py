@@ -63,6 +63,31 @@ def folder(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def jpeg_folder(tmp_path_factory):
+    """An ImageNet-layout tree of JPEGs: RGB 4:2:0, progressive, gray and
+    CMYK, and one PNG under a ``.JPEG`` name."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("jpegs")
+    for c, syn in enumerate(("n01440764", "n01443537")):
+        (root / syn).mkdir()
+        for i in range(5):
+            rs = np.random.default_rng(17 * c + i)
+            rgb = rs.integers(0, 256, (36 + 4 * i, 44 + 6 * c, 3)).astype(np.uint8)
+            rgb[:, ::2] //= 8  # stripes: real DCT content
+            path = root / syn / f"{syn}_{i}.JPEG"
+            if i == 4:
+                Image.fromarray(rgb).save(path, "PNG")
+            elif i == 3:
+                Image.frombytes("CMYK", rgb.shape[1::-1],
+                                np.dstack([rgb, rgb[..., :1]]).tobytes()).save(path, "JPEG")
+            else:
+                im = Image.fromarray(rgb[..., 0]) if i == 2 else Image.fromarray(rgb)
+                im.save(path, "JPEG", quality=85, progressive=i == 1)
+    return root
+
+
 @pytest.fixture()
 def posterior_mode(monkeypatch):
     """Both packages' ``encode_images`` replaced by the posterior mode."""
@@ -108,6 +133,42 @@ def test_extract_matches_jax(vaes, folder, tmp_path, posterior_mode):
     assert shard["latents"].shape == (6, 4, 16, 16) and shard["latents"].dtype == np.float32
     assert shard["labels"].dtype == np.int32
     np.testing.assert_array_equal(shard["labels"], [0, 0, 0, 0, 0, 1])
+
+
+def test_extract_jpeg_tree_matches_jax(vaes, jpeg_folder, tmp_path, posterior_mode):
+    """The same parity on an ImageNet-layout JPEG tree: the port decodes with
+    its own decoder, the JAX package with PIL."""
+    jv, tv, _ = vaes
+    kw = dict(batch_size=4, image_size=S, shard_size=8, seed=0)
+    jext.extract(str(jpeg_folder), str(tmp_path / "jax"), jv, **kw)
+    text.extract(str(jpeg_folder), str(tmp_path / "port"), tv, **kw)
+    _assert_same_output(tmp_path / "port", tmp_path / "jax")
+    assert len(text.list_image_folder(str(jpeg_folder))) == 10
+
+
+def test_extract_lists_refused_jpegs_before_encoding(vaes, tmp_path):
+    """The JPEGs the port's decoder refuses (an arithmetic-coded one and a
+    progressive one whose scans stop early, both of which PIL decodes) are
+    named in one error before anything is encoded."""
+    from test_torch_jpeg import _encode, _image, _sof_as
+
+    _, tv, _ = vaes
+    prog = _encode(_image(40, 40, 9), quality=80, progressive=True)
+    files = {"class_0/a.png": None, "class_0/b.jpg": _sof_as(_encode(_image(24, 24, 1)), 0xC9),
+             "class_1/c.JPEG": prog[:len(prog) * 2 // 3] + b"\xff\xd9",
+             "class_1/d.jpg": _encode(_image(24, 24, 2))}
+    root = tmp_path / "images"
+    for name, data in files.items():
+        (root / name).parent.mkdir(parents=True, exist_ok=True)
+        if data is None:
+            _write(root / name, "RGB", 40, 40, seed=3)
+        else:
+            (root / name).write_bytes(data)
+    with pytest.raises(ValueError, match="2 of 4 images are JPEGs") as e:
+        text.extract(str(root), str(tmp_path / "out"), tv, batch_size=2, image_size=S)
+    assert f"{root / 'class_0/b.jpg'}: unsupported JPEG: SOF marker 0xC9" in str(e.value)
+    assert f"{root / 'class_1/c.JPEG'}: unsupported JPEG: a progressive file" in str(e.value)
+    assert not list((tmp_path / "out").glob("*.safetensors"))
 
 
 def test_extract_split_file_matches_jax(vaes, folder, tmp_path, posterior_mode):

@@ -339,16 +339,20 @@ def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
 
 
 def test_non_png_images_need_pil(tmp_path, monkeypatch):
-    """A folder's JPEG goes through PIL; without PIL the error names it."""
+    """A folder's BMP goes through PIL, and without PIL the error names it;
+    a JPEG goes through the port's decoder, which needs no PIL."""
     import builtins
 
     from PIL import Image
 
     from vavae_tpu_torch.utils.png import read_image_rgb
 
-    path = str(tmp_path / "x.jpg")
+    path = str(tmp_path / "x.bmp")
+    jpeg = str(tmp_path / "x.jpg")
     Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(path)
+    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(jpeg)
     assert read_image_rgb(path).shape == (8, 8, 3)
+    want = np.asarray(Image.open(jpeg).convert("RGB"))
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -359,3 +363,4 @@ def test_non_png_images_need_pil(tmp_path, monkeypatch):
     monkeypatch.setattr(builtins, "__import__", no_pil)
     with pytest.raises(ImportError, match="needs PIL"):
         read_image_rgb(path)
+    np.testing.assert_array_equal(read_image_rgb(jpeg), want)

@@ -1,5 +1,5 @@
-"""``utils/pil_resize.py`` against PIL itself: bit for bit, BOX and BICUBIC,
-up and down, on random and smooth RGB images (PIL's 8-bit resampler is
+"""``utils/pil_resize.py`` against PIL itself: bit for bit, BOX, BILINEAR,
+BICUBIC and LANCZOS, up and down, on random and smooth RGB images (PIL's 8-bit resampler is
 integer arithmetic after its double-precision coefficients, so exact
 equality is the requirement, not a tolerance)."""
 import numpy as np
@@ -13,7 +13,8 @@ from test_torch_common import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
-PIL_FILTERS = {"box": Image.BOX, "bicubic": Image.BICUBIC}
+PIL_FILTERS = {"box": Image.BOX, "bilinear": Image.BILINEAR, "bicubic": Image.BICUBIC,
+               "lanczos": Image.LANCZOS}
 
 
 def _image(kind: str, h: int, w: int, seed: int) -> np.ndarray:
@@ -41,6 +42,27 @@ def test_resize_matches_pil_grid(src, dst, kind, name):
     """(W, H) in → (W, H) out, down and up, each axis its own factor."""
     img = _image(kind, src[1], src[0], seed=sum(src) + sum(dst))
     np.testing.assert_array_equal(resize_uint8(img, dst, name), _pil(img, dst, name))
+
+
+@pytest.mark.parametrize("name", ["bilinear", "lanczos"])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+@pytest.mark.parametrize("src", [(20, 17), (97, 64), (500, 375)])
+@pytest.mark.parametrize("dst", [(8, 9), (45, 31), (256, 256), (333, 512)])
+def test_bilinear_lanczos_match_pil(src, dst, kind, name):
+    """The filters of the LSUN and ImageNet datasets (BILINEAR for the
+    smallest-side resize, LANCZOS at ``interpolation="lanczos"``), down and
+    up."""
+    img = _image(kind, src[1], src[0], seed=7 * sum(src) + sum(dst))
+    np.testing.assert_array_equal(resize_uint8(img, dst, name), _pil(img, dst, name))
+
+
+@settings(max_examples=30, deadline=None, database=None)
+@given(h=st.integers(1, 60), w=st.integers(1, 60), oh=st.integers(1, 80),
+       ow=st.integers(1, 80), name=st.sampled_from(["bilinear", "lanczos"]),
+       seed=st.integers(0, 2**16))
+def test_bilinear_lanczos_any_size(h, w, oh, ow, name, seed):
+    img = _image("random", h, w, seed)
+    np.testing.assert_array_equal(resize_uint8(img, (ow, oh), name), _pil(img, (ow, oh), name))
 
 
 @settings(max_examples=60, deadline=None, database=None)
@@ -86,7 +108,7 @@ def test_coefficients_are_cached_and_read_only():
 def test_resize_rejects_bad_input():
     img = np.zeros((4, 4, 3), np.uint8)
     with pytest.raises(ValueError, match="resample"):
-        resize_uint8(img, (2, 2), "lanczos")
+        resize_uint8(img, (2, 2), "hamming")
     with pytest.raises(ValueError, match="uint8"):
         resize_uint8(img.astype(np.float32), (2, 2))
     with pytest.raises(ValueError, match="positive"):

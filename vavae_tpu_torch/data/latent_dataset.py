@@ -10,7 +10,12 @@ from ≤10k random items and cached with the numpy writer.
 ``batches`` yields NHWC float32 batches in the JAX package's order, with
 its flips and its normalisation ``(x − μ) / σ · multiplier``, bit for bit:
 the same ``default_rng(seed + epoch)`` shuffle and ``default_rng([seed,
-epoch, 1])`` flip stream. The JAX package's C++ batch reader is not ported.
+epoch, 1])`` flip stream (``index_batches``). The batches are assembled by
+the native shard reader (``data/native_loader.py``: C++, threaded, over its
+own maps), opened at the first batch; a shard it does not take raises there.
+``reference_batch`` is the same assembly in Python, the JAX package's
+arithmetic in its order, which the reader equals bit for bit; the tests and
+``chip_smoke.py`` hold the two together.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from vavae_tpu_torch.data.native_loader import NativeShardReader
 from vavae_tpu_torch.parallel.mesh import process_index
 from vavae_tpu_torch.utils.safetensors_io import map_safetensors, write_safetensors
 
@@ -48,6 +54,7 @@ class ImgLatentDataset:
         self._std: Optional[np.ndarray] = None
         if latent_norm:
             self._mean, self._std = self._latent_stats()
+        self._native: Optional[NativeShardReader] = None  # opened by the first batch
 
     # -- stats -------------------------------------------------------------------
 
@@ -98,7 +105,33 @@ class ImgLatentDataset:
                 epochs: Optional[int] = None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yields (latents (B, H, W, C) float32, labels (B,) int32) forever, or
-        for ``epochs`` passes. ``rows`` = (i, n) yields rows [i·b, (i+1)·b),
+        for ``epochs`` passes: the items and flips of ``index_batches``,
+        assembled by the native reader."""
+        if self._native is None:  # opened (and its library built) at the first batch
+            self._native = NativeShardReader(self.files)
+        it = self.index_batches(batch_size, shuffle=shuffle, drop_last=drop_last, seed=seed,
+                                rows=rows, epochs=epochs)
+        for idxs, flips in it:
+            yield self._native.batch(idxs, flips, self._mean, self._std, self.latent_multiplier)
+
+    def reference_batch(self, idxs: np.ndarray, flips: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """The batch of items ``idxs`` (``latents_flip`` where ``flips``)
+        assembled in Python: what ``batches`` yields for them, bit for bit."""
+        lats = np.stack([self._read("latents_flip" if fl else "latents", int(i))
+                         for i, fl in zip(idxs, flips)]).astype(np.float32)
+        labels = np.array([self._read("labels", int(i)) for i in idxs], np.int32)
+        if self.latent_norm:  # the JAX package's arithmetic, in its order
+            lats = (lats - self._mean[0]) / self._std[0]
+        lats = lats * self.latent_multiplier
+        return np.ascontiguousarray(lats.transpose(0, 2, 3, 1)), labels
+
+    def index_batches(self, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
+                      seed: int = 0, rows: Optional[Tuple[int, int]] = None,
+                      epochs: Optional[int] = None
+                      ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yields (items (B,), flips (B,) bool) of each batch, forever or for
+        ``epochs`` passes. ``rows`` = (i, n) yields rows [i·b, (i+1)·b),
         b = batch_size / n, of each batch one process would yield, with that
         batch's flips: n processes then read together exactly the global
         batches of one, each as many (a process with one more would wait
@@ -125,11 +158,5 @@ class ImgLatentDataset:
                     i, n = rows
                     b = len(idxs) // n
                     idxs, flips = idxs[i * b:(i + 1) * b], flips[i * b:(i + 1) * b]
-                lats = np.stack([self._read("latents_flip" if fl else "latents", int(i))
-                                 for i, fl in zip(idxs, flips)]).astype(np.float32)
-                labels = np.array([self._read("labels", int(i)) for i in idxs], np.int32)
-                if self.latent_norm:  # the JAX package's arithmetic, in its order
-                    lats = (lats - self._mean[0]) / self._std[0]
-                lats = lats * self.latent_multiplier
-                yield np.ascontiguousarray(lats.transpose(0, 2, 3, 1)), labels
+                yield idxs, flips
             epoch += 1

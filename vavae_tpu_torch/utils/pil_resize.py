@@ -1,11 +1,13 @@
-"""PIL's 8-bit resampling (``Image.resize`` with BOX or BICUBIC on RGB), in numpy.
+"""PIL's 8-bit resampling (``Image.resize`` with BOX, BILINEAR, BICUBIC or
+LANCZOS on RGB), in numpy.
 
 The JAX package crops and resizes its training and extraction images with
 PIL, which the card's machine lacks. This module reproduces PIL's fixed-point
 rule for 8-bit images, so the port feeds the VAE the same pixels:
 
   - the filter's coefficients are built in double precision for each output
-    pixel (support 0.5 for BOX, 2 for BICUBIC with a = -0.5, both widened by
+    pixel (support 0.5 for BOX, 1 for BILINEAR's triangle, 2 for BICUBIC
+    with a = -0.5, 3 for LANCZOS's ``sinc(x)·sinc(x/3)``, each widened by
     the downscale factor) and normalised by their sequential sum;
   - they are rounded to integers at 22 fractional bits (``PRECISION_BITS =
     32 - 8 - 2``), half away from zero;
@@ -41,7 +43,28 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-_FILTERS = {"box": (_box, 0.5), "bicubic": (_bicubic, 2.0)}
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """``sinc(x)·sinc(x/3)`` on [-3, 3), one element at a time through the C
+    library's ``sin`` (``math.sin``), as PIL's C computes it: a vectorised
+    sine may differ from it in the last bit."""
+    flat = [_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in x.ravel().tolist()]
+    return np.array(flat, np.float64).reshape(x.shape)
+
+
+_FILTERS = {"box": (_box, 0.5), "bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0),
+            "lanczos": (_lanczos, 3.0)}
 
 
 @functools.lru_cache(maxsize=256)
@@ -105,7 +128,7 @@ def _pass(img: np.ndarray, axis: int, out_size: int, filter_name: str) -> np.nda
 def resize_uint8(img: np.ndarray, size: tuple[int, int], resample: str = "bicubic") -> np.ndarray:
     """``Image.fromarray(img).resize(size, resample)`` for an (H, W, C) uint8
     image: ``size`` is (width, height), as PIL takes it; ``resample`` is
-    ``"box"`` or ``"bicubic"``."""
+    ``"box"``, ``"bilinear"``, ``"bicubic"`` or ``"lanczos"``."""
     if resample not in _FILTERS:
         raise ValueError(f"resample must be one of {sorted(_FILTERS)}, got {resample!r}")
     img = np.asarray(img)

@@ -1,19 +1,28 @@
-"""Minimal PNG writer and reader (zlib + struct + numpy).
+"""Minimal PNG writer and reader (zlib + struct + numpy), and the port's
+image reader.
 
-The writer emits 8-bit RGB or RGBA with no filtering. The reader takes 8-bit
-grayscale, grayscale + alpha, RGB and RGBA, and palette images of 1, 2, 4
-or 8 bits (expanded through ``PLTE``; ``tRNS`` is ignored, as PIL's
-``convert("RGB")`` ignores it), not interlaced, with any of the five
-scanline filters: what the port writes and what PIL writes for such images.
-Other PNGs (16-bit, interlaced) raise. ``read_image_rgb`` reads other image
-types through PIL, imported only for them.
+The writer emits 8-bit RGB or RGBA with no filtering (zlib level 1), a
+batch at a time on a pool of threads: ``zlib.compress`` releases
+the interpreter lock, so the images deflate in parallel.
+The reader takes 8-bit grayscale, grayscale + alpha, RGB and RGBA, and
+palette images of 1, 2, 4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is
+ignored, as PIL's ``convert("RGB")`` ignores it), not interlaced, with any
+of the five scanline filters: what the port writes and what PIL writes for
+such images. Other PNGs (16-bit, interlaced) raise. ``read_image_rgb`` picks
+the reader by the file's first bytes, not its name: PNG here, JPEG through
+the port's decoder (``utils/jpeg.py``), any other type through PIL, imported
+only for it.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from vavae_tpu_torch.utils.jpeg import decode_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → samples per pixel
@@ -39,13 +48,24 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
     )
 
 
-def write_pngs(images: np.ndarray, paths) -> None:
-    """images (B, H, W, 3 or 4) uint8 → one PNG per path."""
+def write_pngs(images: np.ndarray, paths, threads: int = 0) -> None:
+    """images (B, H, W, 3 or 4) uint8 → one PNG per path, encoded and written
+    on ``threads`` threads (0: one a core), at most one an image. The first
+    failure is raised once every image has been tried."""
     if len(images) != len(paths):
         raise ValueError(f"{len(images)} images for {len(paths)} paths")
-    for im, p in zip(images, paths):
-        with open(p, "wb") as f:
-            f.write(encode_png(im))
+
+    def write(i: int) -> None:
+        with open(paths[i], "wb") as f:
+            f.write(encode_png(images[i]))
+
+    n = min(threads or os.cpu_count() or 1, len(paths))
+    if n <= 1:
+        for i in range(len(paths)):
+            write(i)
+        return
+    with ThreadPoolExecutor(n) as pool:
+        list(pool.map(write, range(len(paths))))
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -138,29 +158,47 @@ def decode_png(data: bytes) -> np.ndarray:
     return palette[idx]
 
 
-def read_png(path: str) -> np.ndarray:
-    """The PNG at ``path`` as (H, W, 3) uint8, the way PIL's
-    ``convert("RGB")`` makes it (gray repeated, alpha dropped, palette
-    looked up)."""
-    with open(path, "rb") as f:
-        try:
-            img = decode_png(f.read())
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG as (H, W, 3), the way PIL's ``convert("RGB")`` makes it
+    (gray repeated, alpha dropped; a palette is already looked up)."""
     if img.shape[2] in (1, 2):
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
 
 
+def _decode_png_rgb(data: bytes, path: str) -> np.ndarray:
+    try:
+        return _rgb(decode_png(data))
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def read_png(path: str) -> np.ndarray:
+    """The PNG at ``path`` as (H, W, 3) uint8, the way PIL's
+    ``convert("RGB")`` makes it (gray repeated, alpha dropped, palette
+    looked up)."""
+    with open(path, "rb") as f:
+        return _decode_png_rgb(f.read(), path)
+
+
+_JPEG_MAGIC = b"\xff\xd8\xff"
+
+
 def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8: PNGs through the port's decoder, other types
-    through PIL, imported only for them."""
-    if path.lower().endswith(".png"):
-        return read_png(path)
+    """(H, W, 3) uint8, as PIL's ``Image.open(path).convert("RGB")``: by the
+    file's first bytes, a PNG through ``decode_png``, a JPEG through the
+    port's decoder (an ImageNet file named ``.JPEG`` may hold a PNG), and
+    other types through PIL, imported only for them."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _SIGNATURE:
+        return _decode_png_rgb(data, path)
+    if data[:3] == _JPEG_MAGIC:
+        return decode_jpeg(data, path)
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path}: reading a non-PNG image needs PIL (Pillow), which is "
-                          "not installed") from e
+        raise ImportError(f"{path}: reading an image that is neither PNG nor JPEG needs PIL "
+                          "(Pillow), which is not installed") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
