@@ -209,8 +209,14 @@ Phases, each fatal on failure:
      2) and two ranks sharing the card over gloo (DP, FSDP and TP steps
      against one process);
   34. the data and I/O modules: the committed JPEG fixtures of
-     ``tests/data/jpeg`` through the port's decoder, bit-equal to PIL's
-     committed decodes; an ImageNet-layout tree of them (66 files, with
+     ``tests/data/jpeg`` (Huffman, arithmetic-coded, lossless and
+     block-smoothed files) through the port's decoder, and the PNG
+     fixtures of ``tests/data/png`` (every colour type and bit depth,
+     plain and Adam7-interlaced) through its PNG reader, bit-equal to PIL's
+     committed decodes; the shard reader on shards of every other kind the
+     JAX package reads (F16, F64, I32 and BOOL latents, no flips, F32, I16
+     and U8 labels), bit-equal to ``reference_batch`` at batch 1,024; an
+     ImageNet-layout tree of the Huffman fixtures (66 files, with
      CMYK, YCCK, grayscale, progressive and a PNG under a ``.JPEG`` name),
      whose ``ImageNetValidation`` filelist, items and labels equal the JAX
      package's committed ones; ``extract`` over the tree at 256² with the
@@ -225,7 +231,8 @@ Phases, each fatal on failure:
      23: one ViT-L); a ``pipelines.sample`` FID folder of 16 images (XL/1
      width, depth 2, euler-50) through the threaded PNG writer, each file
      decoding to its image, #1 counted; the host rates: decode images/s of
-     the 500×375 4:2:0 fixture alone and on 8 threads, the JPEG check of
+     the 500×375 4:2:0 fixture alone and on 8 threads, as Huffman, SOF9
+     and SOF3 files, the JPEG check of
      the tree's files, the reader's batches of 1,024 against the Python
      reference and the writer's 256² PNGs on a pool against one thread.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
@@ -3856,6 +3863,16 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, summary:
 
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
 RATE_FIXTURE = "photo_420_q90.jpg"   # 500×375 4:2:0, the decode rates' file
+# the same photograph arithmetic-coded (SOF9) and lossless (SOF3)
+RATE_FORMATS = {"sof9": "arith_photo_420_q90.jpg", "sof3": "lossless_photo.jpg"}
+PNG_FIXTURES = os.path.join(os.path.dirname(JPEG_FIXTURES), "png")
+# the shard kinds the JAX package reads beside F32 latents with flips and
+# integer labels: latent dtype, flips, label dtype
+SHARD_KINDS = {"F16": (np.float16, True, np.int64), "F64": (np.float64, True, np.int64),
+               "I32": (np.int32, True, np.int64), "BOOL": (np.bool_, True, np.int64),
+               "no_flip": (np.float32, False, np.int64),
+               "labels_F32": (np.float32, True, np.float32),
+               "labels_I16": (np.float32, True, np.int16), "labels_U8": (np.float32, True, np.uint8)}
 IMAGENET_VAE_BATCH, IMAGENET_VAE_STEPS = 8, 2
 IO_EXTRACT_BATCH, IO_EXTRACT_SHARD = 32, 64
 IO_TRAIN_DEPTH, IO_TRAIN_STEPS = 2, 2
@@ -3944,6 +3961,51 @@ def _check_fixtures(manifest: dict) -> int:
     return len(manifest["fixtures"])
 
 
+def _check_png_fixtures() -> int:
+    """Every committed PNG fixture (each colour type and depth, plain and
+    Adam7) through ``read_png`` and ``read_image_rgb`` against PIL's
+    committed ``convert("RGB")``."""
+    want = np.load(os.path.join(PNG_FIXTURES, "expected.npz"))
+    for name in want.files:
+        path = os.path.join(PNG_FIXTURES, name)
+        for got in (read_png(path), read_image_rgb(path)):
+            if not np.array_equal(got, want[name]):
+                fail(f"{name}: the PNG reader's decode differs from PIL's")
+    return len(want.files)
+
+
+def _check_shard_kinds(work: str, seed: int) -> int:
+    """Shards of each SHARD_KINDS kind (the f16d32 latent shape, two shards
+    of IO_READER_BATCH + 37 rows in all): ``batches`` at IO_READER_BATCH
+    with and without the latent norm, bit-equal to ``reference_batch``."""
+    rs = np.random.default_rng(seed)
+    for kind, (lat_dtype, flips, label_dtype) in SHARD_KINDS.items():
+        folder = os.path.join(work, f"kind_{kind}")
+        for i, rows in enumerate((IO_READER_BATCH // 2, IO_READER_BATCH // 2 + 37)):
+            lat = 3.0 * rs.standard_normal((rows, 32, 16, 16)) + 1.0
+            lat = (lat > 1.0) if lat_dtype is np.bool_ else 8.0 * lat if kind == "I32" else lat
+            lat = lat.astype(lat_dtype)
+            labels = rs.integers(-100, 1000, rows) + (0.7 if kind == "labels_F32" else 0)
+            tensors = {"latents": lat, "labels": labels.astype(label_dtype)}
+            if flips:
+                tensors["latents_flip"] = np.ascontiguousarray(lat[..., ::-1])
+            write_safetensors(os.path.join(folder, f"shard_{i:03d}.safetensors"), tensors)
+        # the stats cache extraction writes (F16 stats computed in float16 overflow)
+        write_safetensors(os.path.join(folder, "latents_stats.safetensors"), {
+            "mean": rs.standard_normal((1, 32, 1, 1)).astype(np.float32),
+            "std": rs.uniform(0.5, 4.0, (1, 32, 1, 1)).astype(np.float32)})
+        for norm in (True, False):
+            ds = ImgLatentDataset(folder, latent_norm=norm, latent_multiplier=0.9)
+            idxs, fl = next(ds.index_batches(IO_READER_BATCH, seed=seed))
+            gx, gy = next(ds.batches(IO_READER_BATCH, seed=seed))
+            wx, wy = ds.reference_batch(idxs, fl)
+            if not (np.array_equal(gx, wx) and np.array_equal(gy, wy)):
+                fail(f"shards of kind {kind} (latent_norm {norm}): the reader's batch of "
+                     f"{IO_READER_BATCH} differs from reference_batch")
+        shutil.rmtree(folder)
+    return len(SHARD_KINDS)
+
+
 def _check_validation_crops(root: str, manifest: dict) -> int:
     ds = ImageNetValidation(root, size=manifest["crop_size"])
     with open(os.path.join(root, "filelist.txt")) as f:
@@ -4003,6 +4065,13 @@ def _host_rates(work: str, shards: str, tree: list, images: np.ndarray) -> dict:
     with ThreadPoolExecutor(IO_POOL) as pool:
         out["decode_pool_images_per_s"] = _rate(
             lambda: list(pool.map(decode_jpeg, [data] * IO_DECODE_N)), 1) * IO_DECODE_N
+    for key, name in RATE_FORMATS.items():  # the photograph as SOF9 and SOF3
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            coded = f.read()
+        out[f"decode_{key}_images_per_s"] = _rate(lambda: decode_jpeg(coded), IO_DECODE_N)
+        with ThreadPoolExecutor(IO_POOL) as pool:
+            out[f"decode_{key}_pool_images_per_s"] = _rate(
+                lambda: list(pool.map(decode_jpeg, [coded] * IO_DECODE_N)), 1) * IO_DECODE_N
     out["check_files_per_s"] = _rate(lambda: refused_jpegs(tree), 1) * len(tree)
 
     per_epoch = IO_READER_ROWS // IO_READER_BATCH
@@ -4053,13 +4122,15 @@ def _train_reader_ab(shards: str, work: str) -> dict:
 
 
 def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest: dict) -> dict:
-    """Phase 34: the committed JPEG fixtures, ``ImageNetValidation``'s items,
+    """Phase 34: the committed JPEG and PNG fixtures, the shard reader on
+    each shard kind, ``ImageNetValidation``'s items,
     ``extract`` over the ImageNet tree, the native shard reader against the
     Python reference and ``do_train`` on its shards, ``do_train``'s steps/s
     with each reader, a ``pipelines.sample`` FID folder through the threaded
     PNG writer, and the host rates."""
     t_phase = time.perf_counter()
-    out = {"fixtures": _check_fixtures(manifest),
+    out = {"fixtures": _check_fixtures(manifest), "png_fixtures": _check_png_fixtures(),
+           "shard_kinds": _check_shard_kinds(work, seed),
            "validation_items": _check_validation_crops(root, manifest)}
 
     # extract over root/data at 256², the f16d32 VA-VAE at fp32
@@ -4161,8 +4232,12 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
                                np.concatenate([w[0] for w in written]))
     out["seconds"] = time.perf_counter() - t_phase
     r = out["rates"]
-    log(f"[imagenet] {out['fixtures']} JPEG fixtures bit-equal to PIL's decodes; "
-        f"ImageNetValidation's {out['validation_items']} items equal the JAX package's")
+    log(f"[imagenet] {out['fixtures']} JPEG fixtures (Huffman, arithmetic-coded, lossless, "
+        f"block-smoothed) and {out['png_fixtures']} PNG fixtures (every colour type and "
+        f"depth, plain and Adam7) bit-equal to PIL's decodes; the shard reader bit-equal to "
+        f"reference_batch at batch {IO_READER_BATCH} on {out['shard_kinds']} shard kinds "
+        f"({', '.join(SHARD_KINDS)}); ImageNetValidation's {out['validation_items']} items "
+        f"equal the JAX package's")
     log(f"[imagenet] extract over the ImageNet tree ({len(items)} small JPEG/PNG files, 256², "
         f"fp32): {extract_s:.2f} s, {out['extract']['images_per_s']:.2f} images/s (a smoke "
         f"reading, first calls included); reader bit-equal to the Python reference over "
@@ -4174,7 +4249,10 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
         f"{', '.join(f'{x:.4f}' for x in ab['native'])}; Python reference "
         f"{', '.join(f'{x:.4f}' for x in ab['python'])} [{device_info['smi']}]")
     log(f"[imagenet] host rates: decode {RATE_FIXTURE} {r['decode_images_per_s']:.1f} images/s "
-        f"alone, {r['decode_pool_images_per_s']:.1f} on {IO_POOL} threads; JPEG check "
+        f"alone, {r['decode_pool_images_per_s']:.1f} on {IO_POOL} threads; as SOF9 "
+        f"{r['decode_sof9_images_per_s']:.1f} alone, {r['decode_sof9_pool_images_per_s']:.1f} "
+        f"on {IO_POOL}; as SOF3 {r['decode_sof3_images_per_s']:.1f} alone, "
+        f"{r['decode_sof3_pool_images_per_s']:.1f} on {IO_POOL}; JPEG check "
         f"{r['check_files_per_s']:.1f} files/s of the tree; reader "
         f"{r['reader_native_batches_per_s']:.2f} batches/s of {IO_READER_BATCH} (Python "
         f"reference {r['reader_python_batches_per_s']:.2f}); writer "

@@ -147,16 +147,17 @@ def test_extract_jpeg_tree_matches_jax(vaes, jpeg_folder, tmp_path, posterior_mo
 
 
 def test_extract_lists_refused_jpegs_before_encoding(vaes, tmp_path):
-    """The JPEGs the port's decoder refuses (an arithmetic-coded one and a
-    progressive one whose scans stop early, both of which PIL decodes) are
-    named in one error before anything is encoded."""
+    """The JPEGs the port's decoder refuses (an arithmetic-coded lossless one
+    and a 12-bit one, which PIL refuses too) are named in one error before
+    anything is encoded; a block-smoothed progressive file is not."""
     from test_torch_jpeg import _encode, _image, _sof_as
 
     _, tv, _ = vaes
     prog = _encode(_image(40, 40, 9), quality=80, progressive=True)
-    files = {"class_0/a.png": None, "class_0/b.jpg": _sof_as(_encode(_image(24, 24, 1)), 0xC9),
-             "class_1/c.JPEG": prog[:len(prog) * 2 // 3] + b"\xff\xd9",
-             "class_1/d.jpg": _encode(_image(24, 24, 2))}
+    files = {"class_0/a.png": None, "class_0/b.jpg": _sof_as(_encode(_image(24, 24, 1)), 0xCB),
+             "class_1/c.JPEG": _sof_as(_encode(_image(24, 24, 3)), 0xC1, 12),
+             "class_1/d.jpg": _encode(_image(24, 24, 2)),
+             "class_1/e.jpg": prog[:len(prog) * 2 // 3] + b"\xff\xd9"}
     root = tmp_path / "images"
     for name, data in files.items():
         (root / name).parent.mkdir(parents=True, exist_ok=True)
@@ -164,10 +165,11 @@ def test_extract_lists_refused_jpegs_before_encoding(vaes, tmp_path):
             _write(root / name, "RGB", 40, 40, seed=3)
         else:
             (root / name).write_bytes(data)
-    with pytest.raises(ValueError, match="2 of 4 images are JPEGs") as e:
+    with pytest.raises(ValueError, match="2 of 5 images are JPEGs") as e:
         text.extract(str(root), str(tmp_path / "out"), tv, batch_size=2, image_size=S)
-    assert f"{root / 'class_0/b.jpg'}: unsupported JPEG: SOF marker 0xC9" in str(e.value)
-    assert f"{root / 'class_1/c.JPEG'}: unsupported JPEG: a progressive file" in str(e.value)
+    assert f"{root / 'class_0/b.jpg'}: unsupported JPEG: SOF marker 0xCB" in str(e.value)
+    assert f"{root / 'class_1/c.JPEG'}: unsupported JPEG: SOF marker 0xC1 with 12-bit" in str(e.value)
+    assert "e.jpg" not in str(e.value)
     assert not list((tmp_path / "out").glob("*.safetensors"))
 
 

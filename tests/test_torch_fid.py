@@ -313,8 +313,11 @@ def test_png_decoder_every_filter(tmp_path, mode, ftype):
 
 
 def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
-    """16-bit and interlaced files raise, naming the bit depth, colour type
-    and interlace (and, from ``read_png``, the path)."""
+    """A file that is not a PNG, a bit depth its colour type does not allow
+    and an unknown interlace method raise, naming the bit depth, colour type
+    and interlace (and, from ``read_png``, the path); PIL refuses such files
+    too. A 16-bit file, which the reader once refused, reads as PIL reads
+    it."""
     import struct
 
     from PIL import Image
@@ -324,18 +327,23 @@ def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a")
     path = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(path)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        decode_png(path.read_bytes())
-    # an 8-bit RGB file marked interlaced (PIL writes none): IHDR rewritten
+    gray16 = (np.arange(16, dtype=np.uint16) * 4099).reshape(4, 4)
+    Image.fromarray(gray16).save(path)  # PIL writes uint16 as 16-bit gray
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(read_png(str(path)), np.asarray(im.convert("RGB")))
+    # an 8-bit RGB file whose IHDR claims 4 bits, then interlace method 2
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
     data = path.read_bytes()
-    ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1))
-    path.write_bytes(data[:8] + ihdr + data[8 + len(ihdr):])
-    with pytest.raises(ValueError, match="interlace 1"):
-        decode_png(path.read_bytes())
-    with pytest.raises(ValueError, match=f"{path}: .*colour type 2, interlace 1"):
-        read_png(str(path))
+    for depth, interlace in ((4, 0), (8, 2)):
+        ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, depth, 2, 0, 0, interlace))
+        path.write_bytes(data[:8] + ihdr + data[8 + len(ihdr):])
+        with pytest.raises(ValueError, match=f"bit depth {depth}, colour type 2"):
+            decode_png(path.read_bytes())
+        with pytest.raises(ValueError, match=f"{path}: .*colour type 2, interlace {interlace}"):
+            read_png(str(path))
+        with pytest.raises(OSError):
+            with Image.open(path) as im:
+                im.convert("RGB")
 
 
 def test_non_png_images_need_pil(tmp_path, monkeypatch):

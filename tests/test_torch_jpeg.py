@@ -6,9 +6,12 @@ restart intervals, L and CMYK, EXIF and ICC segments, odd and tiny sizes, a
 hypothesis sweep; files edited byte by byte for what PIL does not write (RGB
 component ids, Adobe transforms, YCCK, missing Huffman tables, bytes before
 a marker, a short data segment); the other sampling factors through OpenCV's
-encoder. Unsupported files raise naming the file and the SOF marker;
-``read_image_rgb`` dispatches on magic bytes; the committed fixtures of
-``tests/data/jpeg`` equal PIL's decodes.
+encoder; and the committed files PIL cannot write (``tests/data/jpeg``'s
+``make_fixtures.py``): arithmetic-coded sequential and progressive files,
+lossless files with each predictor, and progressive files that libjpeg
+block-smooths, whole, cut short and corrupted. What PIL refuses too raises
+naming the file and the SOF marker; ``read_image_rgb`` dispatches on magic
+bytes; the committed fixtures equal PIL's decodes.
 """
 import hashlib
 import io
@@ -234,13 +237,24 @@ def _sof_as(data: bytes, marker: int, precision: int = 8) -> bytes:
 
 
 @pytest.mark.parametrize("marker,kind", [
-    (0xC9, "arithmetic-coded sequential"), (0xCA, "arithmetic-coded progressive"),
-    (0xC3, "lossless"), (0xC5, "hierarchical"), (0xC7, "hierarchical"), (0xCB, "arithmetic")])
+    (0xC9, "arith_444_restart.jpg"), (0xCA, "arith_prog_420_dac.jpg"),
+    (0xC3, "lossless_rgb_psv1.jpg"), (0xC5, "hierarchical"), (0xC7, "hierarchical"),
+    (0xCB, "arithmetic-coded lossless")])
 def test_unsupported_files_raise(marker, kind):
+    """Arithmetic-coded (SOF9, SOF10) and lossless (SOF3) files decode as PIL
+    decodes them; hierarchical and arithmetic-coded lossless SOF markers,
+    which PIL refuses too, raise naming the file and the marker."""
+    if kind.endswith(".jpg"):
+        data = (FIXTURES / kind).read_bytes()
+        assert marker in [m for m, _ in _segments(data)]
+        _assert_pil_equal(data)
+        return
     data = _sof_as(_encode(_image(16, 16, 8), quality=80), marker)
     with pytest.raises(ValueError, match=f"x.jpg: unsupported JPEG: SOF marker 0x{marker:02X} "
                                          rf"\(.*{kind}"):
         decode_jpeg(data, "x.jpg")
+    with pytest.raises(OSError):
+        _pil(data)
 
 
 def test_12_bit_and_broken_files_raise(tmp_path):
@@ -254,39 +268,48 @@ def test_12_bit_and_broken_files_raise(tmp_path):
     with pytest.raises(ValueError, match="not a JPEG file"):
         decode_jpeg(b"\x89PNG\r\n\x1a\n")
     prog = _encode(_image(40, 40, 9), quality=80, progressive=True)
-    with pytest.raises(ValueError, match="unrefined"):  # libjpeg would smooth the blocks
-        decode_jpeg(prog[:len(prog) * 2 // 3] + b"\xff\xd9")
+    _assert_pil_equal(prog[:len(prog) * 2 // 3] + b"\xff\xd9")  # smoothed, as libjpeg smooths
+
+
+def _with_jfif(data: bytes) -> bytes:
+    return data[:2] + b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00" + data[2:]
 
 
 def test_refused_jpegs_names_what_the_decoder_refuses(tmp_path):
-    """From the markers alone: an arithmetic-coded SOF, a 12-bit one and a
-    progressive file whose scans stop early (PIL decodes it, smoothing its
-    blocks) are named with ``read_jpeg``'s own message, also behind 20 KB of
-    APP1; a sequential and a progressive file, a PNG under a ``.JPEG`` name
-    and a truncated file (PIL refuses it too) are not."""
+    """From the markers before the data: an arithmetic-coded lossless SOF, a
+    12-bit one, a hierarchical one behind 20 KB of APP1 and a lossless frame
+    in YCbCr (libjpeg converts no colour in a lossless file) are named with
+    ``read_jpeg``'s own message, and PIL refuses each of them too; a
+    sequential and a progressive file, an arithmetic-coded, a lossless and a
+    block-smoothed one, a PNG under a ``.JPEG`` name and a truncated file
+    (PIL refuses it too) are not."""
     base = _encode(_image(24, 24, 10), quality=80)
     prog = _encode(_image(40, 40, 9), quality=80, progressive=True)
-    unrefined = prog[:len(prog) * 2 // 3] + b"\xff\xd9"
-    assert _pil(unrefined).shape == (40, 40, 3)
     late = _join([(0xE1, b"\xff\xe1" + (20002).to_bytes(2, "big") + bytes(20000))]
                  + _segments(base))
-    files = {"arith.jpg": _sof_as(base, 0xC9), "12bit.jpg": _sof_as(base, 0xC1, 12),
-             "unrefined.jpg": unrefined, "late_arith.jpg": _sof_as(late, 0xC9),
-             "base.jpg": base, "prog.jpg": prog, "late.jpg": late,
+    lossless = (FIXTURES / "lossless_420_psv4.jpg").read_bytes()
+    files = {"arith_lossless.jpg": _sof_as(base, 0xCB), "12bit.jpg": _sof_as(base, 0xC1, 12),
+             "late_hierarchical.jpg": _sof_as(late, 0xC5), "ycc_lossless.jpg": _with_jfif(lossless),
+             "base.jpg": base, "prog.jpg": prog, "late.jpg": late, "lossless.jpg": lossless,
+             "arith.jpg": (FIXTURES / "arith_prog_444.jpg").read_bytes(),
+             "unrefined.jpg": prog[:len(prog) * 2 // 3] + b"\xff\xd9",
              "png.JPEG": encode_png(_image(8, 8, 1)), "cut.jpg": prog[:len(prog) // 2]}
     paths = []
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
         paths.append(str(tmp_path / name))
     got = refused_jpegs(paths)
-    assert [os.path.basename(p) for p, _ in got] == ["arith.jpg", "12bit.jpg", "unrefined.jpg",
-                                                     "late_arith.jpg"]
+    assert [os.path.basename(p) for p, _ in got] == ["arith_lossless.jpg", "12bit.jpg",
+                                                     "late_hierarchical.jpg", "ycc_lossless.jpg"]
     for path, why in got:
         assert jpeg_refusal(path) == why
         with pytest.raises(ValueError) as e:
             read_jpeg(path)
         assert str(e.value) == f"{path}: {why}"
-    for path in paths[4:8]:
+        with pytest.raises(OSError):
+            with Image.open(path) as im:
+                im.convert("RGB")
+    for path in paths[4:11]:
         read_image_rgb(path)
 
 
@@ -314,14 +337,17 @@ for pos in range(3, len(data)):
 """
 
 
-@pytest.mark.parametrize("name", ["restart_rows_q75.jpg", "progressive_restart_blocks.jpg"])
+@pytest.mark.parametrize("name", ["restart_rows_q75.jpg", "progressive_restart_blocks.jpg",
+                                  "arith_prog_gray_restart_dac.jpg", "arith_444_restart.jpg",
+                                  "lossless_rgb_psv6_pt2_restart.jpg", "smooth_dc_al1.jpg"])
 def test_corrupt_files_decode_as_libjpeg_does(name, tmp_path):
-    """A committed fixture corrupted byte by byte after its magic bytes (each
-    byte's lowest bit, then all its bits, flipped): bad Huffman codes,
+    """A committed fixture (Huffman sequential and progressive,
+    arithmetic-coded sequential and progressive, lossless, block-smoothed)
+    corrupted byte by byte after its magic bytes (each byte's lowest bit,
+    then all its bits, flipped): bad Huffman codes, arithmetic overflows,
     restart markers out of order, markers in the data, broken segments.
     Where libjpeg-turbo's C decoder keeps the image, the port gives the same
-    pixels, or refuses a file ``jpeg_refusal`` names beforehand (a
-    progressive scan header broken into an unrefined file). Where it
+    pixels, or refuses a file ``jpeg_refusal`` names beforehand. Where it
     refuses, so does the port, except for a sequential file that has lost
     its EOI marker: the port reads it as libjpeg reads it with the marker
     put back (libjpeg's bit buffer asks for bytes past the end, and PIL's
@@ -351,6 +377,65 @@ def test_corrupt_files_decode_as_libjpeg_does(name, tmp_path):
             assert jpeg_refusal(str(tmp_path / "c.jpg")), f"byte {pos} ^ {mask:#x}: refused unnamed"
             named += 1
     assert named < len(want) // 50
+
+
+_PIL_C_CUTS = """
+import hashlib, io, sys
+import numpy as np
+from PIL import Image
+data = open(sys.argv[1], "rb").read()
+for cut in range(int(sys.argv[2]), len(data) - 2, int(sys.argv[3])):
+    try:
+        with Image.open(io.BytesIO(data[:cut] + b"\\xff\\xd9")) as im:
+            a = np.ascontiguousarray(im.convert("RGB"))
+        print(hashlib.sha1(repr(a.shape).encode() + a.tobytes()).hexdigest())
+    except Exception:
+        print("-")
+"""
+
+
+@pytest.mark.parametrize("name", ["progressive_420_q85.jpg", "smooth_ac_unrefined.jpg",
+                                  "smooth_dc_al1.jpg", "arith_prog_420_dac.jpg",
+                                  "arith_444_restart.jpg", "lossless_gray_psv5_pt2.jpg"])
+def test_cut_files_decode_as_libjpeg_does(name):
+    """A committed fixture cut short at every 37th byte and closed by EOI, as
+    libjpeg-turbo's C decoder reads it (PIL with its SIMD off): the rest of
+    a Huffman scan undecoded, an arithmetic one fed zeros, and a progressive
+    file smoothed with the coefficient bits of its scans, those before the
+    last scan in the iMCU rows after the one where its data ran out."""
+    path = FIXTURES / name
+    env = dict(os.environ, JSIMD_FORCENONE="1")
+    want = subprocess.run([sys.executable, "-c", _PIL_C_CUTS, str(path), "150", "37"], env=env,
+                          capture_output=True, text=True, check=True).stdout.split()
+    data = path.read_bytes()
+    cuts = range(150, len(data) - 2, 37)
+    assert len(want) == len(cuts) and want.count("-") < len(want) // 4
+    for cut, w in zip(cuts, want):
+        try:
+            a = decode_jpeg(data[:cut] + b"\xff\xd9")
+            got = hashlib.sha1(repr(a.shape).encode() + a.tobytes()).hexdigest()
+        except ValueError:
+            got = "-"
+        assert got == w, f"cut at {cut}"
+
+
+def _format_fixtures() -> list:
+    return [e["file"] for e in json.loads((FIXTURES / "manifest.json").read_text())["fixtures"]
+            if e["file"].startswith(("arith_", "lossless_", "smooth_"))]
+
+
+@pytest.mark.parametrize("name", _format_fixtures())
+def test_format_fixtures_match_pil(name):
+    """Each arithmetic-coded, lossless and block-smoothed fixture: the port's
+    decode equals PIL's, and PIL's committed decode."""
+    entry = next(e for e in _manifest()["fixtures"] if e["file"] == name)
+    data = (FIXTURES / name).read_bytes()
+    got = decode_jpeg(data, name)
+    np.testing.assert_array_equal(got, _pil(data))
+    if "decode" in entry:
+        np.testing.assert_array_equal(got, read_png(str(FIXTURES / entry["decode"])))
+    else:
+        assert hashlib.sha256(got.tobytes()).hexdigest() == entry["decode_sha256"]
 
 
 def test_read_image_rgb_dispatches_on_magic_bytes(tmp_path):

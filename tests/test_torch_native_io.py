@@ -105,16 +105,94 @@ def _one_shard(path, **tensors):
     return str(path)
 
 
+def _kind_shards(d, kind, seed=0):
+    """Shards of one kind the JAX package reads: latents of another dtype,
+    no flips, or labels of another dtype."""
+    rs = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    for i, n in enumerate((7, 6)):
+        lat = 3.0 * rs.standard_normal((n, 4, 3, 5)) + 1.0
+        labels = rs.integers(-200, 1000, (n,))
+        dtype = {"F16": np.float16, "F64": np.float64, "I32": np.int32, "BOOL": np.bool_}.get(
+            kind, np.float32)
+        lat = (lat > 1.0) if dtype is np.bool_ else (8 * lat if kind == "I32" else lat)
+        lat = lat.astype(dtype)
+        tensors = {"latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
+                   "labels": labels.astype(np.int64)}
+        if kind == "no_flip":
+            del tensors["latents_flip"]
+        elif kind == "labels_F32":  # cut toward zero, as np.asarray(label, np.int32) cuts
+            tensors["labels"] = (labels + rs.choice([0.0, 0.3, 0.7], n)).astype(np.float32)
+        elif kind == "labels_I16":
+            tensors["labels"] = labels.astype(np.int16)
+        elif kind == "labels_U8":
+            tensors["labels"] = (labels % 256).astype(np.uint8)
+        write_safetensors(os.path.join(d, f"shard_{i:03d}.safetensors"), tensors)
+    return str(d)
+
+
+@pytest.mark.parametrize("latent_norm", [True, False])
+@pytest.mark.parametrize("kind", ["F16", "F64", "I32", "BOOL", "no_flip", "labels_F32",
+                                  "labels_I16", "labels_U8"])
+def test_reader_reads_what_jax_reads(tmp_path, kind, latent_norm):
+    """Every shard kind the JAX dataset reads: its labels exactly, its
+    latents bit for bit where it took its Python path and within 2 ulp where
+    its native reader ran; and ``reference_batch`` bit for bit."""
+    port = _kind_shards(tmp_path / "port", kind)
+    jax_dir = str(tmp_path / "jax")
+    shutil.copytree(port, jax_dir)
+    ds = ImgLatentDataset(port, latent_norm=latent_norm, latent_multiplier=0.9)
+    got = _batches(ds, n=3)
+    jax = JaxDataset(jax_dir, latent_norm=latent_norm, latent_multiplier=0.9)
+    # the JAX package's native reader takes F32 latents with I64, I32 or F32 labels
+    assert (jax._native is not None) == (kind in ("no_flip", "labels_F32"))
+    for (gx, gy), (wx, wy), (rx, ry) in zip(got, _batches(jax, n=3), _reference(ds, n=3)):
+        assert gx.dtype == np.float32 and gy.dtype == np.int32 and gx.shape == (4, 3, 5, 4)
+        np.testing.assert_array_equal(gx, rx)
+        np.testing.assert_array_equal(gy, ry)
+        np.testing.assert_array_equal(gy, wy)
+        if jax._native is None:
+            np.testing.assert_array_equal(gx, wx)
+        else:
+            np.testing.assert_array_max_ulp(gx, wx, maxulp=2)
+
+
+def _raw_shard(path, tensors):
+    """A safetensors file of (dtype name, shape, bytes) entries, for dtypes
+    numpy has no type for."""
+    import json
+    import struct
+
+    header, blobs, at = {}, [], 0
+    for name, (dtype, shape, blob) in tensors.items():
+        header[name] = {"dtype": dtype, "shape": list(shape), "data_offsets": [at, at + len(blob)]}
+        blobs.append(blob)
+        at += len(blob)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text + b"".join(blobs))
+    return str(path)
+
+
 @pytest.mark.parametrize("tensors,match", [
-    ({"latents": np.zeros((3, 2, 2, 2), np.int32)}, "latents is I32"),
-    ({"latents_flip": None}, "no 'latents_flip' tensor"),
-    ({"labels": np.zeros(3, np.float32)}, "labels are F32"),
+    ({"latents": np.zeros((3, 8), np.float32)}, "latents is F32 \\[3, 8\\]"),
+    ("BF16", "latents is BF16"),
     ({"labels": np.zeros(4, np.int64)}, "4 labels for 3 latents"),
     ({"latents_flip": np.zeros((3, 2, 2, 3), np.float32)}, "does not match latents"),
+    ({"latents": np.zeros((3, 2, 2, 2, 1), np.float32)}, "latents is F32 \\[3, 2, 2, 2, 1\\]"),
 ])
 def test_reader_refuses_shards_it_does_not_take(tmp_path, tensors, match):
-    """The dataset opens, and its first batch raises, naming the file."""
-    path = _one_shard(tmp_path / "bad.safetensors", **tensors)
+    """What the JAX package cannot read either (BF16 latents, which numpy
+    cannot load; latents that are not (N, C, H, W)) and malformed shards:
+    the dataset opens, and its first batch raises, naming the file."""
+    path = tmp_path / "bad.safetensors"
+    if tensors == "BF16":
+        bits = np.zeros((3, 2, 2, 2), np.uint16).tobytes()
+        path = _raw_shard(path, {"latents": ("BF16", (3, 2, 2, 2), bits),
+                                 "labels": ("I64", (3,), np.arange(3, dtype=np.int64).tobytes())})
+    else:
+        path = _one_shard(path, **tensors)
     ds = ImgLatentDataset(str(tmp_path), latent_norm=False)
     with pytest.raises(ValueError, match=f"{path}: .*{match}"):
         next(ds.batches(2))

@@ -1,7 +1,9 @@
 """Latent-shard dataset (port of ``vavae_tpu/data/latent_dataset.py``).
 
-Shards are safetensors files holding ``latents`` and ``latents_flip``
-(N, C, H, W) and ``labels`` (N,). Each shard is memory-mapped once (its
+Shards are safetensors files holding ``latents`` (N, C, H, W), optionally
+``latents_flip`` of the same shape (a flipped row reads ``latents``
+without it), and ``labels`` (N,), of any dtype numpy loads (latents are
+cast to float32, labels to int32, as the JAX package casts them). Each shard is memory-mapped once (its
 header gives the offsets), and items are views into the map. Channel stats
 come from a ``latents_stats.safetensors`` cache, or a reference
 ``latents_stats.pt`` (read through a lazy ``torch.load``), or are computed
@@ -116,11 +118,15 @@ class ImgLatentDataset:
 
     def reference_batch(self, idxs: np.ndarray, flips: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
-        """The batch of items ``idxs`` (``latents_flip`` where ``flips``)
-        assembled in Python: what ``batches`` yields for them, bit for bit."""
-        lats = np.stack([self._read("latents_flip" if fl else "latents", int(i))
-                         for i, fl in zip(idxs, flips)]).astype(np.float32)
-        labels = np.array([self._read("labels", int(i)) for i in idxs], np.int32)
+        """The batch of items ``idxs`` (``latents_flip`` where ``flips`` and
+        the shard has it) assembled in Python: what ``batches`` yields for
+        them, bit for bit."""
+        lats = np.stack([self._read("latents_flip" if fl and "latents_flip" in self._shards[
+            self._shard_of[i]] else "latents", int(i)).astype(np.float32)
+            for i, fl in zip(idxs, flips)])
+        # the JAX package's cast, label by label (an array of mixed types would promote)
+        labels = np.array([np.asarray(self._read("labels", int(i)), np.int32) for i in idxs],
+                          np.int32)
         if self.latent_norm:  # the JAX package's arithmetic, in its order
             lats = (lats - self._mean[0]) / self._std[0]
         lats = lats * self.latent_multiplier

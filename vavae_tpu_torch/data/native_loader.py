@@ -1,15 +1,18 @@
 """The native shard reader (``native/shard_reader.cpp``) through ctypes: the
 threaded, mmap-backed batch assembler of ``ImgLatentDataset.batches``, over
-the latent shards that the port's extraction and ``convert_latents`` write
-(``latents`` and ``latents_flip`` F32 (N, C, H, W), ``labels`` I64 or I32
-(N,)).
+latent shards of ``latents`` (N, C, H, W), an optional ``latents_flip`` of
+the same shape (a flipped row reads ``latents`` without one) and ``labels``
+(N,): what the JAX package's dataset reads. Latents may be F16, F32, F64,
+an integer type or BOOL, labels any of those, as numpy loads them.
 
 Each batch equals ``ImgLatentDataset.reference_batch``, the Python
-assembly, bit for bit: the same gather, CHW → HWC transpose and
-``((x − μ) / σ) · multiplier`` in float32, in that order. The headers are
-read here; a shard the reader does not take (another dtype, a
-missing tensor, a length or shape that does not match), a build failure or a
-failed read raises, naming the file. Nothing falls back to Python.
+assembly, bit for bit: the same gather, ``astype(np.float32)``, CHW → HWC
+transpose and ``((x − μ) / σ) · multiplier`` in float32, in that order,
+and labels as ``np.asarray(label, np.int32)`` makes them. The headers are
+read here; a shard the reader does not take (BF16 or F8, which numpy
+cannot load either, a missing tensor, a length or shape that does not
+match), a build failure or a failed read raises, naming the file. Nothing
+falls back to Python.
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ from vavae_tpu_torch.native.build import load_library
 from vavae_tpu_torch.utils.safetensors_io import read_header
 
 _ERR_LEN = 1024
-_LABEL_BYTES = {"I64": 8, "I32": 4}
+# the reader's type codes (shard_reader.cpp's DType) and element sizes
+_TYPES = {name: (code, size) for code, (name, size) in enumerate((
+    ("F32", 4), ("F16", 2), ("F64", 8), ("I8", 1), ("U8", 1), ("I16", 2), ("U16", 2),
+    ("I32", 4), ("U32", 4), ("I64", 8), ("U64", 8), ("BOOL", 1)))}
 
 
 def _library() -> ctypes.CDLL:
@@ -31,7 +37,7 @@ def _library() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.shard_reader_open.restype = p
         lib.shard_reader_open.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), p, p, p, p, p, ctypes.c_int64,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), p, p, p, p, p, p, p, ctypes.c_int64,
             ctypes.c_char_p, ctypes.c_int]
         lib.shard_reader_len.restype = ctypes.c_int64
         lib.shard_reader_len.argtypes = [p]
@@ -47,40 +53,41 @@ def _library() -> ctypes.CDLL:
 
 def shard_layout(path: str) -> dict:
     """The tensors of one shard as the reader takes them: ``rows``, the
-    latent shape ``chw``, the file offsets of ``latents``, ``latents_flip``
-    and ``labels``, and the label width. Raises ``ValueError`` naming the
-    file for anything else."""
+    latent shape ``chw``, and for ``latents``, ``latents_flip`` (the
+    latents' own where the shard has none) and ``labels`` the file offset
+    and the type code. Raises ``ValueError`` naming the file for anything
+    else."""
     header, start = read_header(path)
-    info = {}
-    for key in ("latents", "latents_flip", "labels"):
+    for key in ("latents", "labels"):
         if key not in header:
-            raise ValueError(f"{path}: no {key!r} tensor; the shard reader needs "
-                             "latents, latents_flip and labels")
-        info[key] = header[key]
-    lat, flip, lab = info["latents"], info["latents_flip"], info["labels"]
+            raise ValueError(f"{path}: no {key!r} tensor; the shard reader needs latents "
+                             "and labels")
+    lat, lab = header["latents"], header["labels"]
+    flip = header.get("latents_flip", lat)
     for key, t in (("latents", lat), ("latents_flip", flip)):
-        if t["dtype"] != "F32" or len(t["shape"]) != 4:
+        if t["dtype"] not in _TYPES or len(t["shape"]) != 4:
             raise ValueError(f"{path}: {key} is {t['dtype']} {t['shape']}; the shard reader "
-                             "takes F32 (N, C, H, W)")
+                             "takes F16, F32, F64, integer or BOOL (N, C, H, W)")
     if flip["shape"] != lat["shape"]:
         raise ValueError(f"{path}: latents_flip {flip['shape']} does not match latents "
                          f"{lat['shape']}")
-    if lab["dtype"] not in _LABEL_BYTES or len(lab["shape"]) != 1:
+    if lab["dtype"] not in _TYPES or len(lab["shape"]) != 1:
         raise ValueError(f"{path}: labels are {lab['dtype']} {lab['shape']}; the shard reader "
-                         "takes I64 or I32 (N,)")
+                         "takes F16, F32, F64, integer or BOOL (N,)")
     rows = int(lat["shape"][0])
     if lab["shape"][0] != rows:
         raise ValueError(f"{path}: {lab['shape'][0]} labels for {rows} latents")
     item = int(np.prod(lat["shape"][1:]))
-    for key, t, width in (("latents", lat, 4 * item), ("latents_flip", flip, 4 * item),
-                          ("labels", lab, _LABEL_BYTES[lab["dtype"]])):
+    layout = {"rows": rows, "chw": tuple(int(s) for s in lat["shape"][1:])}
+    for key, t, count in (("latents", lat, rows * item), ("latents_flip", flip, rows * item),
+                          ("labels", lab, rows)):
+        code, size = _TYPES[t["dtype"]]
         begin, end = t["data_offsets"]
-        if end - begin != rows * width:
-            raise ValueError(f"{path}: {key} holds {end - begin} bytes, expected {rows * width}")
-    return {"rows": rows, "chw": tuple(int(s) for s in lat["shape"][1:]),
-            "latents": start + lat["data_offsets"][0],
-            "latents_flip": start + flip["data_offsets"][0],
-            "labels": start + lab["data_offsets"][0], "label_bytes": _LABEL_BYTES[lab["dtype"]]}
+        if end - begin != count * size:
+            raise ValueError(f"{path}: {key} holds {end - begin} bytes, expected {count * size}")
+        layout[key] = start + begin
+        layout[key + "_type"] = code
+    return layout
 
 
 class NativeShardReader:
@@ -101,12 +108,14 @@ class NativeShardReader:
         self._handle: Optional[int] = None
         col = lambda key, dtype: np.array([lay[key] for lay in layouts], dtype)  # noqa: E731
         rows, lat, flip = col("rows", np.int64), col("latents", np.int64), col("latents_flip", np.int64)
-        lab, lab_bytes = col("labels", np.int64), col("label_bytes", np.int32)
+        lab = col("labels", np.int64)
+        types = [col(k + "_type", np.int32) for k in ("latents", "latents_flip", "labels")]
         names = (ctypes.c_char_p * len(paths))(*[str(p).encode() for p in paths])
         err = ctypes.create_string_buffer(_ERR_LEN)
         handle = self._lib.shard_reader_open(
             len(paths), names, rows.ctypes.data, lat.ctypes.data, flip.ctypes.data,
-            lab.ctypes.data, lab_bytes.ctypes.data, self.C * self.H * self.W, err, _ERR_LEN)
+            lab.ctypes.data, *[t.ctypes.data for t in types], self.C * self.H * self.W, err,
+            _ERR_LEN)
         if not handle:
             raise OSError(err.value.decode(errors="replace"))
         self._handle = handle

@@ -1,11 +1,14 @@
 // JPEG decoder for the port's image readers, bit-exact with libjpeg-turbo's
 // default decode as PIL drives it (``Image.open(p).convert("RGB")``).
 //
-// Takes baseline and extended-sequential Huffman files (SOF0, SOF1) and
-// progressive Huffman files (SOF2), 8-bit, with 1 (gray), 3 (YCbCr or RGB)
-// or 4 (Adobe CMYK or YCCK) components, any sampling factors with integral
-// ratios, restart intervals, and any image size. Arithmetic-coded, 12-bit,
-// lossless and hierarchical files are refused with the SOF marker named.
+// Takes baseline and extended-sequential files (SOF0, SOF1), progressive
+// files (SOF2), Huffman- or arithmetic-coded (SOF9, SOF10), and lossless
+// Huffman files (SOF3), 8-bit, with 1 (gray), 3
+// (YCbCr or RGB) or 4 (Adobe CMYK or YCCK) components, any sampling factors
+// with integral ratios, restart intervals, and any image size. What PIL
+// refuses is refused with the SOF marker named: hierarchical files (SOF5-7,
+// SOF13-15), arithmetic-coded lossless ones (SOF11), and other precisions
+// (PIL's JPEG plugin takes 8-bit frames only).
 //
 // The arithmetic is libjpeg-turbo's, step for step:
 //   - Huffman decoding with ``0xFF00`` stuffing; bytes before a marker are
@@ -21,19 +24,35 @@
 //     scan, whatever follows it;
 //   - progressive scans as ``jdphuff.c`` decodes them: DC first and
 //     refinement, AC first with EOB runs, AC refinement with correction bits;
+//   - arithmetic decoding as ``jdarith.c`` does it (the QM decoder of T.81
+//     Annex D with the state table of ``jaricom.c``, DC and AC conditioning
+//     from DAC, statistics reset at each restart, sequential and the four
+//     progressive MCU kinds); a marker inside the data feeds zeros, and a
+//     spectral or magnitude overflow leaves the rest of the scan (to its
+//     next restart) undecoded;
+//   - lossless files as ``jdlhuff.c``, ``jddiffct.c`` and ``jdlossls.c``
+//     decode them: Huffman-coded differences (T.81 Annex H), the seven
+//     predictors with the first-row, first-column and restart rules, modulo
+//     2^16, and the point transform shifted back;
+//   - block smoothing of progressive files whose scans leave coefficients
+//     unrefined (``jdcoefct.c``'s ``smoothing_ok`` and libjpeg-turbo 2.1+'s
+//     ``decompress_smooth_data``: the 5x5 DC neighbourhood, the first nine
+//     AC coefficients estimated where unknown, the DC itself where no AC
+//     coefficient is known);
 //   - the ISLOW inverse DCT (``jidctint.c``: CONST_BITS 13, PASS1_BITS 2)
 //     and its range-limit table with the ``& RANGE_MASK`` wrap;
 //   - upsampling as ``jdsample.c`` picks it with fancy upsampling on:
 //     h2v1 and h2v2 triangle filters (components more than 2 samples wide),
-//     turbo's h1v2 filter, replication otherwise; the row above the first
-//     and below the last repeat them (``jdmainct.c``'s context rows);
-//   - YCbCr→RGB and YCCK→CMYK through ``jdcolor.c``'s 16-bit fixed-point
+//     turbo's h1v2 filter, replication otherwise (and always for a lossless
+//     file, whose 1x1 "blocks" turn fancy upsampling off); the row above the
+//     first and below the last repeat them (``jdmainct.c``'s context rows);
+//   - the colour space as ``default_decompress_parms`` guesses it (a JFIF
+//     marker, an Adobe marker's transform, or the component ids; a lossless
+//     frame with neither marker is RGB);
+//   - YCbCr->RGB and YCCK->CMYK through ``jdcolor.c``'s 16-bit fixed-point
 //     tables; CMYK is then inverted (PIL's ``CMYK;I``) and taken to RGB by
 //     PIL's ``cmyk2rgb``; gray is repeated three times.
-// Progressive files whose scans leave coefficients unrefined, which libjpeg
-// would smooth across blocks (``jdcoefct.c``'s ``smoothing_ok``), are
-// refused. ``jpeg_check`` finds them, and the SOF markers refused above,
-// from the markers alone.
+// ``jpeg_check`` finds the refused SOF markers from the frame header alone.
 //
 // C interface (ctypes, vavae_tpu_torch/utils/jpeg.py):
 //   jpeg_header(data, len, dims[2], err, errlen)        -> 0 or -1
@@ -61,10 +80,6 @@ struct Truncated : Refusal {
 };
 
 [[noreturn]] void refuse(const std::string& msg) { throw Refusal(msg); }
-
-const char* const kUnrefined =
-    "unsupported JPEG: a progressive file whose scans leave coefficients unrefined "
-    "(libjpeg would smooth its blocks)";
 
 std::string hex2(int v) {
   char buf[8];
@@ -133,8 +148,8 @@ struct HuffTable {
     defined = true;
   }
 
-  // jpeg_make_d_derived_tbl, with its checks
-  void derive(bool is_dc) {
+  // jpeg_make_d_derived_tbl, with its checks (a lossless DC table may hold 16)
+  void derive(bool is_dc, int max_dc) {
     int huffsize[257], huffcode[257];
     int p = 0;
     for (int l = 1; l <= 16; ++l) {
@@ -174,7 +189,7 @@ struct HuffTable {
     }
     if (is_dc)
       for (int i = 0; i < numsymbols; ++i)
-        if (vals[i] > 15) refuse("bad Huffman table");
+        if (vals[i] > max_dc) refuse("bad Huffman table");
   }
 };
 
@@ -264,6 +279,117 @@ inline int extend(int r, int s) {  // HUFF_EXTEND
   return r < (1 << (s - 1)) ? r + static_cast<int>((~0u) << s) + 1 : r;
 }
 
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define V(qe, lps, mps, sw) ((int64_t{qe} << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const int64_t kAriTab[114] = {
+    V(0x5a1d,   1,   1, 1), V(0x2586,  14,   2, 0), V(0x1114,  16,   3, 0), V(0x080b,  18,   4, 0),
+    V(0x03d8,  20,   5, 0), V(0x01da,  23,   6, 0), V(0x00e5,  25,   7, 0), V(0x006f,  28,   8, 0),
+    V(0x0036,  30,   9, 0), V(0x001a,  33,  10, 0), V(0x000d,  35,  11, 0), V(0x0006,   9,  12, 0),
+    V(0x0003,  10,  13, 0), V(0x0001,  12,  13, 0), V(0x5a7f,  15,  15, 1), V(0x3f25,  36,  16, 0),
+    V(0x2cf2,  38,  17, 0), V(0x207c,  39,  18, 0), V(0x17b9,  40,  19, 0), V(0x1182,  42,  20, 0),
+    V(0x0cef,  43,  21, 0), V(0x09a1,  45,  22, 0), V(0x072f,  46,  23, 0), V(0x055c,  48,  24, 0),
+    V(0x0406,  49,  25, 0), V(0x0303,  51,  26, 0), V(0x0240,  52,  27, 0), V(0x01b1,  54,  28, 0),
+    V(0x0144,  56,  29, 0), V(0x00f5,  57,  30, 0), V(0x00b7,  59,  31, 0), V(0x008a,  60,  32, 0),
+    V(0x0068,  62,  33, 0), V(0x004e,  63,  34, 0), V(0x003b,  32,  35, 0), V(0x002c,  33,   9, 0),
+    V(0x5ae1,  37,  37, 1), V(0x484c,  64,  38, 0), V(0x3a0d,  65,  39, 0), V(0x2ef1,  67,  40, 0),
+    V(0x261f,  68,  41, 0), V(0x1f33,  69,  42, 0), V(0x19a8,  70,  43, 0), V(0x1518,  72,  44, 0),
+    V(0x1177,  73,  45, 0), V(0x0e74,  74,  46, 0), V(0x0bfb,  75,  47, 0), V(0x09f8,  77,  48, 0),
+    V(0x0861,  78,  49, 0), V(0x0706,  79,  50, 0), V(0x05cd,  48,  51, 0), V(0x04de,  50,  52, 0),
+    V(0x040f,  50,  53, 0), V(0x0363,  51,  54, 0), V(0x02d4,  52,  55, 0), V(0x025c,  53,  56, 0),
+    V(0x01f8,  54,  57, 0), V(0x01a4,  55,  58, 0), V(0x0160,  56,  59, 0), V(0x0125,  57,  60, 0),
+    V(0x00f6,  58,  61, 0), V(0x00cb,  59,  62, 0), V(0x00ab,  61,  63, 0), V(0x008f,  61,  32, 0),
+    V(0x5b12,  65,  65, 1), V(0x4d04,  80,  66, 0), V(0x412c,  81,  67, 0), V(0x37d8,  82,  68, 0),
+    V(0x2fe8,  83,  69, 0), V(0x293c,  84,  70, 0), V(0x2379,  86,  71, 0), V(0x1edf,  87,  72, 0),
+    V(0x1aa9,  87,  73, 0), V(0x174e,  72,  74, 0), V(0x1424,  72,  75, 0), V(0x119c,  74,  76, 0),
+    V(0x0f6b,  74,  77, 0), V(0x0d51,  75,  78, 0), V(0x0bb6,  77,  79, 0), V(0x0a40,  77,  48, 0),
+    V(0x5832,  80,  81, 1), V(0x4d1c,  88,  82, 0), V(0x438e,  89,  83, 0), V(0x3bdd,  90,  84, 0),
+    V(0x34ee,  91,  85, 0), V(0x2eae,  92,  86, 0), V(0x299a,  93,  87, 0), V(0x2516,  86,  71, 0),
+    V(0x5570,  88,  89, 1), V(0x4ca9,  95,  90, 0), V(0x44d9,  96,  91, 0), V(0x3e22,  97,  92, 0),
+    V(0x3824,  99,  93, 0), V(0x32b4,  99,  94, 0), V(0x2e17,  93,  86, 0), V(0x56a8,  95,  96, 1),
+    V(0x4f46, 101,  97, 0), V(0x47e5, 102,  98, 0), V(0x41cf, 103,  99, 0), V(0x3c3d, 104, 100, 0),
+    V(0x375e,  99,  93, 0), V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103,  99, 0), V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1),
+    V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// The QM decoder of jdarith.c (arith_decode): C and A registers, bytes read
+// on renormalisation; at a marker it stores the marker and feeds zeros.
+struct ArithReader {
+  const uint8_t* d = nullptr;
+  size_t n = 0, pos = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read first; -1: an overflow stopped the scan
+  int marker = 0;
+
+  void start(const uint8_t* data, size_t len, size_t at) {
+    d = data; n = len; pos = at;
+    marker = 0;
+    reset();
+  }
+
+  void reset() { c = 0; a = 0; ct = -16; }
+
+  int get_byte() {
+    if (pos >= n) throw Truncated();  // libjpeg's arithmetic decoder cannot suspend
+    return d[pos++];
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker) {
+          data = get_byte();
+          if (data == 0xFF) {
+            do data = get_byte(); while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int dw = 0, dh = 0;        // downsampled_width/height
@@ -274,6 +400,8 @@ struct Component {
   bool latched = false;
   uint16_t quant[64] = {};   // natural order
   int coef_bits[64];         // progressive: Al of the last scan, -1 before any
+  int prev_bits[10];         // coef_bits[0..9] before the last scan of the component
+  int pt = 0;                // lossless: the point transform of its scan
   std::vector<uint8_t> plane;  // dh x dw samples after the IDCT
 };
 
@@ -283,24 +411,20 @@ class Decoder {
 
   // Reads markers up to the frame header; height and width.
   void header(int64_t* dims) {
-    parse(true);
+    parse(kHeader);
     dims[0] = height_;
     dims[1] = width_;
   }
 
-  // Refuses what decode would refuse on the markers alone: an SOF it does
-  // not decode, or a progressive file whose scans leave coefficients
-  // unrefined. A sequential file is judged at its SOF; the entropy-coded
-  // data of a progressive one is skipped, not decoded.
-  void check() {
-    check_ = true;
-    parse(false);
-    if (would_smooth()) refuse(kUnrefined);
-  }
+  // Refuses what decode would refuse on the markers before the data: an SOF
+  // marker or a precision it does not decode, or a lossless frame in a
+  // colour space other than RGB, gray or CMYK (libjpeg converts no colour
+  // in a lossless file). A DCT file is judged at its SOF marker.
+  void check() { parse(kCheck); }
 
   void decode(uint8_t* out) {
     try {
-      parse(false);
+      parse(kDecode);
     } catch (const Truncated&) {
       // libjpeg reads what follows a single-scan image only to finish, and
       // PIL keeps the image when that runs out of data
@@ -320,16 +444,26 @@ class Decoder {
   int restart_interval_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
-  bool frame_ = false, progressive_ = false, scanned_ = false;
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  bool scanned_ = false;
   bool image_done_ = false;  // libjpeg's single-scan mode, after its scan
-  bool check_ = false;       // check(): markers only
   int width_ = 0, height_ = 0, max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   std::vector<Component> comps_;
   BitReader br_;
+  ArithReader ar_;
+  // DAC conditioning (jdmarker.c's defaults at SOI)
+  uint8_t dc_l_[16], dc_u_[16], ac_k_[16];
+  // arithmetic statistics areas, by table
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t fixed_bin_ = 113;
+  // smoothing: scans read (input_scan_number), and the last iMCU row of the
+  // last scan decoded before its data ran out (last_good_iMCU_row)
+  int scans_ = 0, last_good_row_ = -1;
   // scan state
   int scan_comp_[4] = {};
   int ns_ = 0, ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;
   int last_dc_[4] = {};
+  int dc_context_[4] = {};
   int eobrun_ = 0;
 
   int byte() {
@@ -352,28 +486,33 @@ class Decoder {
     }
   }
 
-  void parse(bool header_only) {
+  enum Stop { kHeader, kCheck, kDecode };  // parse to the SOF, to what check needs, or to the end
+
+  void parse(Stop stop) {
     if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) refuse("not a JPEG file (no SOI marker)");
     pos_ = 2;
+    for (int i = 0; i < 16; ++i) {
+      dc_l_[i] = 0;
+      dc_u_[i] = 1;
+      ac_k_[i] = 5;
+    }
     int marker = next_marker();
     for (;;) {
       switch (marker) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           read_sof(marker);
-          if (header_only || (check_ && !progressive_)) return;
+          if (stop == kHeader || (stop == kCheck && !lossless_)) return;
           break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC8: case 0xC9: case 0xCA:
-        case 0xCB: case 0xCD: case 0xCE: case 0xCF: {
+        case 0xC5: case 0xC6: case 0xC7: case 0xC8: case 0xCB: case 0xCD: case 0xCE: case 0xCF: {
           static const char* kinds[] = {
-              "lossless", "", "differential (hierarchical) sequential",
-              "differential (hierarchical) progressive", "differential (hierarchical) lossless",
-              "reserved JPG", "arithmetic-coded sequential", "arithmetic-coded progressive",
-              "arithmetic-coded lossless", "", "arithmetic-coded differential sequential",
+              "differential (hierarchical) sequential", "differential (hierarchical) progressive",
+              "differential (hierarchical) lossless", "reserved JPG", "", "",
+              "arithmetic-coded lossless",
+              "", "arithmetic-coded differential sequential",
               "arithmetic-coded differential progressive",
               "arithmetic-coded differential lossless"};
           refuse(std::string("unsupported JPEG: SOF marker ") + hex2(marker) + " (" +
-                 kinds[marker - 0xC3] + "); only baseline, extended-sequential and "
-                 "progressive Huffman 8-bit files are decoded");
+                 kinds[marker - 0xC5] + "), which PIL does not decode either");
         }
         case 0xC4: read_dht(); break;
         case 0xDB: read_dqt(); break;
@@ -385,16 +524,18 @@ class Decoder {
         }
         case 0xDA: {
           if (!frame_) refuse("SOS before any SOF marker");
-          if (image_done_) return;  // single-scan mode ignores later scans
-          const bool first = !scanned_;
+          if (!scanned_ && lossless_ && ycc_frame())
+            refuse("unsupported JPEG: a lossless " + std::string(comps_.size() == 3 ? "YCbCr" : "YCCK") +
+                   " frame, which libjpeg-turbo does not convert to RGB for PIL either");
+          if (stop == kCheck) return;
+          // libjpeg finishes a single-scan image by reading its markers to
+          // the EOI, and a scan there is an error (JERR_EOI_EXPECTED)
+          if (image_done_) refuse("a second scan in a single-scan JPEG file");
           marker = read_sos_and_scan();
-          // a sequential first scan of every component: libjpeg decodes in
-          // single-scan mode, and the image is complete after it
-          image_done_ = first && !progressive_ && ns_ == static_cast<int>(comps_.size());
           continue;
         }
         case 0xD9:
-          if (header_only) refuse("EOI before any SOF marker");
+          if (stop != kDecode) refuse("EOI before any SOF marker");
           if (!scanned_) refuse("no image data before the EOI marker");
           return;
         case 0xD8: refuse("duplicate SOI marker");
@@ -419,7 +560,7 @@ class Decoder {
     pos_ += len;
   }
 
-  // jdmarker.c's get_dac: checked as libjpeg checks it, then unused
+  // jdmarker.c's get_dac
   void read_dac() {
     int len = u16() - 2;
     while (len > 0) {
@@ -427,7 +568,13 @@ class Decoder {
       const int val = byte();
       len -= 2;
       if (index >= 32) refuse("bad DAC table index " + std::to_string(index));
-      if (index < 16 && (val & 15) > (val >> 4)) refuse("bad DAC value " + std::to_string(val));
+      if (index >= 16) {
+        ac_k_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l_[index] = static_cast<uint8_t>(val & 15);
+        dc_u_[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l_[index] > dc_u_[index]) refuse("bad DAC value " + std::to_string(val));
+      }
     }
     if (len != 0) refuse("bad DAC segment length");
   }
@@ -500,14 +647,17 @@ class Decoder {
     width_ = u16();
     const int nf = byte();
     if (len != 8 + 3 * nf) refuse("bad SOF segment length");
+    lossless_ = marker == 0xC3;
+    // PIL's JPEG plugin takes 8-bit frames only, lossless ones too
     if (precision != 8)
       refuse("unsupported JPEG: SOF marker " + hex2(marker) + " with " +
-             std::to_string(precision) + "-bit samples; only 8-bit files are decoded");
+             std::to_string(precision) + "-bit samples, which PIL does not decode either");
     if (height_ == 0) refuse("JPEG height 0 (a DNL marker) is not supported");
     if (width_ == 0 || nf == 0) refuse("empty JPEG image");
     if (nf != 1 && nf != 3 && nf != 4)
       refuse("unsupported JPEG: " + std::to_string(nf) + " components");
-    progressive_ = marker == 0xC2;
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
     comps_.resize(nf);
     for (auto& c : comps_) {
       c.id = byte();
@@ -516,18 +666,20 @@ class Decoder {
       c.v = hv & 15;
       c.tq = byte();
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) refuse("bad JPEG sampling factors");
-      if (c.tq > 3) refuse("bad quantization table index");
+      if (c.tq > 3 && !lossless_) refuse("bad quantization table index");
       max_h_ = std::max(max_h_, c.h);
       max_v_ = std::max(max_v_, c.v);
     }
-    mcux_ = (width_ + 8 * max_h_ - 1) / (8 * max_h_);
-    mcuy_ = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
+    const int unit = lossless_ ? 1 : 8;  // a lossless "block" is one sample
+    mcux_ = (width_ + unit * max_h_ - 1) / (unit * max_h_);
+    mcuy_ = (height_ + unit * max_v_ - 1) / (unit * max_v_);
     for (auto& c : comps_) {
       c.dw = static_cast<int>((static_cast<int64_t>(width_) * c.h + max_h_ - 1) / max_h_);
       c.dh = static_cast<int>((static_cast<int64_t>(height_) * c.v + max_v_ - 1) / max_v_);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit;
+      c.bh = (c.dh + unit - 1) / unit;
       for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+      for (int k = 0; k < 10; ++k) c.prev_bits[k] = -1;
       if (max_h_ % c.h || max_v_ % c.v)
         refuse("unsupported JPEG: sampling factors whose ratios are not integers");
     }
@@ -538,7 +690,9 @@ class Decoder {
     for (auto& c : comps_) {
       c.stride_blocks = mcux_ * c.h;
       c.rows_blocks = mcuy_ * c.v;
-      c.coef.assign(static_cast<size_t>(c.stride_blocks) * c.rows_blocks * 64, 0);
+      // a lossless file keeps one sample a "block": its differences, then
+      // its samples (jddiffct.c's diff_buf and undiff_buf)
+      c.coef.assign(static_cast<size_t>(c.stride_blocks) * c.rows_blocks * (lossless_ ? 1 : 64), 0);
     }
   }
 
@@ -570,29 +724,47 @@ class Decoder {
     ah_ = a >> 4;
     al_ = a & 15;
 
-    if (!scanned_ && !check_) alloc_coefficients();
-    if (!scanned_ && !progressive_) {
+    const bool first = !scanned_;
+    if (!scanned_) alloc_coefficients();
+    if (!scanned_ && !progressive_ && !arith_ && !lossless_) {
       // jinit_huff_decoder's std_huff_tables: the sequential decoder's
       // defaults for slots 0 and 1 undefined at the first scan (the
-      // progressive decoder has none)
+      // progressive and lossless decoders have none)
       if (!dc_[0].defined) dc_[0].set(kStdDcLumBits, kStdDcVals);
       if (!dc_[1].defined) dc_[1].set(kStdDcChromBits, kStdDcVals);
       if (!ac_[0].defined) ac_[0].set(kStdAcLumBits, kStdAcLumVals);
       if (!ac_[1].defined) ac_[1].set(kStdAcChromBits, kStdAcChromVals);
     }
     scanned_ = true;
+    ++scans_;
 
     int blocks_in_mcu = 0;
     for (int i = 0; i < ns_; ++i) {
       Component& c = comps_[scan_comp_[i]];
       blocks_in_mcu += ns_ == 1 ? 1 : c.h * c.v;
       if (!c.latched) {  // latch_quant_tables: the table as of the first scan
-        if (!qt_defined_[c.tq]) refuse("quantization table missing");
-        std::memcpy(c.quant, qt_[c.tq], sizeof c.quant);
+        if (!lossless_) {
+          if (!qt_defined_[c.tq]) refuse("quantization table missing");
+          std::memcpy(c.quant, qt_[c.tq], sizeof c.quant);
+        }
         c.latched = true;
       }
     }
     if (blocks_in_mcu > 10) refuse("bad JPEG sampling factors (over 10 blocks an MCU)");
+
+    if (lossless_) {
+      // jdlossls.c's start_pass: Ss is the predictor, Pt = Al
+      if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= 8)
+        refuse("bad lossless scan parameters Ss=" + std::to_string(ss_) + " Se=" +
+               std::to_string(se_) + " Ah=" + std::to_string(ah_) + " Al=" + std::to_string(al_));
+      HuffTable* dct[4];
+      for (int i = 0; i < ns_; ++i) {
+        if (td[i] > 3 || !dc_[td[i]].defined) refuse("Huffman table missing");
+        dc_[td[i]].derive(true, 16);
+        dct[i] = &dc_[td[i]];
+      }
+      return lossless_scan(dct, first);
+    }
 
     const bool dc_band = ss_ == 0;
     if (progressive_) {
@@ -610,102 +782,239 @@ class Decoder {
                " Al=" + std::to_string(al_));
       for (int i = 0; i < ns_; ++i) {
         Component& c = comps_[scan_comp_[i]];
+        for (int k = std::min(ss_, 1); k <= std::max(se_, 9); ++k)
+          if (k < 10) c.prev_bits[k] = scans_ > 1 ? c.coef_bits[k] : 0;
         for (int k = ss_; k <= se_; ++k) c.coef_bits[k] = al_;
       }
     }
-    // the tables this scan uses, derived (and checked) now
+    const bool need_dc = !progressive_ || (dc_band && ah_ == 0);
+    const bool need_ac = !progressive_ || !dc_band;
+    // the tables this scan uses, derived (and checked) now; arithmetic
+    // statistics areas cleared (jdarith.c's start_pass)
     HuffTable* dct[4] = {nullptr, nullptr, nullptr, nullptr};
     HuffTable* act[4] = {nullptr, nullptr, nullptr, nullptr};
     for (int i = 0; i < ns_; ++i) {
-      const bool need_dc = !progressive_ || (dc_band && ah_ == 0);
-      const bool need_ac = !progressive_ || !dc_band;
+      if (arith_) {
+        if (need_dc) {
+          if (td[i] > 15) refuse("arithmetic table missing");
+          std::memset(dc_stats_[td[i]], 0, sizeof dc_stats_[0]);
+        }
+        if (need_ac) {
+          if (ta[i] > 15) refuse("arithmetic table missing");
+          std::memset(ac_stats_[ta[i]], 0, sizeof ac_stats_[0]);
+        }
+        continue;
+      }
       if (need_dc) {
         if (td[i] > 3 || !dc_[td[i]].defined) refuse("Huffman table missing");
-        dc_[td[i]].derive(true);
+        dc_[td[i]].derive(true, 15);
         dct[i] = &dc_[td[i]];
       }
       if (need_ac) {
         if (ta[i] > 3 || !ac_[ta[i]].defined) refuse("Huffman table missing");
-        ac_[ta[i]].derive(false);
+        ac_[ta[i]].derive(false, 15);
         act[i] = &ac_[ta[i]];
       }
     }
 
-    if (check_) {  // to the marker after the scan, past its restarts
-      for (;;) {
-        const int m = next_marker();
-        if (m < 0xD0 || m > 0xD7) return m;
-      }
-    }
     br_.start(d_, n_, pos_);
-    for (int i = 0; i < 4; ++i) last_dc_[i] = 0;
+    ar_.start(d_, n_, pos_);
+    for (int i = 0; i < 4; ++i) last_dc_[i] = dc_context_[i] = 0;
     eobrun_ = 0;
     int restarts_to_go = restart_interval_;
     int next_rst = 0;
 
-    // jdhuff.c's process_restart and jdmarker.c's read_restart_marker
+    // jdhuff.c's and jdarith.c's process_restart
     auto restart = [&]() {
-      int m = br_.marker;
-      if (m == 0) {
-        if (br_.eof) throw Truncated();
-        m = (pos_ = br_.pos, next_marker());
-      } else {
-        pos_ = br_.pos;  // just past the marker
-      }
-      const bool pending = m != 0xD0 + next_rst && !resync(m, next_rst);
-      next_rst = (next_rst + 1) & 7;
-      const bool was_short = br_.short_data;
-      br_.start(d_, n_, pos_);
-      if (pending) {  // an empty segment, read as zeros; out of data stays set
-        br_.marker = m;
-        br_.short_data = was_short;
-      }
-      for (int i = 0; i < 4; ++i) last_dc_[i] = 0;
+      restart_reader(next_rst);
+      if (arith_)
+        for (int i = 0; i < ns_; ++i) {
+          if (need_dc) std::memset(dc_stats_[td[i]], 0, sizeof dc_stats_[0]);
+          if (need_ac) std::memset(ac_stats_[ta[i]], 0, sizeof ac_stats_[0]);
+        }
+      for (int i = 0; i < 4; ++i) last_dc_[i] = dc_context_[i] = 0;
       eobrun_ = 0;
       restarts_to_go = restart_interval_;
+    };
+    // an MCU left undecoded: Huffman data past its end, or an arithmetic
+    // overflow earlier in the segment (a DC refinement scan decodes on)
+    auto skipped = [&]() {
+      return arith_ ? ar_.ct == -1 && !(progressive_ && dc_band && ah_ != 0) : br_.short_data;
+    };
+    auto decode = [&](int16_t* blk, int i) {
+      if (arith_) decode_block_arith(blk, i, td[i], ta[i]);
+      else decode_block(blk, i, dct[i], act[i]);
     };
 
     if (ns_ == 1) {
       Component& c = comps_[scan_comp_[0]];
-      for (int by = 0; by < c.bh; ++by)
+      for (int by = 0; by < c.bh; ++by) {
         for (int bx = 0; bx < c.bw; ++bx) {
           if (restart_interval_) {
             if (restarts_to_go == 0) restart();
             --restarts_to_go;
           }
-          if (br_.short_data) continue;
-          decode_block(block(c, by, bx), 0, dct[0], act[0]);
+          // jdcoefct.c: the iMCU row of the last MCU begun with data left
+          if (!br_.short_data) last_good_row_ = by / c.v;
+          if (skipped()) continue;
+          decode(block(c, by, bx), 0);
         }
+      }
     } else {
-      for (int my = 0; my < mcuy_; ++my)
+      for (int my = 0; my < mcuy_; ++my) {
         for (int mx = 0; mx < mcux_; ++mx) {
           if (restart_interval_) {
             if (restarts_to_go == 0) restart();
             --restarts_to_go;
           }
-          if (br_.short_data) continue;
+          if (!br_.short_data) last_good_row_ = my;
+          if (skipped()) continue;
           for (int i = 0; i < ns_; ++i) {
             Component& c = comps_[scan_comp_[i]];
             for (int yy = 0; yy < c.v; ++yy)
-              for (int xx = 0; xx < c.h; ++xx)
-                decode_block(block(c, my * c.v + yy, mx * c.h + xx), i, dct[i], act[i]);
+              for (int xx = 0; xx < c.h; ++xx) decode(block(c, my * c.v + yy, mx * c.h + xx), i);
           }
         }
+      }
     }
-    // the marker after the scan
-    if (br_.marker) {
-      pos_ = br_.pos;
-      return br_.marker;
+    return end_of_scan(first);
+  }
+
+  // jdmarker.c's read_restart_marker at a restart where RST``next_rst`` is
+  // due, then the entropy reader started on the next segment
+  void restart_reader(int& next_rst) {
+    int m = arith_ ? ar_.marker : br_.marker;
+    if (m == 0) {
+      if (!arith_ && br_.eof) throw Truncated();
+      m = (pos_ = arith_ ? ar_.pos : br_.pos, next_marker());
+    } else {
+      pos_ = arith_ ? ar_.pos : br_.pos;  // just past the marker
     }
-    if (br_.eof) {
+    const bool pending = m != 0xD0 + next_rst && !resync(m, next_rst);
+    next_rst = (next_rst + 1) & 7;
+    if (arith_) {
+      ar_.start(d_, n_, pos_);
+      if (pending) ar_.marker = m;  // an empty segment, read as zeros
+      return;
+    }
+    const bool was_short = br_.short_data;
+    br_.start(d_, n_, pos_);
+    if (pending) {  // an empty segment, read as zeros; out of data stays set
+      br_.marker = m;
+      br_.short_data = was_short;
+    }
+  }
+
+  // The marker after a scan's data. A sequential first scan of every
+  // component is libjpeg's single-scan mode: the image is complete after it,
+  // whatever follows.
+  int end_of_scan(bool first) {
+    image_done_ = first && !progressive_ && ns_ == static_cast<int>(comps_.size());
+    if (arith_ ? ar_.marker : br_.marker) {
+      pos_ = arith_ ? ar_.pos : br_.pos;
+      return arith_ ? ar_.marker : br_.marker;
+    }
+    if (!arith_ && br_.eof) {
       // PIL takes a sequential file that ends after its scan without the
       // EOI marker (libjpeg has every bit it reads); anything shorter, or
       // a progressive file, is truncated
-      if (progressive_ || br_.short_data) throw Truncated();
+      if (progressive_ || br_.short_data) refuse("truncated JPEG file");
       return 0xD9;
     }
-    pos_ = br_.pos;
+    pos_ = arith_ ? ar_.pos : br_.pos;
     return next_marker();
+  }
+
+  // A lossless scan (jdlhuff.c's decode_mcus into jddiffct.c's difference
+  // rows), then each row undifferenced (jdlossls.c): the first row of the
+  // image, and of each restart interval, predicted from its left neighbour
+  // (its first sample from 1 << (P - Pt - 1)), the first column from above,
+  // the rest by the scan's predictor, modulo 2^16.
+  int lossless_scan(HuffTable* const* dct, bool first_scan) {
+    const bool single = ns_ == 1;
+    const Component& c0 = comps_[scan_comp_[0]];
+    const int mcus_per_row = single ? c0.dw : mcux_;
+    const int mcu_rows = single ? c0.dh : mcuy_;
+    // rows of MCUs an iMCU row holds: predictors reset at an iMCU row's first row
+    const int rows_per_imcu = single ? c0.v : 1;
+    if (restart_interval_ % mcus_per_row)
+      refuse("unsupported JPEG: a lossless restart interval that is not a whole number of "
+             "MCU rows");
+    std::vector<std::vector<uint8_t>> first_row(ns_);  // rows predicted as a first row
+    std::vector<int32_t> diff[4];
+    for (int i = 0; i < ns_; ++i) {
+      const Component& c = comps_[scan_comp_[i]];
+      first_row[i].assign(c.rows_blocks, 0);
+      first_row[i][0] = 1;
+      diff[i].assign(static_cast<size_t>(c.rows_blocks) * c.stride_blocks, 0);
+    }
+    auto mark_first = [&](int my) {  // jdlossls.c's start_pass, from MCU row my on
+      for (int i = 0; i < ns_; ++i) {
+        const Component& c = comps_[scan_comp_[i]];
+        first_row[i][single ? my / rows_per_imcu * rows_per_imcu : my * c.v] = 1;
+      }
+    };
+    br_.start(d_, n_, pos_);
+    int rows_to_go = restart_interval_ / mcus_per_row;
+    int next_rst = 0;
+    for (int my = 0; my < mcu_rows; ++my) {
+      if (restart_interval_ && rows_to_go == 0) {
+        restart_reader(next_rst);
+        mark_first(my);
+        rows_to_go = restart_interval_ / mcus_per_row;
+      }
+      if (restart_interval_) --rows_to_go;
+      if (br_.short_data) {  // out of data: zeros from a reset predictor
+        mark_first(my);
+        continue;
+      }
+      for (int mx = 0; mx < mcus_per_row; ++mx)
+        for (int i = 0; i < ns_; ++i) {
+          const Component& c = comps_[scan_comp_[i]];
+          const int h = single ? 1 : c.h, v = single ? 1 : c.v;
+          for (int yy = 0; yy < v; ++yy)
+            for (int xx = 0; xx < h; ++xx) {
+              int s = br_.decode(*dct[i]);
+              if (s == 16) s = 32768;
+              else if (s) s = extend(br_.get(s), s);
+              diff[i][static_cast<size_t>(my * v + yy) * c.stride_blocks + mx * h + xx] = s;
+            }
+        }
+    }
+    for (int i = 0; i < ns_; ++i) {
+      Component& c = comps_[scan_comp_[i]];
+      const int w = c.dw, stride = c.stride_blocks;
+      auto* out = reinterpret_cast<uint16_t*>(c.coef.data());
+      for (int y = 0; y < c.dh; ++y) {
+        const int32_t* dr = &diff[i][static_cast<size_t>(y) * stride];
+        uint16_t* cur = out + static_cast<size_t>(y) * stride;
+        if (first_row[i][y]) {
+          int ra = (dr[0] + (1 << (7 - al_))) & 0xFFFF;
+          cur[0] = static_cast<uint16_t>(ra);
+          for (int x = 1; x < w; ++x) cur[x] = static_cast<uint16_t>(ra = (dr[x] + ra) & 0xFFFF);
+          continue;
+        }
+        const uint16_t* prev = cur - stride;
+        int ra = (dr[0] + prev[0]) & 0xFFFF;
+        cur[0] = static_cast<uint16_t>(ra);
+        for (int x = 1; x < w; ++x) {
+          const int rb = prev[x], rc = prev[x - 1];
+          int p;
+          switch (ss_) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          cur[x] = static_cast<uint16_t>(ra = (dr[x] + p) & 0xFFFF);
+        }
+      }
+      c.pt = al_;
+    }
+    return end_of_scan(first_scan);
   }
 
   // jdmarker.c's jpeg_resync_to_restart, for marker m where RST``desired``
@@ -828,9 +1137,114 @@ class Decoder {
     }
   }
 
-  // jdcoefct.c's smoothing_ok, after the last scan: true when libjpeg would
-  // smooth the blocks of an incompletely refined progressive file
-  bool would_smooth() const {
+  // jdarith.c's decode_mcu (sequential) and decode_mcu_DC_first,
+  // _DC_refine, _AC_first and _AC_refine, for one block
+  void decode_block_arith(int16_t* blk, int i, int td, int ta) {
+    const int ci = scan_comp_[i];
+    if (progressive_ && ss_ == 0 && ah_ != 0) {  // DC refinement: a bit at the fixed estimate
+      if (ar_.decode(&fixed_bin_)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+      return;
+    }
+    if (ar_.ct == -1) return;  // an overflow ended the MCU, and the segment
+    if (!progressive_ || ss_ == 0) {  // DC (Figures F.19-F.24)
+      uint8_t* st = dc_stats_[td] + dc_context_[ci];
+      if (ar_.decode(st) == 0) {
+        dc_context_[ci] = 0;
+      } else {
+        const int sign = ar_.decode(st + 1);
+        st += 2 + sign;
+        int m = ar_.decode(st);
+        if (m != 0) {
+          st = dc_stats_[td] + 20;
+          while (ar_.decode(st)) {
+            if ((m <<= 1) == 0x8000) {  // magnitude overflow
+              ar_.ct = -1;
+              return;
+            }
+            st += 1;
+          }
+        }
+        if (m < ((1 << dc_l_[td]) >> 1)) dc_context_[ci] = 0;
+        else if (m > ((1 << dc_u_[td]) >> 1)) dc_context_[ci] = 12 + sign * 4;
+        else dc_context_[ci] = 4 + sign * 4;
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (ar_.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        last_dc_[ci] = (last_dc_[ci] + v) & 0xFFFF;
+      }
+      blk[0] = static_cast<int16_t>(progressive_ ? static_cast<int>(static_cast<unsigned>(last_dc_[ci]) << al_)
+                                                 : last_dc_[ci]);
+      if (progressive_) return;
+    }
+    const int start = progressive_ ? ss_ : 1, end = progressive_ ? se_ : 63;
+    const int shift = progressive_ ? al_ : 0;
+    if (progressive_ && ah_ != 0) {  // AC refinement
+      const int p1 = 1 << al_, m1 = static_cast<int>(~0u << al_);
+      int kex = se_;  // the previous stage's end of block
+      for (; kex > 0; --kex)
+        if (blk[kNatural[kex]]) break;
+      for (int k = ss_; k <= se_; ++k) {
+        uint8_t* st = ac_stats_[ta] + 3 * (k - 1);
+        if (k > kex && ar_.decode(st)) break;  // EOB
+        for (;;) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef) {
+            if (ar_.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+            break;
+          }
+          if (ar_.decode(st + 1)) {
+            *coef = static_cast<int16_t>(ar_.decode(&fixed_bin_) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se_) {  // spectral overflow
+            ar_.ct = -1;
+            return;
+          }
+        }
+      }
+      return;
+    }
+    for (int k = start; k <= end; ++k) {  // AC (Figure F.20)
+      uint8_t* st = ac_stats_[ta] + 3 * (k - 1);
+      if (ar_.decode(st)) break;  // EOB
+      while (ar_.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > end) {  // spectral overflow
+          ar_.ct = -1;
+          return;
+        }
+      }
+      const int sign = ar_.decode(&fixed_bin_);
+      st += 2;
+      int m = ar_.decode(st);
+      if (m != 0 && ar_.decode(st)) {
+        m <<= 1;
+        st = ac_stats_[ta] + (k <= ac_k_[ta] ? 189 : 217);
+        while (ar_.decode(st)) {
+          if ((m <<= 1) == 0x8000) {  // magnitude overflow
+            ar_.ct = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar_.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << shift));
+    }
+  }
+
+  // jdcoefct.c's smoothing_ok, after the last scan: whether libjpeg smooths
+  // the blocks of this progressive file
+  bool smoothing_ok() const {
     if (!progressive_) return false;
     bool useful = false;
     for (const auto& c : comps_) {
@@ -848,12 +1262,86 @@ class Decoder {
   }
 
   void finish(uint8_t* out) {
-    if (would_smooth()) refuse(kUnrefined);
+    const bool smooth = smoothing_ok();
     for (auto& c : comps_) {
-      if (!c.latched) refuse("a component without image data");
-      idct_component(c);
+      // a DCT component no scan reached has no quantization table latched
+      // and decodes to 128 everywhere, as in libjpeg
+      if (!c.latched && lossless_) refuse("a component without image data");
+      if (lossless_) lossless_plane(c);
+      else idct_component(c, smooth);
     }
     upsample_and_convert(out);
+  }
+
+  // jdlossls.c's scaler: each sample shifted back by the point transform
+  void lossless_plane(Component& c) {
+    c.plane.resize(static_cast<size_t>(c.dh) * c.dw);
+    const auto* in = reinterpret_cast<const uint16_t*>(c.coef.data());
+    for (int y = 0; y < c.dh; ++y)
+      for (int x = 0; x < c.dw; ++x)
+        c.plane[static_cast<size_t>(y) * c.dw + x] =
+            static_cast<uint8_t>(in[static_cast<size_t>(y) * c.stride_blocks + x] << c.pt);
+  }
+
+  // libjpeg-turbo 2.1+'s decompress_smooth_data for one block: estimates of
+  // the unknown low-frequency coefficients from the 5x5 neighbourhood of DC
+  // values ``dc`` (row-major, this block in the middle), into ``ws``
+  static void smooth_block(const int* dc, const int* bits, const uint16_t* q, int16_t* ws) {
+    // change_dc: no AC coefficient known, so the DC is interpolated too
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k)
+      if (bits[k] != -1) change_dc = false;
+    const int64_t q00 = q[0];
+    const int* D = dc - 1;  // D[1..25] is libjpeg's DC01..DC25
+    auto estimate = [&](int k, int pos, int64_t qk, int64_t num) {
+      const int al = bits[k];
+      if (al == 0 || ws[pos] != 0) return;
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      ws[pos] = static_cast<int16_t>(pred);
+    };
+    estimate(1, 1, q[1], q00 * (change_dc
+        ? -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] -
+              3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] + 13 * D[17] -
+              13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25]
+        : -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15]));
+    estimate(2, 8, q[8], q00 * (change_dc
+        ? -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] + 38 * D[8] +
+              13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18] - 13 * D[19] + D[20] +
+              D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25]
+        : -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23]));
+    estimate(3, 16, q[16], q00 * (change_dc
+        ? D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] - 5 * D[14] +
+              2 * D[17] + 7 * D[18] + 2 * D[19] + D[23]
+        : -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23]));
+    estimate(4, 9, q[9], q00 * (change_dc
+        ? -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25]
+        : D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] + D[4] -
+              D[6] + 10 * D[7] - 10 * D[9]));
+    estimate(5, 2, q[2], q00 * (change_dc
+        ? 2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] + 7 * D[14] +
+              D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19]
+        : -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]));
+    if (!change_dc) return;
+    estimate(6, 3, q[3], q00 * (D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]));
+    estimate(7, 10, q[10], q00 * (D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]));
+    estimate(8, 17, q[17], q00 * (D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]));
+    estimate(9, 24, q[24], q00 * (D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]));
+    const int64_t num = q00 * (
+        -2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] +
+        42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] +
+        42 * D[14] - 8 * D[15] - 6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] -
+        6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]);
+    const int pred = num >= 0 ? static_cast<int>(((q00 << 7) + num) / (q00 << 8))
+                              : -static_cast<int>(((q00 << 7) - num) / (q00 << 8));
+    ws[0] = static_cast<int16_t>(pred);
   }
 
   static inline uint8_t idct_limit(int64_t x) {
@@ -865,15 +1353,44 @@ class Decoder {
     return static_cast<uint8_t>(i - 896);
   }
 
-  // jidctint.c's jpeg_idct_islow on every block of the component
-  void idct_component(Component& c) {
+  // jidctint.c's jpeg_idct_islow on every block of the component, smoothed
+  // first where libjpeg smooths
+  void idct_component(Component& c, bool smooth) {
     c.plane.assign(static_cast<size_t>(c.bh) * 8 * c.bw * 8, 0);
     const int pw = c.bw * 8;
     int16_t qs[64];
     for (int i = 0; i < 64; ++i) qs[i] = static_cast<int16_t>(c.quant[i]);  // ISLOW_MULT_TYPE
-    for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(block(c, by, bx), qs, &c.plane[static_cast<size_t>(by) * 8 * pw + bx * 8], pw);
+    int cur_bits[10], prev_bits[10];  // coef_bits_latch: now, and before the last scan
+    for (int k = 0; k < 10; ++k) {
+      cur_bits[k] = c.coef_bits[k];
+      prev_bits[k] = scans_ > 1 ? c.prev_bits[k] : -1;
+    }
+    for (int by = 0; by < c.bh; ++by) {
+      // the rows decompress_smooth_data reads around block row ``by``, with
+      // its image_block_row arithmetic (block_rows is the last iMCU row's
+      // count of rows there, as libjpeg counts it)
+      const int imcu = by / c.v, br = by % c.v;
+      int block_rows = c.v;
+      if (imcu == mcuy_ - 1) block_rows = c.bh % c.v ? c.bh % c.v : c.v;
+      const int ibr = imcu * block_rows + br, ibrs = block_rows * mcuy_;
+      const int prev = ibr > 0 ? by - 1 : by, next = ibr < ibrs - 1 ? by + 1 : by;
+      const int rows[5] = {ibr > 1 ? by - 2 : prev, prev, by, next, ibr < ibrs - 2 ? by + 2 : next};
+      const int* bits = imcu > last_good_row_ ? prev_bits : cur_bits;
+      for (int bx = 0; bx < c.bw; ++bx) {
+        const int16_t* src = block(c, by, bx);
+        int16_t ws[64];
+        if (smooth) {
+          std::memcpy(ws, src, sizeof ws);
+          int dc[25];
+          for (int r = 0; r < 5; ++r)
+            for (int k = 0; k < 5; ++k)
+              dc[5 * r + k] = block(c, rows[r], std::max(0, std::min(c.bw - 1, bx + k - 2)))[0];
+          smooth_block(dc, bits, c.quant, ws);
+          src = ws;
+        }
+        idct_islow(src, qs, &c.plane[static_cast<size_t>(by) * 8 * pw + bx * 8], pw);
+      }
+    }
     // keep dh x dw
     if (c.dw != pw) {
       for (int y = 0; y < c.dh; ++y)
@@ -994,6 +1511,20 @@ class Decoder {
     }
   }
 
+  // jdapimin.c's default_decompress_parms: whether 3 components are YCbCr
+  // (not RGB) and 4 are YCCK (not CMYK). Three are YCbCr with a JFIF marker
+  // or an Adobe transform other than 0, RGB with transform 0, and without
+  // either marker RGB when their ids are 'R', 'G', 'B' (libjpeg-turbo 3:
+  // always, in a lossless frame). Four are YCCK by an Adobe transform other
+  // than 0, else CMYK.
+  bool ycc_frame() const {
+    if (comps_.size() == 4) return adobe_ && adobe_transform_ != 0;
+    if (comps_.size() != 3) return false;
+    if (jfif_) return true;
+    if (adobe_) return adobe_transform_ != 0;
+    return !lossless_ && !(comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66);
+  }
+
   // One component at full size (height_ x width_), as jdsample.c makes it.
   std::vector<uint8_t> upsample(const Component& c) const {
     const int hr = max_h_ / c.h, vr = max_v_ / c.v;
@@ -1005,7 +1536,9 @@ class Decoder {
       y = std::max(0, std::min(dh - 1, y));
       return &c.plane[static_cast<size_t>(y) * dw];
     };
-    const bool fancy_h2 = hr == 2 && dw > 2;
+    // fancy upsampling needs DCT blocks larger than 1x1 (jdsample.c's do_fancy)
+    const bool fancy = !lossless_;
+    const bool fancy_h2 = fancy && hr == 2 && dw > 2;
     for (int oy = 0; oy < height_; ++oy) {
       const int iy = oy / vr;
       const uint8_t* p0 = in_row(iy);
@@ -1024,7 +1557,7 @@ class Decoder {
         v = p0[dw - 1];
         o[2 * (dw - 1)] = static_cast<uint8_t>((v * 3 + p0[dw - 2] + 1) >> 2);
         o[2 * (dw - 1) + 1] = static_cast<uint8_t>(v);
-      } else if (hr == 1 && vr == 2) {  // h1v2_fancy_upsample
+      } else if (fancy && hr == 1 && vr == 2) {  // h1v2_fancy_upsample
         const bool upper = (oy % 2) == 0;
         const uint8_t* p1 = in_row(upper ? iy - 1 : iy + 1);
         const int bias = upper ? 1 : 2;
@@ -1083,10 +1616,7 @@ class Decoder {
     const uint8_t* c1 = full[1].data();
     const uint8_t* c2 = full[2].data();
     if (nc == 3) {
-      bool rgb;
-      if (jfif_) rgb = false;
-      else if (adobe_) rgb = adobe_transform_ == 0;
-      else rgb = comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66;
+      const bool rgb = !ycc_frame();
       for (size_t i = 0; i < npix; ++i) {
         if (rgb) {
           out[3 * i] = c0[i]; out[3 * i + 1] = c1[i]; out[3 * i + 2] = c2[i];
@@ -1099,8 +1629,7 @@ class Decoder {
       }
       return;
     }
-    // 4 components: Adobe transform 0 (or no Adobe marker) is CMYK, else YCCK
-    const bool ycck = adobe_ && adobe_transform_ != 0;
+    const bool ycck = ycc_frame();
     const uint8_t* c3 = full[3].data();
     for (size_t i = 0; i < npix; ++i) {
       int cmyk[4];

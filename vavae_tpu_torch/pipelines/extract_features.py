@@ -113,8 +113,8 @@ def extract(
     # every process checks every file, so all of them stop together
     refused = refused_jpegs([p for p, _ in items])
     if refused:
-        raise ValueError(f"{len(refused)} of {len(items)} images are JPEGs the port's decoder "
-                         "does not take; nothing was encoded:\n"
+        raise ValueError(f"{len(refused)} of {len(items)} images are JPEGs that neither the "
+                         "port's decoder nor PIL decodes; nothing was encoded:\n"
                          + "\n".join(f"  {p}: {why}" for p, why in refused))
     rank = mesh_lib.process_index()
     items = items[rank::mesh_lib.process_count()]

@@ -2,15 +2,17 @@
 
 It decodes what PIL's ``Image.open(p).convert("RGB")`` decodes through
 libjpeg-turbo, bit for bit: baseline, extended-sequential and progressive
-Huffman files, 8-bit, gray, YCbCr, RGB, and Adobe CMYK or YCCK, with any
-sampling factors of integral ratios, restart intervals and any size.
-Corrupt data decodes as libjpeg-turbo's C code decodes it (its x86 SIMD
-inverse DCT can round out-of-range coefficients differently). Arithmetic-coded,
-12-bit, lossless and hierarchical files, and progressive files that leave
-coefficients unrefined (which libjpeg smooths), raise ``ValueError`` naming
-the file; none is handed to PIL. ``refused_jpegs`` finds those from their
-markers, without decoding. ctypes releases the interpreter lock for the
-call, so threads decode in parallel.
+files, Huffman- or arithmetic-coded, and lossless Huffman files, 8-bit,
+gray, YCbCr, RGB, and Adobe CMYK or YCCK, with any sampling factors of
+integral ratios, restart intervals and any size; progressive files whose
+scans leave coefficients unrefined are block-smoothed as libjpeg smooths
+them. Corrupt data decodes as libjpeg-turbo's C code decodes it (its x86
+SIMD inverse DCT can round out-of-range coefficients differently). What PIL
+refuses too (hierarchical and arithmetic-coded lossless files, precisions
+other than 8 bits) raises ``ValueError`` naming the file; nothing is handed
+to PIL. ``refused_jpegs`` finds those from their frame header, without
+decoding. ctypes releases the interpreter lock for the call, so threads
+decode in parallel.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from vavae_tpu_torch.native.build import load_library
 
 _ERR_LEN = 512
 _MAGIC = b"\xff\xd8\xff"
-_CHECK_HEAD = 1 << 14  # bytes read first: a sequential file's SOF lies in them
+_CHECK_HEAD = 1 << 14  # bytes read first: the SOF of most files lies in them
 _CHECK_THREADS = 8
 
 
@@ -65,11 +67,11 @@ def read_jpeg(path: str) -> np.ndarray:
 
 
 def jpeg_refusal(path: str) -> Optional[str]:
-    """Why ``read_jpeg`` refuses the file at ``path``, judged on its markers
-    alone: an SOF marker it does not decode, or a progressive file whose
-    scans leave coefficients unrefined; else None, as for a file that is not
-    a JPEG or is truncated (which PIL refuses too). Reads the first 16 KiB of
-    most sequential files and all of a progressive one."""
+    """Why ``read_jpeg`` refuses the file at ``path``, judged on its frame
+    header alone: an SOF marker or a precision that PIL does not decode
+    either; else None, as for a file that is not a JPEG or is truncated
+    (which PIL refuses too). Reads the first 16 KiB of most files, and all
+    of one whose frame header lies further in."""
     lib = _library()
     err = ctypes.create_string_buffer(_ERR_LEN)
     with open(path, "rb") as f:

@@ -4,11 +4,14 @@ image reader.
 The writer emits 8-bit RGB or RGBA with no filtering (zlib level 1), a
 batch at a time on a pool of threads: ``zlib.compress`` releases
 the interpreter lock, so the images deflate in parallel.
-The reader takes 8-bit grayscale, grayscale + alpha, RGB and RGBA, and
-palette images of 1, 2, 4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is
-ignored, as PIL's ``convert("RGB")`` ignores it), not interlaced, with any
-of the five scanline filters: what the port writes and what PIL writes for
-such images. Other PNGs (16-bit, interlaced) raise. ``read_image_rgb`` picks
+The reader takes every PNG that PIL's ``convert("RGB")`` reads, and makes
+the same 8-bit samples of it: grayscale of 1, 2, 4, 8 or 16 bits (scaled by
+255, 85 and 17 below 8 bits; 16-bit gray clipped to 255, as PIL's ``I;16``
+→ RGB clips it), grayscale + alpha, RGB and RGBA of 8 or 16 bits (the high
+byte of a 16-bit sample, as PIL unpacks them), and palette images of 1, 2,
+4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is ignored, as
+``convert("RGB")`` ignores it), plain or Adam7-interlaced, with any of the
+five scanline filters. ``read_image_rgb`` picks
 the reader by the file's first bytes, not its name: PNG here, JPEG through
 the port's decoder (``utils/jpeg.py``), any other type through PIL, imported
 only for it.
@@ -65,7 +68,10 @@ def write_pngs(images: np.ndarray, paths, threads: int = 0) -> None:
             write(i)
         return
     with ThreadPoolExecutor(n) as pool:
-        list(pool.map(write, range(len(paths))))
+        # not ``pool.map``: its iterator cancels the images not yet started
+        # when one fails
+        for future in [pool.submit(write, i) for i in range(len(paths))]:
+            future.result()
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -74,9 +80,9 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters; returns (h, w·bpp) uint8."""
-    stride = w * bpp
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters of h rows of ``stride`` bytes, whose
+    filters reach back ``bpp`` bytes; returns (h, stride) uint8."""
     rows = np.frombuffer(raw, np.uint8)
     if rows.size != h * (stride + 1):
         raise ValueError(f"PNG data holds {rows.size} bytes, expected {h * (stride + 1)}")
@@ -90,7 +96,7 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         elif ftype == 2:  # Up
             cur = (line + prev) & 0xFF
         elif ftype == 1:  # Sub: a running sum per channel
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(stride) & 0xFF
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(stride) & 0xFF
         elif ftype in (3, 4):  # Average, Paeth: pixel by pixel along the row
             cur = np.empty(stride, np.int32)
             left = np.zeros(bpp, np.int32)
@@ -108,21 +114,66 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _palette_indices(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
-    """Unfiltered palette scanlines (h, ceil(w·depth / 8)) → indices (h, w):
-    the leftmost pixel in the high bits of each byte."""
+def _unpack(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered scanlines (h, bytes) → samples (h, w, channels): uint16
+    for 16-bit files, uint8 values below 2^depth otherwise, the leftmost
+    pixel in the high bits of a byte."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, -1).view(">u2")[:, :w * channels].reshape(h, w, channels)
     if depth == 8:
-        return rows
-    per_byte = 8 // depth
+        return rows[:, :w * channels].reshape(h, w, channels)
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # high bits first
     idx = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-    return idx.reshape(rows.shape[0], -1)[:, :w]
+    return idx.reshape(h, -1)[:, :w, None]
+
+
+# Adam7: each pass's first column and row, and its steps
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _samples(raw: bytes, h: int, w: int, depth: int, channels: int, interlace: int) -> np.ndarray:
+    """The image's samples (h, w, channels) from the inflated data: one
+    pass, or Adam7's seven, each unfiltered on its own."""
+    bpp = max(1, depth * channels // 8)  # the filters' byte distance
+    row_bytes = lambda width: (width * depth * channels + 7) // 8  # noqa: E731
+    if not interlace:
+        return _unpack(_unfilter(raw, h, row_bytes(w), bpp), w, depth, channels)
+    out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no bytes at all
+        size = ph * (row_bytes(pw) + 1)
+        rows = _unfilter(raw[pos:pos + size], ph, row_bytes(pw), bpp)
+        out[y0::dy, x0::dx] = _unpack(rows, pw, depth, channels)
+        pos += size
+    if pos != len(raw):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected {pos}")
+    return out
+
+
+def _to_8_bits(s: np.ndarray, depth: int, ctype: int) -> np.ndarray:
+    """Samples as PIL unpacks them for ``convert("RGB")``: gray below 8 bits
+    scaled to 0-255, 16-bit gray (PIL's ``I;16``) clipped to 255, and the
+    high byte of any other 16-bit sample."""
+    if depth == 16:
+        return np.minimum(s, 255).astype(np.uint8) if ctype == 0 else (s >> 8).astype(np.uint8)
+    if depth < 8 and ctype == 0:
+        return (s * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    return s
+
+
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → (H, W, C) uint8: C is the file's samples per pixel (1
     gray, 2 gray + alpha, 3 RGB, 4 RGBA), and 3 for a palette image, whose
-    indices are looked up in ``PLTE``."""
+    indices are looked up in ``PLTE``; samples of other depths than 8 are
+    brought to 8 bits as PIL brings them."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat, palette = 8, None, [], None
@@ -141,18 +192,16 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    readable = (ctype == 3 and depth in (1, 2, 4, 8)) or (ctype in _CHANNELS and depth == 8)
-    if not readable or interlace != 0:
+    if depth not in _DEPTHS.get(ctype, ()) or interlace not in (0, 1):
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace} (8-bit gray/RGB(A) or 1-8-bit palette, "
-                         "not interlaced only)")
+                         f"interlace {interlace}")
     raw = zlib.decompress(b"".join(idat))
+    samples = _samples(raw, h, w, depth, _CHANNELS.get(ctype, 1), interlace)
     if ctype != 3:
-        bpp = _CHANNELS[ctype]
-        return _unfilter(raw, h, w, bpp).reshape(h, w, bpp)
+        return _to_8_bits(samples, depth, ctype)
     if palette is None:
         raise ValueError("palette PNG (colour type 3) without a PLTE chunk")
-    idx = _palette_indices(_unfilter(raw, h, (w * depth + 7) // 8, 1), w, depth)
+    idx = samples[..., 0]
     if idx.max(initial=0) >= len(palette):
         raise ValueError(f"palette index {idx.max()} past the {len(palette)}-entry PLTE")
     return palette[idx]
