@@ -69,7 +69,7 @@ Phases, each fatal on failure:
      Mean``) with CFG 10 on the concatenated batch, through
      ``build_sample_fn``;
   18. dopri5 split-CFG sampling of the micro-Doppler DiT-S/2
-     (``vavae_tpu/configs/dit_s_microdoppler.yaml``, bf16, N = 64 tokens)
+     (``vavae_tpu_torch/configs/dit_s_microdoppler.yaml``, bf16, N = 64 tokens)
      with the controller's stats (accepted, rejected, exhausted per phase),
      decoded;
   19. ``sample_ode_likelihood``: XL/1 euler at batch 2 with the kernels and
@@ -96,7 +96,7 @@ Phases, each fatal on failure:
      = 0 within 1e-6, and SSIM and LPIPS on the card within 1e-4 of the CPU
      with TF32 left on around the calls; images/s and each metric's seconds;
   23. VA-VAE training at full width: the f16d32 VAE of
-     ``vavae_tpu/configs/vavae_f16d32.yaml`` (its blocks written into the
+     ``vavae_tpu_torch/configs/vavae_f16d32.yaml`` (its blocks written into the
      script, ``adaptive_vf: true``, ``disc_start: 4``) with ViT-L DINOv2,
      VGG16 LPIPS and the 3-layer PatchGAN, seeded random weights: one fp32
      step (frozen nets fp32 too) at batch 2 with the discriminator's gate
@@ -112,12 +112,13 @@ Phases, each fatal on failure:
      share of a profiled window, and no attention kernel launched;
   24. ``train_vavae.main`` on phase 21's folder (16 of its images the
      validation folder) with the micro-Doppler config's model and three
-     stages cut to one epoch each, random ViT-L and LPIPS weights, image
-     grids every 4 steps: each stage's ``epoch.json``, ``best/metric.json``,
+     stages cut to one epoch each (the stage config written as YAML by
+     ``utils/yaml_io.py``), random ViT-L and LPIPS weights, image grids
+     every 4 steps: each stage's ``epoch.json``, ``best/metric.json``,
      grids and chained steps (12, 24, 36); then a relaunch with stage 3 at
      two epochs skips stages 1-2 and resumes stage 3 at epoch 1 (step 48);
   25. LoRA finetune: ``lora_finetune.main`` on the micro-Doppler DiT-S/2
-     (``vavae_tpu/configs/dit_s_microdoppler.yaml`` written into the script
+     (``vavae_tpu_torch/configs/dit_s_microdoppler.yaml`` written into the script
      with ``log_every`` 1: hidden 384, depth 12, 6 heads, 32 classes, 64
      tokens, fp32) from seeded random base weights given as a JAX-layout
      ``.msgpack`` (the legacy reader, with its RoPE-layout warning), rank
@@ -144,24 +145,25 @@ Phases, each fatal on failure:
      weights), two users (the classes the classifier predicts most often
      on a probe batch: random weights predict a few classes whatever the
      label), 2 batches of 8, confidence 0 (random weights accept almost
-     nothing at the app's 0.95), euler-250 split-CFG in place of the
-     config's dopri5 (an exact launch count): 12 × 249 #1 launches a
+     nothing at the app's 0.95), euler-50 split-CFG in place of the
+     config's dopri5 (an exact launch count): 12 × 49 #1 launches a
      batch, as many PNGs as accepted (at least one), each decoding to its
      image, the stats consistent; samples/s and the seconds of sampling,
      decode and classifier;
   28. ``quantize_dit.main`` on the production XL/1 (seeded random weights,
-     a DiT train-state file) at batch 8 with ``--sample_check 4`` (euler-250
+     a DiT train-state file) at batch 8 with ``--sample_check 4`` (euler-50
      split-CFG from the same noise with the fp and the dequantized weights)
      and ``--out``: sizes, compression, fp and dequantized forward ms, the
      output and sample deviations, #1's exact launches; ``int8_matmul`` at
      an XL/1 ``qkv`` shape, ``torch._int_mm`` on the card against the CPU's
      int32 path (accumulators equal); the int8 file read back equal;
   29. ``iterative_finetune.main`` on LightningDiT-B/2
-     (``vavae_tpu/configs/dit_b_microdoppler.yaml`` written into the script,
+     (``vavae_tpu_torch/configs/dit_b_microdoppler.yaml`` written into the script,
      fp32, N = 64) with seeded random DiT, VA-VAE and classifier files (the
      classifier's head a nearest-centroid rule between users 0 and 1, the
      two users the run iterates, fitted on one probe batch of each) and a
-     latent shard tree written here: 2 rounds × 4 steps at batch 8, 4 samples a user, confidence 0;
+     latent shard tree written here: 2 rounds × 4 steps at batch 8, 4
+     samples a user (euler-50 split-CFG), confidence 0;
      each round's seconds of generate, decode, classify, encode and train,
      the accepted counts, final losses, #1 and #2 launches a sampling call
      and a train step (exact), the saved state restored equal; then one B/2
@@ -234,7 +236,22 @@ Phases, each fatal on failure:
      the 500×375 4:2:0 fixture alone and on 8 threads, as Huffman, SOF9
      and SOF3 files, the JPEG check of
      the tree's files, the reader's batches of 1,024 against the Python
-     reference and the writer's 256² PNGs on a pool against one thread.
+     reference and the writer's 256² PNGs on a pool against one thread;
+  35. the documented commands from the port's shipped configs
+     (``vavae_tpu_torch/configs``), each through ``vavae_tpu_torch.__main__``
+     as ``python -m vavae_tpu_torch`` dispatches it, with PyYAML made
+     unimportable: (a) ``train_dit --config dit_s_microdoppler.yaml`` (the
+     config's DiT-S/2 at full width and depth, fp32, batch 16) for 4 steps
+     on seeded f16d32 shards with a checkpoint every 2, 48 #1 and 48 #2
+     launches; (b) ``sample`` from that config and (a)'s last checkpoint:
+     its dopri5 split-CFG, #1 exactly 12 × the model calls (2 + 6 k in each
+     phase), the PNGs read back; (c) ``sample --config
+     lightningdit_xl_vavae_f16d32.yaml`` with a params file of the seeded
+     XL/1 (full width and depth) written by the port's safetensors writer,
+     ``sample.per_proc_batch_size=8 sample.fid_num=8``: 6,972 #1 launches,
+     8 PNGs read back; (d) ``extract_features --config vavae_f16d32.yaml`` on
+     phase 21's seeded folder: its shards bit-equal to phase 21's fp32
+     ones (the same seeded weights and draws).
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -269,6 +286,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+import vavae_tpu_torch.__main__ as port_cli
 from vavae_tpu_torch.models import dit, layers
 from vavae_tpu_torch.models.dit import create_dit
 from vavae_tpu_torch.models.posembed import rope_2d_freqs
@@ -336,6 +354,7 @@ from vavae_tpu_torch.transport.cost import (
     fixed_grid_cost,
     split_idx,
 )
+from vavae_tpu_torch.utils import yaml_io
 from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
 from vavae_tpu_torch.utils.metrics_logger import read_events
@@ -361,8 +380,8 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-# the production config (vavae_tpu/configs/lightningdit_xl_vavae_f16d32.yaml),
-# written out so no YAML parser is needed on the card
+# the production config (vavae_tpu_torch/configs/lightningdit_xl_vavae_f16d32.yaml),
+# written out with the sampling batch cut to 8 (phase 35 runs from the file)
 PRODUCTION = {
     "data": {"image_size": 256, "num_classes": 1000, "latent_norm": True,
              "latent_multiplier": 1.0},
@@ -1260,7 +1279,7 @@ def phase_hires(seed: int, device: dict) -> dict:
 
 # -- phases 16-20: every sampler, the likelihood and FID -----------------------
 
-SAMPLER_STEPS = 50  # num_sampling_steps of phases 16, 17 and 20 (the production 250, cut)
+SAMPLER_STEPS = 50  # num_sampling_steps of phases 16, 17, 20, 28 and 29 (the production 250, cut)
 # phase 16: the fixed-grid samplers, each a ``sample:`` block over the production one
 SAMPLERS = {
     "heun": {"sampling_method": "heun"},
@@ -1272,8 +1291,8 @@ SAMPLERS = {
 ADAPTIVE = {"cache_adaptive": True, "cache_tol": 0.02, "cache_max_interval": 8}
 SDE_METHODS = ("Euler", "Heun")
 LIKELIHOOD_BATCH, LIKELIHOOD_STEPS = 2, 10
-FID_NUM = 16
-# the micro-Doppler DiT-S/2 (vavae_tpu/configs/dit_s_microdoppler.yaml), its
+FID_NUM = 8
+# the micro-Doppler DiT-S/2 (vavae_tpu_torch/configs/dit_s_microdoppler.yaml), its
 # model:, transport: and sample: blocks written out, with ``bf16: true``
 MICRODOPPLER = {
     "data": {"image_size": 256, "num_classes": 32, "latent_norm": True,
@@ -1888,12 +1907,15 @@ def phase_tokenizer_eval(seed: int, device_info: dict, work: str, vae: VA_VAE) -
     return result
 
 
-def run_tokenizer(seed: int, device_info: dict) -> dict:
-    """Phases 21-22."""
+def run_tokenizer(seed: int, device_info: dict, keep: str | None = None) -> dict:
+    """Phases 21-22. With ``keep``, phase 21's fp32 shards are copied to
+    ``keep/extract_fp32`` (for phase 35)."""
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_tokenizer_")
     try:
         extraction, vae = phase_extraction(seed, device_info, work)
+        if keep is not None:
+            shutil.copytree(os.path.join(work, "latents_fp32"), os.path.join(keep, "extract_fp32"))
         evaluation = phase_tokenizer_eval(seed, device_info, work, vae)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1905,8 +1927,8 @@ def run_tokenizer(seed: int, device_info: dict) -> dict:
 
 # -- phases 23-24: VA-VAE training ---------------------------------------------------
 
-# vavae_tpu/configs/vavae_f16d32.yaml's blocks, written out (no YAML parser
-# on the card), with the discriminator's gate at step 4 of phase 23's 8
+# vavae_tpu_torch/configs/vavae_f16d32.yaml's blocks, written out, with the
+# discriminator's gate at step 4 of phase 23's 8
 VAVAE_F16D32 = {
     "ckpt_path": None,
     "model": {"base_learning_rate": 1.0e-4, "params": {
@@ -1918,7 +1940,7 @@ VAVAE_F16D32 = {
                      "out_ch": 3, "ch": 128, "ch_mult": [1, 1, 2, 2, 4], "num_res_blocks": 2,
                      "attn_resolutions": [16], "dropout": 0.0}}},
 }
-# vavae_tpu/configs/vavae_microdoppler_finetune.yaml: its model differs from
+# vavae_tpu_torch/configs/vavae_microdoppler_finetune.yaml: its model differs from
 # the above in its loss block only; its three stages cut to one epoch each
 MICRODOPPLER_LOSS = {"kl_weight": 1.0e-6, "disc_weight": 0.5, "adaptive_vf": False,
                      "perceptual_weight": 1.0}
@@ -2175,11 +2197,10 @@ def phase_vae_entry_point(seed: int, device_info: dict, work: str, folder: str) 
     steps_per_epoch = 2 * EXTRACT_PER_CLASS // VAE_BATCH
 
     def run(stages, name):
-        cfg_path = os.path.join(work, f"{name}.json")
+        cfg_path = os.path.join(work, f"{name}.yaml")
         with open(cfg_path, "w") as f:
-            json.dump({**cfg, "stages": stages,
-                       "train": {"batch_size": VAE_BATCH,
-                                 "log_images_every": VAE_LOG_IMAGES_EVERY}}, f)
+            yaml_io.safe_dump(Config({**cfg, "stages": stages, "train": {
+                "batch_size": VAE_BATCH, "log_images_every": VAE_LOG_IMAGES_EVERY}}).to_dict(), f)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = train_vavae.main(["--base", cfg_path, "--data_path", folder, "--val_path", val,
@@ -2234,8 +2255,8 @@ def run_vae_training(seed: int, device_info: dict, keep: str | None = None,
         if keep is not None:
             shutil.copy(ckpt_lib.latest_checkpoint(os.path.join(work, "vavae", "stage3")),
                         os.path.join(keep, "vae_state.safetensors"))
-            shutil.copy(os.path.join(work, "stages_longer.json"),
-                        os.path.join(keep, "vae_config.json"))
+            shutil.copy(os.path.join(work, "stages_longer.yaml"),
+                        os.path.join(keep, "vae_config.yaml"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
@@ -2245,7 +2266,7 @@ def run_vae_training(seed: int, device_info: dict, keep: str | None = None,
 
 # -- phases 25-27: the micro-Doppler application path -----------------------------
 
-# vavae_tpu/configs/dit_s_microdoppler.yaml written out (no PyYAML on the card):
+# vavae_tpu_torch/configs/dit_s_microdoppler.yaml written out with ``log_every`` 1:
 # DiT-S/2 at full width and depth (hidden 384, depth 12, 6 heads), 32 classes
 # (31 users + the CFG null), fp32 compute as the file sets no ``bf16``
 MICRODOPPLER_APP = {
@@ -2278,7 +2299,7 @@ CLF_MODES = {            # the baseline has data.num_classes classes, as run() b
     "domain_adaptive": dict(mode="domain_adaptive", num_classes=31),
 }
 FILTER_BATCH, FILTER_BATCHES = 8, 2
-FILTER_STEPS = 250       # euler split-CFG (the production sampler): an exact launch count
+FILTER_STEPS = 50        # euler split-CFG (the production sampler, cut): an exact launch count
 
 
 def write_latent_shards(root: str, seed: int) -> None:
@@ -2731,8 +2752,8 @@ def run_microdoppler_apps(seed: int, device_info: dict) -> dict:
 # -- phases 28-30: the rest of the micro-Doppler application layer ---------------------
 
 QUANT_BATCH, QUANT_REPS, QUANT_SAMPLES = 8, 10, 4
-# LightningDiT-B/2 on micro-Doppler latents (vavae_tpu/configs/dit_b_microdoppler.yaml),
-# written out so no YAML parser is needed on the card
+# LightningDiT-B/2 on micro-Doppler latents
+# (vavae_tpu_torch/configs/dit_b_microdoppler.yaml), written out
 DIT_B_MICRODOPPLER = {
     "data": {"image_size": 256, "num_classes": 31, "latent_norm": True, "latent_multiplier": 1.0,
              "augment_training": False},
@@ -2776,6 +2797,7 @@ def phase_quantize(seed: int, device_info: dict, work: str) -> dict:
     product on the card against the CPU's at an XL/1 ``qkv`` shape; the
     written file read back."""
     cfg, model = build_xl(seed)
+    cfg = cfg.merged_with({"sample": {"num_sampling_steps": SAMPLER_STEPS}})
     ckpt = os.path.join(work, "xl.safetensors")  # the weights alone: a 2.6 GB file, not 5.2
     write_safetensors(ckpt, flatten(dit_state_to_jax(
         {k: v.detach().float().cpu() for k, v in model.state_dict().items()}), "params"))
@@ -2904,7 +2926,8 @@ def phase_iterative(seed: int, device_info: dict, work: str) -> dict:
     os.makedirs(os.path.join(root, "latents"))
     write_latent_shards(os.path.join(root, "latents"), seed + 29)
     cfg = Config(DIT_B_MICRODOPPLER).merged_with({"data": {
-        "data_path": os.path.join(root, "latents"), "num_users": ITER_USERS}})
+        "data_path": os.path.join(root, "latents"), "num_users": ITER_USERS},
+        "sample": {"num_sampling_steps": SAMPLER_STEPS}})
     dit_path, vae_path = _random_files(root, cfg, seed)
     cfg = cfg.merged_with({"ckpt_path": dit_path, "vae": {"ckpt_path": vae_path}})
     cfg_path = os.path.join(root, "dit_b_microdoppler.json")
@@ -3225,7 +3248,7 @@ def phase_autotune(seed: int, device_info: dict, work: str) -> dict:
     with open(overlay) as f:
         text = f.read()
     if doc["recommendation"]["sample_block"] != block or \
-            not text.endswith(autotune_sampler.sample_block_yaml(block)):
+            not text.endswith(yaml_io.safe_dump({"sample": block})):
         fail(f"autotune_sampler: recommended {doc['recommendation']['sample_block']}, "
              f"expected {block}; overlay {text!r}")
     for label, row in doc["methods"].items():
@@ -3440,7 +3463,7 @@ def phase_tools(seed: int, device_info: dict, work: str, autotune: dict, keep: s
     t0 = time.perf_counter()
     report = validate_export.main([
         "--split_file", split, "--vae_ckpt", vae_ckpt, "--num_users", str(CLF_USERS),
-        "--train_ckpt", vae_state, "--train_config", os.path.join(keep, "vae_config.json"),
+        "--train_ckpt", vae_state, "--train_config", os.path.join(keep, "vae_config.yaml"),
         "--vf_kind", "dinov2", "--allow_random_foundation", "--export_encoder", enc,
         "--out", rep])
     res["validate_s"] = time.perf_counter() - t0
@@ -4261,6 +4284,174 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
         f"{out['seconds']:.1f} s [{device_info['smi']}]")
     return out
 
+# -- phase 35: the commands from the shipped configs ---------------------------------------
+
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vavae_tpu_torch", "configs")
+CMD_STEPS, CMD_CKPT_EVERY = 4, 2  # (a): train_dit steps, a checkpoint every 2
+CMD_SAMPLES = 4     # (b): sample.fid_num, one batch of the config's per_proc_batch_size
+PROD_SAMPLES = 8    # (c): sample.per_proc_batch_size and sample.fid_num
+PROD_LAUNCHES = 6972  # (c): 28 blocks x 249 model calls of euler-250 split-CFG
+EXTRACT_KEYS = ("latents", "latents_flip", "labels")
+
+
+def _command(*args: str) -> float:
+    """``python -m vavae_tpu_torch <args>`` in this process (the launch
+    counters stay readable), with PyYAML made unimportable as on the card;
+    fails unless it exits 0. Returns its seconds."""
+    saved_argv, saved_yaml = sys.argv, sys.modules.get("yaml", False)
+    sys.argv = ["python -m vavae_tpu_torch", *args]
+    sys.modules["yaml"] = None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = port_cli.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        sys.argv = saved_argv
+        if saved_yaml is False:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = saved_yaml
+    if rc != 0:
+        fail(f"python -m vavae_tpu_torch {' '.join(args)}: exit {rc}")
+    return seconds
+
+
+@contextlib.contextmanager
+def _counted_model_calls(calls: list):
+    """Counts LightningDiT forwards (the sampler's model evaluations)."""
+    original = dit.LightningDiT.forward
+
+    def forward(self, *a, **kw):
+        calls[0] += 1
+        return original(self, *a, **kw)
+
+    dit.LightningDiT.forward = forward
+    try:
+        yield
+    finally:
+        dit.LightningDiT.forward = original
+
+
+def _check_samples(folder: str, n: int, size: int, what: str) -> None:
+    names = sorted(os.listdir(folder))
+    if names != [f"{i:06d}.png" for i in range(n)]:
+        fail(f"{what}: wrote {names}, expected {n} PNGs")
+    for name in names:
+        img = read_png(os.path.join(folder, name))
+        if img.shape != (size, size, 3) or img.dtype != np.uint8 or len(np.unique(img)) < 16:
+            fail(f"{what}: {name} is {img.shape} {img.dtype} with {len(np.unique(img))} values")
+
+
+def _shards(folder: str) -> dict:
+    files = sorted(f for f in os.listdir(folder) if f.startswith("latents_rank"))
+    tensors = [read_safetensors(os.path.join(folder, f))[0] for f in files]
+    return {k: np.concatenate([t[k] for t in tensors]) for k in EXTRACT_KEYS}
+
+
+def phase_commands(seed: int, device_info: dict, phase21_shards: str) -> dict:
+    """Phase 35: the documented commands through ``vavae_tpu_torch.__main__``
+    from the port's shipped configs, PyYAML blocked: (a) ``train_dit`` on the
+    micro-Doppler DiT-S/2, (b) ``sample`` (dopri5 split-CFG) from its
+    checkpoint, (c) the production XL/1 ``sample``, (d) ``extract_features``
+    with the f16d32 VA-VAE config on phase 21's folder."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_commands_")
+    out, seconds = {}, {}
+    try:
+        data = os.path.join(work, "latents")
+        write_latent_shards(data, seed)
+        micro = os.path.join(CONFIGS, "dit_s_microdoppler.yaml")
+        micro_cfg = load_config(micro)
+        depth = dit._VARIANTS[micro_cfg.model.model_type.split("-")[1].split("/")[0]]["depth"]
+        runs = os.path.join(work, "runs")
+
+        # (a) 4 steps at the config's batch, no remat: one forward and one
+        # backward of every block a step
+        reset_counts()
+        seconds["train_dit"] = _command(
+            "train_dit", "--config", micro, f"data.data_path={data}",
+            f"train.max_steps={CMD_STEPS}", f"train.ckpt_every={CMD_CKPT_EVERY}",
+            "train.log_every=1", f"train.output_dir={runs}")
+        expect_counts(counts(), {"nat_attention_fwd": CMD_STEPS * depth,
+                                 "nat_attention_bwd": CMD_STEPS * depth}, "train_dit command")
+        ckpt_dir = os.path.join(runs, micro_cfg.train.exp_name, "checkpoints")
+        ckpts = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".safetensors"))
+        if ckpts != [f"{s:07d}.safetensors" for s in range(CMD_CKPT_EVERY, CMD_STEPS + 1,
+                                                            CMD_CKPT_EVERY)]:
+            fail(f"train_dit command: checkpoints {ckpts}")
+
+        # (b) dopri5 split-CFG: 2 evaluations seed each phase, 6 each attempted step
+        calls = [0]
+        with _counted_model_calls(calls):
+            reset_counts()
+            seconds["sample_dopri5"] = _command(
+                "sample", "--config", micro, f"ckpt_path={os.path.join(ckpt_dir, ckpts[-1])}",
+                f"data.data_path={data}", f"train.output_dir={runs}",
+                f"sample.fid_num={CMD_SAMPLES}")
+        if calls[0] < 4 or (calls[0] - 4) % 6:
+            fail(f"sample (dopri5): {calls[0]} model calls, not 2 + 6k in each of two phases")
+        expect_counts(counts(), {"nat_attention_fwd": depth * calls[0]}, "sample (dopri5) command")
+        _check_samples(os.path.join(runs, f"{micro_cfg.train.exp_name}_samples"), CMD_SAMPLES,
+                       micro_cfg.data.image_size, "sample (dopri5)")
+        out["dopri5_model_calls"] = calls[0]
+
+        # (c) the production sample: XL/1 at full depth from a params file
+        prod = os.path.join(CONFIGS, "lightningdit_xl_vavae_f16d32.yaml")
+        prod_cfg = load_config(prod)
+        latent = prod_cfg.data.image_size // prod_cfg.vae.downsample_ratio
+        model = create_dit(prod_cfg.model, latent, prod_cfg.data.num_classes, device="cuda")
+        randomize_(model, seed)
+        prod_depth = model.depth
+        params = os.path.join(work, "xl_params.safetensors")
+        write_safetensors(params, {"step": np.asarray(0, np.int32), **{
+            f"params|{k}": v for k, v in flatten(dit_state_to_jax(model.state_dict())).items()}})
+        del model
+        torch.cuda.empty_cache()
+        want = prod_depth * (prod_cfg.sample.num_sampling_steps - 1)
+        if want != PROD_LAUNCHES:
+            fail(f"the production config gives {want} #1 launches, not {PROD_LAUNCHES}")
+        reset_counts()
+        seconds["sample_production"] = _command(
+            "sample", "--config", prod, f"ckpt_path={params}", f"data.data_path={data}",
+            f"sample.per_proc_batch_size={PROD_SAMPLES}", f"sample.fid_num={PROD_SAMPLES}",
+            f"train.output_dir={runs}")
+        expect_counts(counts(), {"nat_attention_fwd": want}, "production sample command")
+        _check_samples(os.path.join(runs, f"{prod_cfg.train.exp_name}_samples"), PROD_SAMPLES,
+                       prod_cfg.data.image_size, "production sample")
+
+        # (d) extract_features with the tokenizer config, as phase 21 ran it
+        folder = os.path.join(work, "images")
+        write_image_folder(folder, seed)
+        extracted = os.path.join(work, "extracted")
+        reset_counts()
+        seconds["extract_features"] = _command(
+            "extract_features", "--config", os.path.join(CONFIGS, "vavae_f16d32.yaml"),
+            "--data_path", folder, "--output_path", extracted, "--batch_size",
+            str(EXTRACT_BATCH), "--image_size", "256")
+        expect_counts(counts(), {}, "extract_features command")
+        got, want_shards = _shards(extracted), _shards(phase21_shards)
+        for k in EXTRACT_KEYS:
+            if got[k].shape != want_shards[k].shape or not np.array_equal(got[k], want_shards[k]):
+                fail(f"extract_features --config: {k} {got[k].shape} differs from phase 21's "
+                     f"{want_shards[k].shape} (the same seeded f16d32 weights)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out.update(seconds=seconds, phase_seconds=time.perf_counter() - t_phase,
+               launches={"train_dit": [CMD_STEPS * depth, CMD_STEPS * depth],
+                         "sample_dopri5": [depth * calls[0], 0],
+                         "sample_production": [PROD_LAUNCHES, 0]})
+    log(f"[commands] python -m vavae_tpu_torch from vavae_tpu_torch/configs, PyYAML blocked: "
+        f"(a) train_dit DiT-S/2 {CMD_STEPS} steps {seconds['train_dit']:.1f} s "
+        f"({CMD_STEPS * depth} #1 / {CMD_STEPS * depth} #2); (b) sample dopri5 "
+        f"{CMD_SAMPLES} images {seconds['sample_dopri5']:.1f} s ({calls[0]} model calls, "
+        f"{depth * calls[0]} #1); (c) production XL/1 sample {PROD_SAMPLES} images "
+        f"{seconds['sample_production']:.1f} s ({PROD_LAUNCHES} #1); (d) extract_features "
+        f"{seconds['extract_features']:.1f} s, shards equal to phase 21's; phase 35 "
+        f"{out['phase_seconds']:.1f} s [{device_info['smi']}]")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4289,22 +4480,21 @@ def main(argv=None) -> int:
     no_rope = phase_no_rope(SEED)
     hires = phase_hires(SEED, device)
     samplers = run_samplers(SEED, device)
-    tokenizer = run_tokenizer(SEED, device)
     keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
     io_work = tempfile.mkdtemp(prefix="chip_smoke_io_")
     try:
+        tokenizer = run_tokenizer(SEED, device, keep)
         imagenet_root = os.path.join(io_work, "imagenet")
         manifest = write_imagenet_tree(imagenet_root)
-        try:
-            vae_training = run_vae_training(SEED, device, keep, imagenet_root)
-            apps = run_microdoppler_apps(SEED, device)
-            tools = run_tools(SEED, device, keep)
-        finally:
-            shutil.rmtree(keep, ignore_errors=True)
+        vae_training = run_vae_training(SEED, device, keep, imagenet_root)
+        apps = run_microdoppler_apps(SEED, device)
+        tools = run_tools(SEED, device, keep)
         multidevice = run_multidevice(SEED, device)
         data_io = phase_imagenet(SEED, device, io_work, imagenet_root, manifest)
         data_io["vae"] = vae_training["train"].pop("imagenet")
+        commands = phase_commands(SEED, device, os.path.join(keep, "extract_fp32"))
     finally:
+        shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(io_work, ignore_errors=True)
 
     line = {"kernels": [
@@ -4327,10 +4517,10 @@ def main(argv=None) -> int:
                        "production": production, "qknorm": qknorm, "no_rope": no_rope,
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
                        "vae_training": vae_training, "apps": apps, "tools": tools,
-                       "multidevice": multidevice, "data_io": data_io,
+                       "multidevice": multidevice, "data_io": data_io, "commands": commands,
                        "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-34: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-35: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

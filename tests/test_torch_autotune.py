@@ -23,6 +23,7 @@ import yaml
 
 from test_torch_common import one_thread, randomize  # noqa: F401
 from vavae_tpu_torch.apps import autotune_sampler as port_at
+from vavae_tpu_torch.utils import yaml_io
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -235,5 +236,7 @@ def test_full_ladder_matches_jax(setup, tmp_path, monkeypatch, floor, gated):
      "x": 0.0001, "y": 2.5e-08, "z": -3.0},
 ])
 def test_sample_block_yaml_matches_pyyaml(block):
-    assert port_at.sample_block_yaml(block) == yaml.safe_dump({"sample": block}, sort_keys=False)
-    assert yaml.safe_load(port_at.sample_block_yaml(block)) == {"sample": block}
+    """The overlay's ``sample:`` block, as ``autotune_sampler.main`` writes it."""
+    text = yaml_io.safe_dump({"sample": block})
+    assert text == yaml.safe_dump({"sample": block}, sort_keys=False)
+    assert yaml.safe_load(text) == {"sample": block} == yaml_io.safe_load(text)

@@ -10,6 +10,7 @@ to rounding.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import zlib
@@ -214,9 +215,9 @@ def _port_sources():
 def test_port_imports_nothing_of_jax():
     """No source of the port, and not ``chip_smoke.py``, names jax, flax,
     msgpack or the JAX package, and the whole package imports with those
-    made unimportable, and with PIL, sklearn and matplotlib too (the card's
-    machine lacks them: the port imports them only inside the functions
-    that need them)."""
+    made unimportable, and with PIL, sklearn, matplotlib and PyYAML too (the
+    card's machine lacks them: the port imports the first three only inside
+    the functions that need them, and never PyYAML)."""
     bad = ("import jax", "from jax", "import flax", "from flax", "import msgpack",
            "from msgpack", "vavae_tpu.", "import vavae_tpu\n")
     for path in _port_sources() + [REPO / "chip_smoke.py"]:
@@ -245,7 +246,7 @@ def test_port_imports_nothing_of_jax():
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vavae_tpu', 'PIL',\n"
-        "                                  'sklearn', 'matplotlib', 'msgpack'):\n"
+        "                                  'sklearn', 'matplotlib', 'msgpack', 'yaml'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib\n"
@@ -257,6 +258,21 @@ def test_port_imports_nothing_of_jax():
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
+
+
+def test_port_needs_no_pyyaml_and_no_jax_configs():
+    """No source of the port, and not ``chip_smoke.py``, imports PyYAML (the
+    port reads and writes YAML with ``utils/yaml_io.py``), and no file of the
+    port's package names a path under the JAX package's configs: the port
+    ships its own (``vavae_tpu_torch/configs``)."""
+    imports_yaml = re.compile(r"^\s*(import|from)\s+yaml\b", re.M)
+    for path in _port_sources() + [REPO / "chip_smoke.py"]:
+        assert not imports_yaml.search(path.read_text()), f"{path.relative_to(REPO)} imports yaml"
+    files = [p for p in (REPO / "vavae_tpu_torch").rglob("*")
+             if p.is_file() and p.suffix in (".py", ".yaml", ".cu", ".cuh", ".cpp", ".md")]
+    assert len([p for p in files if p.suffix == ".yaml"]) == 10
+    for path in files + [REPO / "chip_smoke.py"]:
+        assert "vavae_tpu/configs" not in path.read_text(), f"{path.relative_to(REPO)}"
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     """Without a GPU the entry points raise unless device='cpu' is passed."""

@@ -22,7 +22,7 @@ Costs are CFG-forward equivalents (``transport/cost.py``). The noise of
 batch b is drawn from a generator seeded 1000 + b (the probe uses batch
 0's), on the card unless ``--device cpu``; ``autotune`` takes the noise
 batches as an argument. Outputs: the evidence table, the ``sample:`` block
-(YAML, emitted here without PyYAML), the JSON evidence (``--out``) and
+(YAML, written by ``utils/yaml_io.py``), the JSON evidence (``--out``) and
 the block as an overlay file (``--emit_yaml``) that ``load_config(cfg,
 overlay)`` merges.
 """
@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import sys
 import time
 from typing import Optional, Sequence
@@ -41,6 +40,7 @@ import torch
 
 from vavae_tpu_torch.eval.fid import activation_statistics, frechet_distance
 from vavae_tpu_torch.transport.cost import adaptive_cache_cost, fixed_grid_cost
+from vavae_tpu_torch.utils import yaml_io
 
 # ``sample:`` keys carried from the user's config into the recommendation
 CARRIED = ("mode", "cfg_scale", "timestep_shift", "cfg_interval_start", "cfg_channels",
@@ -97,39 +97,6 @@ def ladder(smoke: bool, accel_exercised: bool, ref_steps: int,
                for k in (3, 6)]
             + [(f"vcacheA_tol{t:g}", {"kind": "vcacheA", "num_steps": ref_steps, "tol": t,
                                       "max_interval": 8}) for t in tol_cands])
-
-
-_PLAIN = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\Z")
-_YAML_WORDS = {"yes", "no", "true", "false", "on", "off", "null"}  # PyYAML's bools and null
-
-
-def _yaml_scalar(v) -> str:
-    """A scalar as PyYAML's ``safe_dump`` writes it (the block's value
-    types: bool, int, float, None and identifier-like strings)."""
-    if v is None:
-        return "null"
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if isinstance(v, int):
-        return str(v)
-    if isinstance(v, float):
-        if v != v:
-            return ".nan"
-        if v in (float("inf"), float("-inf")):
-            return ".inf" if v > 0 else "-.inf"
-        s = repr(v).lower()
-        return s.replace("e", ".0e", 1) if "." not in s and "e" in s else s
-    if isinstance(v, str):
-        if _PLAIN.match(v) and v.lower() not in _YAML_WORDS:
-            return v
-        return "'" + v.replace("'", "''") + "'"
-    raise TypeError(f"no YAML form for {type(v).__name__} {v!r}")
-
-
-def sample_block_yaml(block: dict) -> str:
-    """``yaml.safe_dump({"sample": block}, sort_keys=False)`` for a flat
-    block of scalars."""
-    return "sample:\n" + "".join(f"  {k}: {_yaml_scalar(v)}\n" for k, v in block.items())
 
 
 def autotune(cfg, model, noise: Sequence, *, budget: float = 0.01, ref_steps: int = 250,
@@ -330,8 +297,8 @@ def main(argv=None) -> int:
     out = args.out or "autotune_sampler.json"
     with open(out, "w") as f:
         json.dump(doc, f, indent=2)
-    verdict, yaml_block = doc["recommendation"]["verdict"], sample_block_yaml(
-        doc["recommendation"]["sample_block"])
+    verdict = doc["recommendation"]["verdict"]
+    yaml_block = yaml_io.safe_dump({"sample": doc["recommendation"]["sample_block"]})
     print(f"\n[autotune] VERDICT: {verdict}")
     print("[autotune] recommended config block:\n" + yaml_block, flush=True)
     print(f"[autotune] evidence -> {out}")

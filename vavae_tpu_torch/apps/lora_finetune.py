@@ -12,7 +12,8 @@ the card unless ``--device cpu`` is passed; under torchrun (or the JAX
 package's ``JAX_*`` variables) the processes train data-parallel, each
 reading its rows of the global batch, and process 0 writes the files.
 
-    python -m vavae_tpu_torch.apps.lora_finetune --config vavae_tpu/configs/dit_s_microdoppler.yaml \\
+    python -m vavae_tpu_torch.apps.lora_finetune \\
+        --config vavae_tpu_torch/configs/dit_s_microdoppler.yaml \\
         --base_ckpt dit.safetensors --rank 8 --alpha 16 --steps 2000
 """
 from __future__ import annotations

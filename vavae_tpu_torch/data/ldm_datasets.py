@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from vavae_tpu_torch.data.image_folder import ImageFolderDataset
+from vavae_tpu_torch.utils import yaml_io
 from vavae_tpu_torch.utils.pil_resize import resize_uint8
 from vavae_tpu_torch.utils.png import read_image_rgb
 
@@ -147,10 +148,8 @@ class ImageNetBase(ImageFolderDataset):
         synsets = [p.split(os.sep)[0].split("/")[0] for p in relpaths]
         uniq = sorted(set(synsets))
         if keep_orig_class_label:
-            import yaml  # only for the canonical indices
-
             with open(os.path.join(data_root, "index_synset.yaml")) as f:
-                idx2syn = yaml.safe_load(f)
+                idx2syn = yaml_io.safe_load(f)
             syn2idx = {v: k for k, v in idx2syn.items()}
             class_of = {s: syn2idx[s] for s in uniq}
         else:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from vavae_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, vae_from_ddconfig
+from vavae_tpu_torch.utils import yaml_io
 from vavae_tpu_torch.utils.device import full_fp32, resolve_device
 from vavae_tpu_torch.utils.pil_resize import resize_uint8
 from vavae_tpu_torch.utils.weights import lecun_normal_
@@ -96,10 +97,8 @@ class VA_VAE:
         self.dtype = dtype
         ddconfig = None
         if config is not None:
-            import yaml
-
             with open(config) as f:
-                cfg = yaml.safe_load(f)
+                cfg = yaml_io.safe_load(f)
             embed_dim = cfg["model"]["params"]["embed_dim"]
             # the config wins only when it names a checkpoint
             ckpt_path = cfg.get("ckpt_path") or ckpt_path

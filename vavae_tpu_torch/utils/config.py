@@ -1,16 +1,17 @@
 """Config: YAML load + dot-path overrides + attribute access.
 
-Port of ``vavae_tpu/utils/config.py``. PyYAML is imported only inside the
-functions that parse YAML, so code that builds a ``Config`` from a dict, or
-loads a ``.json`` config without overrides, runs where PyYAML is not
-installed. Override values are always parsed as YAML, as in the JAX
-package, so they need PyYAML.
+Port of ``vavae_tpu/utils/config.py``. YAML is read and written by the
+port's own ``utils/yaml_io.py`` (PyYAML is not needed, and not used where
+it is installed); a ``.json`` base is read with ``json``. Override values
+are parsed as YAML, as in the JAX package.
 """
 from __future__ import annotations
 
 import copy
 import json
 from typing import Any, Iterable, Mapping
+
+from vavae_tpu_torch.utils import yaml_io
 
 
 class Config(dict):
@@ -59,8 +60,6 @@ class Config(dict):
 
     def override(self, dotlist: Iterable[str]) -> "Config":
         """Apply ``key.path=value`` overrides (values parsed as YAML)."""
-        import yaml
-
         out = copy.deepcopy(self)
         for item in dotlist:
             key, _, raw = item.partition("=")
@@ -70,8 +69,18 @@ class Config(dict):
                 if p not in node or not isinstance(node[p], Config):
                     node[p] = Config()
                 node = node[p]
-            node[parts[-1]] = yaml.safe_load(raw)
+            node[parts[-1]] = yaml_io.safe_load(raw)
         return out
+
+    def to_dict(self) -> dict:
+        def unwrap(v: Any) -> Any:
+            if isinstance(v, Config):
+                return {k: unwrap(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return type(v)(unwrap(x) for x in v)
+            return v
+
+        return unwrap(self)
 
 
 def _merge_into(dst: Config, src: Mapping[str, Any]) -> None:
@@ -88,16 +97,16 @@ def load_config(*paths: str, overrides: Iterable[str] = ()) -> Config:
     cfg = Config()
     for p in paths:
         with open(p) as f:
-            if p.endswith(".json"):
-                data = json.load(f)
-            else:
-                import yaml
-
-                data = yaml.safe_load(f) or {}
+            data = json.load(f) if p.endswith(".json") else yaml_io.safe_load(f) or {}
         cfg = cfg.merged_with(data)
     if overrides:
         cfg = cfg.override(overrides)
     return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    with open(path, "w") as f:
+        yaml_io.safe_dump(cfg.to_dict(), f, sort_keys=False)
 
 
 def num_real_users(cfg: Config) -> int:
