@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``vavae_tpu_torch``).
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --phase36 [--out results.json]   # phases 1 and 36 alone
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
@@ -234,7 +235,7 @@ Phases, each fatal on failure:
      width, depth 2, euler-50) through the threaded PNG writer, each file
      decoding to its image, #1 counted; the host rates: decode images/s of
      the 500×375 4:2:0 fixture alone and on 8 threads, as Huffman, SOF9
-     and SOF3 files, the JPEG check of
+     and SOF3 files, ``extract``'s image check (``refused_images``) of
      the tree's files, the reader's batches of 1,024 against the Python
      reference and the writer's 256² PNGs on a pool against one thread;
   35. the documented commands from the port's shipped configs
@@ -252,6 +253,27 @@ Phases, each fatal on failure:
      8 PNGs read back; (d) ``extract_features --config vavae_f16d32.yaml`` on
      phase 21's seeded folder: its shards bit-equal to phase 21's fp32
      ones (the same seeded weights and draws).
+  36. with PIL, scikit-learn and matplotlib made unimportable: (a) every
+     committed WebP and BMP fixture (``tests/data/webp``, ``tests/data/bmp``)
+     through ``read_image_rgb`` (the WebP ones with alpha also as RGBA)
+     bit-equal to PIL's committed decodes, and the WebP decode rate of the
+     256×341 lossy fixture (LSUN's shape) and of a 160×96 lossless one,
+     alone and on 8 threads; (b) an LSUN tree of 256 WebP files with its txt
+     filelist through ``LSUNBase`` and its ``batches`` at 256², then
+     ``extract`` over it with the f16d32 VA-VAE, once to warm the path and
+     once timed: images/s, and the seconds its loader thread spent in
+     ``read_image_rgb`` over its wall time (a small tree: a smoke reading,
+     not a workload's rate); (c) ``plot_tsne_visualization`` of 10,000 seeded latent
+     pixels of 32 channels, the t-SNE on the card: seconds, final KL,
+     normalised entropy and Gini, the PNG read back by the port's reader
+     (its size, the drawing of the embedding, ink at every point); and the
+     t-SNE of 1,000 of them on the card against the host: tightly, the
+     gradient and KL at the same P and positions (at the init and at the
+     host's final layout) within ``TSNE_GRAD_TOL`` and the first
+     ``TSNE_TIGHT_ITERS`` iterations from the same init within
+     ``TSNE_ITER_TOL``; of the whole run, where the iterations are chaotic
+     and the layouts part, the final KL, normalised entropy, Gini and
+     10-neighbour agreement within ``TSNE_TOL``.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -329,7 +351,14 @@ from vavae_tpu_torch.data.image_folder import (
     SplitFileDataset,
 )
 from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
-from vavae_tpu_torch.data.ldm_datasets import ImageNetTrain, ImageNetValidation
+from vavae_tpu_torch.data.ldm_datasets import ImageNetTrain, ImageNetValidation, LSUNBase
+from vavae_tpu_torch.eval import latent_vis
+from vavae_tpu_torch.eval.latent_vis import (
+    calculate_uniformity_metrics,
+    plot_tsne_visualization,
+    render_scatter,
+    sample_latent_pixels,
+)
 from vavae_tpu_torch.eval.metrics import ssim
 from vavae_tpu_torch.models import lpips as lpips_mod
 from vavae_tpu_torch.models.lpips import LPIPS, init_lpips_weights, load_lpips
@@ -337,6 +366,7 @@ from vavae_tpu_torch.models.vit import FoundationModel
 from vavae_tpu_torch.pipelines import evaluate_tokenizer as teval
 from vavae_tpu_torch.pipelines import train_vavae
 from vavae_tpu_torch.pipelines.evaluate_tokenizer import evaluate_tokenizer
+from vavae_tpu_torch.pipelines import extract_features
 from vavae_tpu_torch.pipelines.extract_features import extract, iter_batches, list_image_folder
 from vavae_tpu_torch.pipelines import sample as sample_mod
 from vavae_tpu_torch.pipelines.sample import build_sample_fn, do_sample, load_dit_params
@@ -359,8 +389,9 @@ from vavae_tpu_torch.utils.config import Config, load_config
 from vavae_tpu_torch.utils.device_timing import device_kernels, device_ms, time_ms
 from vavae_tpu_torch.utils.metrics_logger import read_events
 from vavae_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
-from vavae_tpu_torch.utils.jpeg import decode_jpeg, refused_jpegs
-from vavae_tpu_torch.utils.png import read_image_rgb, read_png, write_pngs
+from vavae_tpu_torch.utils.jpeg import decode_jpeg
+from vavae_tpu_torch.utils.png import read_image_rgb, read_png, refused_images, write_pngs
+from vavae_tpu_torch.utils.webp import decode_webp
 from vavae_tpu_torch.utils.safetensors_io import (
     flatten,
     read_safetensors,
@@ -4078,8 +4109,8 @@ def _rate_shards(work: str) -> str:
 
 def _host_rates(work: str, shards: str, tree: list, images: np.ndarray) -> dict:
     """The host side: decode images/s of the 500×375 4:2:0 fixture alone and
-    on IO_POOL threads; files/s of the JPEG check over ``tree`` (as
-    ``extract`` runs it, on 8 threads); the shard reader's batches of
+    on IO_POOL threads; files/s of ``extract``'s image check over ``tree``
+    (``refused_images``, on 8 threads); the shard reader's batches of
     IO_READER_BATCH against the Python reference; the writer's PNGs of
     ``images`` on a pool and on one thread."""
     with open(os.path.join(JPEG_FIXTURES, RATE_FIXTURE), "rb") as f:
@@ -4095,7 +4126,7 @@ def _host_rates(work: str, shards: str, tree: list, images: np.ndarray) -> dict:
         with ThreadPoolExecutor(IO_POOL) as pool:
             out[f"decode_{key}_pool_images_per_s"] = _rate(
                 lambda: list(pool.map(decode_jpeg, [coded] * IO_DECODE_N)), 1) * IO_DECODE_N
-    out["check_files_per_s"] = _rate(lambda: refused_jpegs(tree), 1) * len(tree)
+    out["check_files_per_s"] = _rate(lambda: refused_images(tree), 1) * len(tree)
 
     per_epoch = IO_READER_ROWS // IO_READER_BATCH
     ds = ImgLatentDataset(shards)
@@ -4275,7 +4306,7 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
         f"alone, {r['decode_pool_images_per_s']:.1f} on {IO_POOL} threads; as SOF9 "
         f"{r['decode_sof9_images_per_s']:.1f} alone, {r['decode_sof9_pool_images_per_s']:.1f} "
         f"on {IO_POOL}; as SOF3 {r['decode_sof3_images_per_s']:.1f} alone, "
-        f"{r['decode_sof3_pool_images_per_s']:.1f} on {IO_POOL}; JPEG check "
+        f"{r['decode_sof3_pool_images_per_s']:.1f} on {IO_POOL}; image check "
         f"{r['check_files_per_s']:.1f} files/s of the tree; reader "
         f"{r['reader_native_batches_per_s']:.2f} batches/s of {IO_READER_BATCH} (Python "
         f"reference {r['reader_python_batches_per_s']:.2f}); writer "
@@ -4453,9 +4484,307 @@ def phase_commands(seed: int, device_info: dict, phase21_shards: str) -> dict:
     return out
 
 
+# -- phase 36: WebP and BMP images, the latent t-SNE and its plot -------------------------
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+LSUN_FILES, LSUN_BATCH, LSUN_SHARD = 256, 32, 128  # the LSUN tree at 256² (f16d32 VA-VAE)
+DECODE_REPS, DECODE_POOL = 64, 8
+TSNE_LATENTS = (40, 16, 16, 32)  # 10,240 latent pixels of 32 channels
+TSNE_N, TSNE_CHECK_N = 10000, 1000
+# The card's and the host's float64 t-SNE differ by rounding only, but the
+# 1,000 iterations are chaotic: twelve host runs of 1,000 of these latent
+# pixels whose inits differ by 1e-14 to 1e-13 relative end in other layouts
+# (10-neighbour agreement 0.37-0.48), their final KL within 2.1% of each
+# other, normalised entropy 0.0076, Gini 0.022 (sixteen runs of 400 points:
+# 3.2%, 0.0062, 0.0099). The limits are about two and a half times those,
+# on what the layout does not change.
+TSNE_TOL = {"kl": 0.08, "normalized_entropy": 0.02, "gini": 0.05, "neighbours": 0.25}
+# Before chaos sets in the card and the host agree to rounding: one gradient
+# (max-abs, relative to its largest entry) and KL at the same P and
+# positions, and the positions after the first iterations of the
+# exaggerated stage from the same init. On the host, the rounding of
+# another row chunking moves the gradient by 3e-16 and the positions by
+# 2e-15 after 25 iterations (at N = 400: 1e-11 after 25, 1e-6 after 50);
+# the card moved them by 4e-10 after 50.
+TSNE_GRAD_TOL, TSNE_TIGHT_ITERS, TSNE_ITER_TOL = 1e-10, 25, 1e-8
+
+
+@contextlib.contextmanager
+def _unimportable(*names: str):
+    """``names`` made unimportable, as the card's machine has none of them."""
+    saved = {n: sys.modules.get(n, False) for n in names}
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n, m in saved.items():
+            if m is False:
+                del sys.modules[n]
+            else:
+                sys.modules[n] = m
+
+
+def _check_webp_bmp_fixtures() -> dict:
+    """Every committed WebP and BMP fixture through ``read_image_rgb`` (and
+    the WebP ones with alpha as RGBA) against PIL's committed decodes."""
+    out = {}
+    for kind in ("webp", "bmp"):
+        folder = os.path.join(DATA, kind)
+        want = np.load(os.path.join(folder, "expected.npz"))
+        names = sorted(f for f in os.listdir(folder) if f.endswith("." + kind))
+        for name in names:
+            stem, path = name[:-len(kind) - 1], os.path.join(folder, name)
+            if not np.array_equal(read_image_rgb(path), want[stem]):
+                fail(f"{kind} fixture {name}: the decode differs from PIL's")
+            if stem + "__rgba" in want.files:
+                with open(path, "rb") as f:
+                    if not np.array_equal(decode_webp(f.read(), path, alpha=True),
+                                          want[stem + "__rgba"]):
+                        fail(f"webp fixture {name}: the RGBA decode differs from PIL's")
+        out[kind] = len(names)
+    return out
+
+
+def _webp_rates() -> dict:
+    """Decodes a second of the LSUN-shaped lossy fixture (256×341) and of a
+    lossless one (160×96), alone and on a pool of threads."""
+    out = {}
+    for key, name in (("lossy_256x341", "lossy_lsun_256x341.webp"),
+                      ("lossless_160x96", "lossless_q100_m6.webp")):
+        with open(os.path.join(DATA, "webp", name), "rb") as f:
+            data = f.read()
+        decode_webp(data)
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            decode_webp(data)
+        alone = DECODE_REPS / (time.perf_counter() - t0)
+        with ThreadPoolExecutor(DECODE_POOL) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(decode_webp, [data] * (DECODE_REPS * DECODE_POOL)))
+            pooled = DECODE_REPS * DECODE_POOL / (time.perf_counter() - t0)
+        out[key] = {"alone": alone, f"threads_{DECODE_POOL}": pooled}
+    return out
+
+
+def _lsun_tree(root: str) -> list:
+    """An LSUN tree as the LDM layout holds it: ``churches/<key>.webp`` files
+    as LSUN's export writes them (the committed lossy, lossless, alpha and
+    animated fixtures, the LSUN-shaped one most often) and its txt filelist
+    of paths under ``root``, which ``extract`` reads as one class."""
+    stems = ["lossy_lsun_256x341"] * 4 + ["lossy_q95_m0", "lossless_photo_q75", "lossy_alpha_pil",
+                                          "anim_lossy_offset", "vp8x_icc_exif", "lossy_4_segments"]
+    os.makedirs(os.path.join(root, "churches"))
+    names = []
+    for k in range(LSUN_FILES):
+        name = f"churches/{k:040x}.webp"
+        shutil.copy(os.path.join(DATA, "webp", stems[k % len(stems)] + ".webp"),
+                    os.path.join(root, name))
+        names.append(name)
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return names
+
+
+def _tsne_png_check(emb: np.ndarray, metrics: dict, path: str) -> None:
+    """The scatter PNG read back: 900×900, equal to the drawing of ``emb``,
+    inked at every marker's centre, white away from the markers."""
+    img = read_png(path)
+    title = f"entropy={metrics['normalized_entropy']:.3f} gini={metrics['gini']:.3f}"
+    if img.shape != (900, 900, 3) or not np.array_equal(img, render_scatter(emb, title)):
+        fail(f"t-SNE plot: {img.shape} read back, not the drawing of the embedding")
+    (x0, x1), (y0, y1) = latent_vis._limits(emb[:, 0]), latent_vis._limits(emb[:, 1])
+    cx = np.floor(112.5 + (emb[:, 0] - x0) / (x1 - x0) * 697.5 + 0.5).astype(int)
+    cy = np.floor(801.0 - (emb[:, 1] - y0) / (y1 - y0) * 693.0 + 0.5).astype(int)
+    near = np.zeros((900, 900), bool)
+    for dy in range(-3, 4):
+        for dx in range(-3, 4):
+            near[np.clip(cy + dy, 0, 899), np.clip(cx + dx, 0, 899)] = True
+    inner = np.zeros((900, 900), bool)
+    inner[112:797, 117:806] = True
+    if not (img[cy, cx, 0] < 255).all() or (img[inner & ~near] != 255).any():
+        fail("t-SNE plot: markers missing at the embedding's points, or ink away from them")
+
+
+def _tsne_tight(pixels: np.ndarray, host_final: np.ndarray, seed: int) -> dict:
+    """The t-SNE's steps on the card against the host where rounding alone
+    parts them: P; the gradient and KL with the host's P at the init, and
+    at ``host_final`` with P exaggerated (there P itself is near balance,
+    its gradient the small difference of two large terms); and the
+    positions after ``TSNE_TIGHT_ITERS`` exaggerated iterations from the
+    init."""
+    from vavae_tpu_torch.eval import tsne as T
+
+    n = len(pixels)
+    ph = T.joint_probabilities(torch.as_tensor(pixels))
+    pc = T.joint_probabilities(torch.as_tensor(pixels, device="cuda"))
+    if not (torch.equal(pc[0].cpu(), ph[0]) and torch.equal(pc[1].cpu(), ph[1])):
+        fail("t-SNE: the card's P has other entries than the host's")
+    out = {"p": float((pc[2].cpu() - ph[2]).abs().max() / ph[2].abs().max())}
+    xh = (ph[0], ph[1], ph[2] * T.EARLY_EXAGGERATION)
+    pc, xc = tuple(t.cuda() for t in ph), tuple(t.cuda() for t in xh)
+    y0 = torch.as_tensor(T.pca_init(pixels, seed).astype(np.float64))
+    for key, y, p_host, p_card in (("init", y0, ph, pc),
+                                   ("final", torch.as_tensor(host_final), xh, xc)):
+        eh, gh = T.kl_gradient(y, p_host)
+        ec, gc = T.kl_gradient(y.cuda(), p_card)
+        out[f"grad_{key}"] = float((gc.cpu() - gh).abs().max() / gh.abs().max())
+        out[f"kl_{key}"] = abs(ec - eh) / abs(eh)
+    lr = max(n / T.EARLY_EXAGGERATION / 4, 50.0)
+    args = (0, TSNE_TIGHT_ITERS, 0.5, lr, T.EXPLORATION_ITERS)
+    yh = T._gradient_descent(y0, xh, *args)[0]
+    yc = T._gradient_descent(y0.cuda(), xc, *args)[0]
+    out["iterates"] = float((yc.cpu() - yh).abs().max() / yh.abs().max())
+    for key, value in out.items():
+        if not value <= (TSNE_ITER_TOL if key == "iterates" else TSNE_GRAD_TOL):
+            fail(f"t-SNE at N = {n}: the card against the host before chaos, {key} {value:.3g}")
+    return out
+
+
+def _neighbour_agreement(a: np.ndarray, b: np.ndarray, k: int = 10) -> float:
+    """The share of each point's k nearest neighbours in ``a`` that are
+    among them in ``b``, averaged."""
+    def knn(e):
+        d = ((e[:, None] - e[None]) ** 2).sum(-1)
+        np.fill_diagonal(d, np.inf)
+        return np.argsort(d, 1)[:, :k]
+
+    ka, kb = knn(a), knn(b)
+    return float(np.mean([len(set(ka[i]) & set(kb[i])) / k for i in range(len(a))]))
+
+
+def phase_images_tsne(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 36, with PIL, scikit-learn and matplotlib unimportable: (a) the
+    WebP and BMP fixtures against PIL's committed decodes, and WebP decode
+    rates; (b) an LSUN tree of WebP files through ``LSUNBase``, its
+    ``batches`` and ``extract`` with the f16d32 VA-VAE; (c)
+    ``plot_tsne_visualization`` of 10,000 latent pixels on the card, and the
+    t-SNE on the card against the host at N = 1,000."""
+    t_phase = time.perf_counter()
+    out = {}
+    with _unimportable("PIL", "sklearn", "matplotlib"):
+        out["fixtures"] = _check_webp_bmp_fixtures()
+        out["webp_per_s"] = _webp_rates()
+
+        # (b) LSUN of WebP files: items, batches, extraction
+        root = os.path.join(work, "lsun")
+        names = _lsun_tree(root)
+        ds = LSUNBase(txt_file=os.path.join(root, "list.txt"), data_root=root, size=256,
+                      flip_p=0.0)
+        if len(ds) != LSUN_FILES or ds.items[0][0] != os.path.join(root, names[0]):
+            fail(f"LSUNBase over the WebP filelist: {len(ds)} items")
+        seen = 0
+        for i, (x, y) in enumerate(ds.batches(LSUN_BATCH, shuffle=False, epochs=1)):
+            if x.shape != (LSUN_BATCH, 256, 256, 3) or not np.isfinite(x).all() or abs(x).max() > 1:
+                fail(f"LSUN batch {i}: {x.shape}")
+            if not np.array_equal(x[0], ds[i * LSUN_BATCH][0]):
+                fail(f"LSUN batch {i}: its first item differs from the dataset's")
+            seen += len(x)
+        if seen != LSUN_FILES:
+            fail(f"LSUN batches gave {seen} items for {LSUN_FILES}")
+        vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device="cuda")
+        extract(root, os.path.join(work, "lsun_warm"), vae, batch_size=LSUN_BATCH,
+                image_size=256, shard_size=LSUN_SHARD, seed=seed)  # the path warmed
+        shards = os.path.join(work, "lsun_latents")
+        reader, decode_s = extract_features.read_image_rgb, [0.0]
+
+        def timed_reader(path):
+            t = time.perf_counter()
+            img = reader(path)
+            decode_s[0] += time.perf_counter() - t
+            return img
+
+        extract_features.read_image_rgb = timed_reader
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            extract(root, shards, vae, batch_size=LSUN_BATCH, image_size=256,
+                    shard_size=LSUN_SHARD, seed=seed)
+            torch.cuda.synchronize()
+            extract_s = time.perf_counter() - t0
+        finally:
+            extract_features.read_image_rgb = reader
+        expect_counts(counts(), {}, "extraction over the LSUN tree")
+        del vae
+        torch.cuda.empty_cache()
+        got = _shards(shards)
+        if got["latents"].shape != (LSUN_FILES, 32, 16, 16) or not np.isfinite(got["latents"]).all():
+            fail(f"extraction over the LSUN tree: latents {got['latents'].shape}")
+        out["lsun_extract"] = {"images": LSUN_FILES, "seconds": extract_s,
+                               "images_per_s": LSUN_FILES / extract_s,
+                               "decode_seconds_in_extract": decode_s[0],
+                               "decode_share_in_extract": decode_s[0] / extract_s}
+
+        # (c) the t-SNE plot on the card, and the card against the host
+        lat = np.random.default_rng(seed).standard_normal(TSNE_LATENTS).astype(np.float32)
+        lat[..., :4] *= 2.0  # a few dominant channels
+        kls = []
+        tsne_fn = latent_vis.tsne
+
+        def recording(*a, **kw):
+            emb, kl = tsne_fn(*a, **kw)
+            kls.append(kl)
+            return emb, kl
+
+        latent_vis.tsne = recording
+        png = os.path.join(work, "tsne.png")
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb, metrics = plot_tsne_visualization(lat, png, num_samples=TSNE_N, seed=seed,
+                                                   device="cuda")
+            torch.cuda.synchronize()
+            tsne_s = time.perf_counter() - t0
+        finally:
+            latent_vis.tsne = tsne_fn
+        expect_counts(counts(), {}, "the t-SNE")
+        if emb.shape != (TSNE_N, 2) or not np.isfinite(emb).all() or not np.isfinite(kls[0]):
+            fail(f"t-SNE: embedding {emb.shape}, KL {kls[0]}")
+        _tsne_png_check(emb, metrics, png)
+        pixels = sample_latent_pixels(lat, TSNE_CHECK_N, seed)
+        t0 = time.perf_counter()
+        card, card_kl = tsne_fn(pixels, seed=seed, device="cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, host_kl = tsne_fn(pixels, seed=seed, device="cpu")
+        host_s = time.perf_counter() - t0
+        tight = _tsne_tight(pixels, host, seed)
+        mc, mh = calculate_uniformity_metrics(card), calculate_uniformity_metrics(host)
+        dev = {"kl": abs(card_kl - host_kl) / abs(host_kl),
+               "normalized_entropy": abs(mc["normalized_entropy"] - mh["normalized_entropy"]),
+               "gini": abs(mc["gini"] - mh["gini"]),
+               "neighbours": _neighbour_agreement(card, host),
+               "embedding": float(np.abs(card - host).max() / np.abs(host).max())}
+        for key, tol in TSNE_TOL.items():
+            if not (dev[key] >= tol if key == "neighbours" else dev[key] <= tol):
+                fail(f"t-SNE at N = {TSNE_CHECK_N}: the card against the host, {key} "
+                     f"{dev[key]:.3g} (limit {tol})")
+        out["tsne"] = {"n": TSNE_N, "seconds": tsne_s, "kl": kls[0], **metrics,
+                       "check_n": TSNE_CHECK_N, "card_seconds": card_s, "host_seconds": host_s,
+                       "card_vs_host": dev, "card_vs_host_tight": tight}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    rates, ex, ts = out["webp_per_s"], out["lsun_extract"], out["tsne"]
+    log(f"[images+tsne] fixtures: {out['fixtures']['webp']} WebP, {out['fixtures']['bmp']} BMP "
+        f"equal to PIL's; WebP decode/s 256x341 lossy {rates['lossy_256x341']['alone']:.0f} "
+        f"alone, {rates['lossy_256x341'][f'threads_{DECODE_POOL}']:.0f} on {DECODE_POOL} "
+        f"threads, 160x96 lossless {rates['lossless_160x96']['alone']:.0f} / "
+        f"{rates['lossless_160x96'][f'threads_{DECODE_POOL}']:.0f}; LSUN WebP tree extract "
+        f"{ex['images_per_s']:.1f} images/s warmed, {LSUN_FILES} files (its loader in "
+        f"read_image_rgb {ex['decode_share_in_extract']:.2f} of its wall); "
+        f"t-SNE N={TSNE_N} {ts['seconds']:.1f} s, KL {ts['kl']:.4f}, entropy "
+        f"{ts['normalized_entropy']:.4f}, Gini {ts['gini']:.4f}; N={TSNE_CHECK_N} card "
+        f"{card_s:.1f} s vs host {host_s:.1f} s, apart before chaos {tight}, after {dev}; phase 36 "
+        f"{out['phase_seconds']:.1f} s [{device_info['smi']}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
+    ap.add_argument("--phase36", action="store_true",
+                    help="run only the device check and phase 36 (WebP, BMP, the t-SNE)")
     ap.add_argument("--dist-case", help=argparse.SUPPRESS)  # a rank of phase 33's worlds
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4470,6 +4799,16 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     device = phase_device()
+    if args.phase36:
+        work = tempfile.mkdtemp(prefix="chip_smoke_p36_")
+        try:
+            images_tsne = phase_images_tsne(SEED, device, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "images_tsne": images_tsne}, f, indent=1)
+        return 0
     builds = phase_build()
     kernels = phase_kernels(SEED)
     kernels.update(phase_bwd_kernel(SEED))
@@ -4493,6 +4832,7 @@ def main(argv=None) -> int:
         data_io = phase_imagenet(SEED, device, io_work, imagenet_root, manifest)
         data_io["vae"] = vae_training["train"].pop("imagenet")
         commands = phase_commands(SEED, device, os.path.join(keep, "extract_fp32"))
+        images_tsne = phase_images_tsne(SEED, device, io_work)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(io_work, ignore_errors=True)
@@ -4518,9 +4858,9 @@ def main(argv=None) -> int:
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
                        "vae_training": vae_training, "apps": apps, "tools": tools,
                        "multidevice": multidevice, "data_io": data_io, "commands": commands,
-                       "seconds": time.perf_counter() - t0},
+                       "images_tsne": images_tsne, "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-35: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-36: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -212,12 +212,59 @@ def _port_sources():
     return sorted((REPO / "vavae_tpu_torch").rglob("*.py"))
 
 
+# run inside the import-blocked process of test_port_imports_nothing_of_jax
+_WITHOUT_PIL_SKLEARN_MATPLOTLIB = """
+import os, shutil, tempfile
+import numpy as np
+from vavae_tpu_torch.utils.png import read_image_rgb, read_png
+from vavae_tpu_torch.data.ldm_datasets import LSUNBase
+from vavae_tpu_torch.eval.latent_vis import plot_tsne_visualization
+from vavae_tpu_torch.pipelines.extract_features import extract
+from vavae_tpu_torch.tokenizer import VA_VAE
+from vavae_tpu_torch.utils.safetensors_io import read_safetensors
+web, bmp = 'tests/data/webp', 'tests/data/bmp'
+ew, eb = np.load(web + '/expected.npz'), np.load(bmp + '/expected.npz')
+for d, e, stem, ext in ((web, ew, 'lossy_alpha_pil', 'webp'), (web, ew, 'lossless_palette_3', 'webp'),
+                        (bmp, eb, 'rle4', 'bmp'), (bmp, eb, 'rgb565_bitfields', 'bmp')):
+    assert np.array_equal(read_image_rgb(f'{d}/{stem}.{ext}'), e[stem]), stem
+tmp = tempfile.mkdtemp()
+names = ['lossy_q50_m6.webp', 'vp8x_icc_exif.webp', 'anim_lossy_offset.webp']
+for n in names:
+    shutil.copy(f'{web}/{n}', tmp)
+open(tmp + '/list.txt', 'w').write('\\n'.join(names) + '\\n')
+ds = LSUNBase(txt_file=tmp + '/list.txt', data_root=tmp, size=16)
+assert len(ds) == 3 and ds[0][0].shape == (16, 16, 3)
+imgs = tmp + '/imgs/c'
+os.makedirs(imgs)
+for n in ('lossless_rgba.webp', 'lossy_1x1.webp'):
+    shutil.copy(f'{web}/{n}', imgs)
+for n in ('pil_p8.bmp', 'rle8.bmp'):
+    shutil.copy(f'{bmp}/{n}', imgs)
+cfg = tmp + '/vae.yaml'
+open(cfg, 'w').write('ckpt_path: null\\nmodel:\\n  params:\\n    embed_dim: 4\\n    ddconfig:\\n'
+                     '      ch: 32\\n      ch_mult: [1, 1]\\n      num_res_blocks: 1\\n'
+                     '      attn_resolutions: []\\n      z_channels: 4\\n      double_z: true\\n'
+                     '      out_ch: 3\\n')
+extract(tmp + '/imgs', tmp + '/lat', VA_VAE(cfg, img_size=16, device='cpu'), batch_size=2,
+        image_size=16, shard_size=8)
+lat = read_safetensors(tmp + '/lat/latents_rank00_shard000.safetensors')[0]['latents']
+assert lat.shape == (4, 4, 8, 8), lat.shape
+z = np.random.default_rng(0).standard_normal((2, 8, 8, 4)).astype(np.float32)
+emb, m = plot_tsne_visualization(z, tmp + '/t.png', num_samples=100, device='cpu')
+assert emb.shape == (100, 2) and read_png(tmp + '/t.png').shape == (900, 900, 3)
+"""
+
+
 def test_port_imports_nothing_of_jax():
     """No source of the port, and not ``chip_smoke.py``, names jax, flax,
     msgpack or the JAX package, and the whole package imports with those
     made unimportable, and with PIL, sklearn, matplotlib and PyYAML too (the
-    card's machine lacks them: the port imports the first three only inside
-    the functions that need them, and never PyYAML)."""
+    card's machine lacks them: the port imports PIL only to read an image
+    type it does not decode itself, and never the others). With all of them
+    blocked, WebP and BMP files read through ``read_image_rgb``, an LSUN
+    filelist of WebP files through ``LSUNBase``, ``extract`` encodes a
+    folder of ``.webp`` and ``.bmp`` files, and ``plot_tsne_visualization``
+    writes its PNG."""
     bad = ("import jax", "from jax", "import flax", "from flax", "import msgpack",
            "from msgpack", "vavae_tpu.", "import vavae_tpu\n")
     for path in _port_sources() + [REPO / "chip_smoke.py"]:
@@ -252,11 +299,13 @@ def test_port_imports_nothing_of_jax():
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        + _WITHOUT_PIL_SKLEARN_MATPLOTLIB +
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO),
+                                                      "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0 and out.stdout.splitlines()[-1] == "ok", out.stderr
 
 
 

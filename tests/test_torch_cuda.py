@@ -640,3 +640,70 @@ def test_cuda_extract_batch_matches_cpu(tmp_path):
     assert _rel(got, want) < 1e-4
     shard = read_safetensors(str(tmp_path / "lat" / "latents_rank00_shard000.safetensors"))[0]
     assert shard["latents"].shape == (2, 32, 16, 16) and np.isfinite(shard["latents"]).all()
+
+
+@pytest.mark.gpu
+def test_tsne_on_the_card_matches_the_host():
+    """The t-SNE of 400 points of 32 channels on the card against the same
+    call on the host: P to rounding; before chaos sets in, the gradient and
+    KL at the same P and positions (the init; the host's final layout, with
+    P exaggerated, as there P itself is near balance) within 1e-10 and the
+    positions after 10 exaggerated iterations from the same init within
+    1e-8 (another row chunking on the host moves them by 3e-15; float32
+    repulsion or a lost row chunk by far more); the final
+    KL, normalised entropy and Gini within ``chip_smoke.py``'s ``TSNE_TOL``
+    (float64 on both, but the iterations are chaotic: sixteen host runs of
+    these points whose inits differ by 1e-14 to 1e-13 relative end in other
+    layouts, their KL within 3.2%, entropy 0.0062, Gini 0.0099)."""
+    _cuda_or_skip()
+    from vavae_tpu_torch.eval import tsne as T
+    from vavae_tpu_torch.eval.latent_vis import calculate_uniformity_metrics
+
+    x = np.random.default_rng(0).standard_normal((400, 32)).astype(np.float32)
+    x[:, :4] *= 2.0
+    pc = [t.cpu() for t in T.joint_probabilities(torch.as_tensor(x, device="cuda"))]
+    ph = T.joint_probabilities(torch.as_tensor(x))
+    assert torch.equal(pc[0], ph[0]) and torch.equal(pc[1], ph[1])
+    torch.testing.assert_close(pc[2], ph[2], rtol=1e-12, atol=0)
+    card, kl_card = T.tsne(x, device="cuda")
+    host, kl_host = T.tsne(x, device="cpu")
+    xh = (ph[0], ph[1], ph[2] * 12.0)
+    pc, xc = tuple(t.cuda() for t in ph), tuple(t.cuda() for t in xh)
+    y0 = torch.as_tensor(T.pca_init(x, 0).astype(np.float64))
+    for y, p_host, p_card in ((y0, ph, pc), (torch.as_tensor(host), xh, xc)):
+        eh, gh = T.kl_gradient(y, p_host)
+        ec, gc = T.kl_gradient(y.cuda(), p_card)
+        assert (gc.cpu() - gh).abs().max() <= 1e-10 * gh.abs().max()
+        assert abs(ec - eh) <= 1e-10 * eh
+    args = (0, 10, 0.5, 50.0, 250)
+    yh = T._gradient_descent(y0, xh, *args)[0]
+    yc = T._gradient_descent(y0.cuda(), xc, *args)[0]
+    assert (yc.cpu() - yh).abs().max() <= 1e-8 * yh.abs().max()
+    assert card.shape == (400, 2) and np.isfinite(card).all()
+    assert abs(kl_card - kl_host) / kl_host < 0.08
+    mc, mh = calculate_uniformity_metrics(card), calculate_uniformity_metrics(host)
+    assert abs(mc["normalized_entropy"] - mh["normalized_entropy"]) < 0.02
+    assert abs(mc["gini"] - mh["gini"]) < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["webp", "bmp"])
+def test_image_readers_on_the_card_machine(kind):
+    """The WebP decoder (built on the card's machine from the repo's
+    source) and the BMP reader against the committed expected arrays of
+    every fixture (PIL's decodes: that machine has no PIL)."""
+    _cuda_or_skip()
+    from pathlib import Path
+
+    from vavae_tpu_torch.utils.png import read_image_rgb
+    from vavae_tpu_torch.utils.webp import decode_webp
+
+    folder = Path(__file__).resolve().parent / "data" / kind
+    want = np.load(folder / "expected.npz")
+    paths = sorted(folder.glob(f"*.{kind}"))
+    assert len(paths) > 20
+    for path in paths:
+        np.testing.assert_array_equal(read_image_rgb(str(path)), want[path.stem], err_msg=path.name)
+        if f"{path.stem}__rgba" in want.files:
+            np.testing.assert_array_equal(decode_webp(path.read_bytes(), alpha=True),
+                                          want[f"{path.stem}__rgba"], err_msg=path.name)

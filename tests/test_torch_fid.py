@@ -347,20 +347,24 @@ def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
 
 
 def test_non_png_images_need_pil(tmp_path, monkeypatch):
-    """A folder's BMP goes through PIL, and without PIL the error names it;
-    a JPEG goes through the port's decoder, which needs no PIL."""
+    """A folder's GIF (a type the port does not decode) goes through PIL, and
+    without PIL the error names it; a JPEG, a WebP and a BMP go through the
+    port's decoders, which need no PIL."""
     import builtins
 
     from PIL import Image
 
     from vavae_tpu_torch.utils.png import read_image_rgb
 
-    path = str(tmp_path / "x.bmp")
-    jpeg = str(tmp_path / "x.jpg")
-    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(path)
-    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(jpeg)
-    assert read_image_rgb(path).shape == (8, 8, 3)
-    want = np.asarray(Image.open(jpeg).convert("RGB"))
+    img = Image.fromarray(np.full((8, 8, 3), 128, np.uint8))
+    gif = str(tmp_path / "x.gif")
+    img.save(gif)
+    assert read_image_rgb(gif).shape == (8, 8, 3)
+    want = {}
+    for ext in ("jpg", "webp", "bmp"):
+        path = str(tmp_path / f"x.{ext}")
+        img.save(path)
+        want[path] = np.asarray(Image.open(path).convert("RGB"))
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -369,6 +373,7 @@ def test_non_png_images_need_pil(tmp_path, monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ImportError, match="needs PIL"):
-        read_image_rgb(path)
-    np.testing.assert_array_equal(read_image_rgb(jpeg), want)
+    with pytest.raises(ImportError, match=f"{gif}: .*needs PIL"):
+        read_image_rgb(gif)
+    for path, w in want.items():
+        np.testing.assert_array_equal(read_image_rgb(path), w)

@@ -29,8 +29,8 @@ from hypothesis import strategies as st
 from PIL import Image
 
 from test_torch_common import REPO, one_thread  # noqa: F401
-from vavae_tpu_torch.utils.jpeg import decode_jpeg, jpeg_refusal, read_jpeg, refused_jpegs
-from vavae_tpu_torch.utils.png import encode_png, read_image_rgb, read_png
+from vavae_tpu_torch.utils.jpeg import decode_jpeg, jpeg_refusal, read_jpeg
+from vavae_tpu_torch.utils.png import encode_png, read_image_rgb, read_png, refused_images
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -298,7 +298,7 @@ def test_refused_jpegs_names_what_the_decoder_refuses(tmp_path):
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
         paths.append(str(tmp_path / name))
-    got = refused_jpegs(paths)
+    got = refused_images(paths)
     assert [os.path.basename(p) for p, _ in got] == ["arith_lossless.jpg", "12bit.jpg",
                                                      "late_hierarchical.jpg", "ycc_lossless.jpg"]
     for path, why in got:

@@ -2,7 +2,9 @@
 (1e-5), LPIPS with the same random weights (1e-4; through the bridge and
 through torch-layout weight files), ``evaluate_tokenizer`` end to end with
 the posterior mode (metrics within 1e-4, the same PNGs) and the latent
-visualisation functions (exactly: the same numpy code)."""
+visualisation (the sampled pixels and the uniformity metrics exactly, the
+same numpy code; the port's t-SNE against the JAX package's scikit-learn
+call within scikit-learn's own spread, below)."""
 import os
 
 import jax
@@ -215,14 +217,66 @@ def test_evaluate_tokenizer_main_on_the_cpu(vaes, folder, tmp_path, no_fid_weigh
     assert res["num_images"] == 3 and np.isfinite(res["psnr"]) and -1 <= res["ssim"] <= 1
 
 
+# The port's t-SNE computes the repulsion exactly where the JAX package's
+# scikit-learn call approximates it (Barnes-Hut, angle 0.5) and keeps float64
+# positions where scikit-learn keeps float32, so the two embeddings part as
+# two scikit-learn runs at angles 0.5 and 0.0 part. Over six seeds of this
+# data scikit-learn's own spread between those angles reached 0.185 in the
+# final KL, 0.0035 in the normalised entropy and 0.0031 in the Gini; the
+# tolerances are those maxima raised by about a third. 10-nearest-neighbour
+# agreement of the two embeddings: 0.65-0.79 (scikit-learn's two angles:
+# 0.67-0.81).
+LATENT_VIS_TOL = {"kl": 0.25, "normalized_entropy": 0.005, "gini": 0.005}
+
+
+def _nn_agreement(a: np.ndarray, b: np.ndarray, k: int = 10) -> float:
+    def knn(e):
+        d = ((e[:, None] - e[None]) ** 2).sum(-1)
+        np.fill_diagonal(d, np.inf)
+        return np.argsort(d, 1)[:, :k]
+
+    ka, kb = knn(a), knn(b)
+    return float(np.mean([len(set(ka[i]) & set(kb[i])) / k for i in range(len(a))]))
+
+
 @pytest.mark.usefixtures("one_thread_test")  # t-SNE's OpenMP threads
-def test_latent_vis_matches_jax(tmp_path):
-    lat = np.random.default_rng(6).standard_normal((3, 8, 8, 4)).astype(np.float32)
-    np.testing.assert_array_equal(tvis.sample_latent_pixels(lat, 100, seed=2),
-                                  jvis.sample_latent_pixels(lat, 100, seed=2))
-    emb2d = np.random.default_rng(7).standard_normal((500, 2))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_latent_vis_matches_jax(tmp_path, monkeypatch, seed):
+    """The sampled pixels and the uniformity metrics of one embedding
+    exactly; the whole ``plot_tsne_visualization`` (the port's t-SNE on the
+    CPU) against the JAX package's within ``LATENT_VIS_TOL`` of its final
+    KL, normalised entropy and Gini, its neighbours largely kept, and its
+    scatter PNG written by the port's writer."""
+    from sklearn.manifold import TSNE
+
+    from vavae_tpu_torch.utils.png import read_png
+
+    lat = np.random.default_rng(100 + seed).standard_normal((4, 8, 8, 8)).astype(np.float32)
+    lat[..., :2] *= 3
+    np.testing.assert_array_equal(tvis.sample_latent_pixels(lat, 200, seed=seed),
+                                  jvis.sample_latent_pixels(lat, 200, seed=seed))
+    emb2d = np.random.default_rng(7 + seed).standard_normal((500, 2))
     assert tvis.calculate_uniformity_metrics(emb2d, 20) == jvis.calculate_uniformity_metrics(emb2d, 20)
-    emb, metrics = tvis.plot_tsne_visualization(lat, str(tmp_path / "t.png"), num_samples=120, seed=1)
-    want_emb, want_metrics = jvis.plot_tsne_visualization(lat, None, num_samples=120, seed=1)
-    np.testing.assert_array_equal(emb, want_emb)
-    assert metrics == want_metrics and (tmp_path / "t.png").stat().st_size > 0
+    kls = {}
+    port_tsne, sk_fit_transform = tvis.tsne, TSNE.fit_transform
+
+    def port_recording(*a, **kw):
+        emb, kls["port"] = port_tsne(*a, **kw)
+        return emb, kls["port"]
+
+    def sk_recording(self, *a, **kw):
+        out = sk_fit_transform(self, *a, **kw)
+        kls["jax"] = self.kl_divergence_
+        return out
+
+    monkeypatch.setattr(tvis, "tsne", port_recording)
+    monkeypatch.setattr(TSNE, "fit_transform", sk_recording)
+    emb, metrics = tvis.plot_tsne_visualization(lat, str(tmp_path / "t.png"), num_samples=200,
+                                                seed=seed, device="cpu")
+    want_emb, want_metrics = jvis.plot_tsne_visualization(lat, None, num_samples=200, seed=seed)
+    assert metrics == tvis.calculate_uniformity_metrics(emb)
+    assert abs(kls["port"] - kls["jax"]) <= LATENT_VIS_TOL["kl"], kls
+    for key in ("normalized_entropy", "gini"):
+        assert abs(metrics[key] - want_metrics[key]) <= LATENT_VIS_TOL[key], (key, metrics, want_metrics)
+    assert _nn_agreement(emb, want_emb) >= 0.6
+    assert read_png(str(tmp_path / "t.png")).shape == (900, 900, 3)

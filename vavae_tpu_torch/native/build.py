@@ -1,9 +1,9 @@
 """Build-and-load for the port's host C++ libraries.
 
-Each ``native/<name>.cpp`` (the shard reader and the JPEG decoder) exposes
-a plain C interface. It is compiled with ``g++`` into a shared library under
-``build/vavae_tpu_torch/`` (beside the package, listed in ``.gitignore``) at
-first use, named by the hash of its source and of the
+Each ``native/<name>.cpp`` (the shard reader and the JPEG and WebP decoders)
+exposes a plain C interface. It is compiled with ``g++`` into a shared
+library under ``build/vavae_tpu_torch/`` (beside the package, listed in
+``.gitignore``) at first use, named by the hash of its source and of the
 compiler flags, and loaded with ctypes. The flags keep the floating-point
 order the source writes (``-ffp-contract=off``, no ``-ffast-math``). The
 finished file is put in place with an atomic rename, a failed build raises
@@ -23,7 +23,7 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vavae_tpu_torch"
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
-LINK = {"shard_reader": [], "jpeg_decoder": []}
+LINK = {"shard_reader": [], "jpeg_decoder": [], "webp_decoder": []}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -15,10 +15,11 @@ i+1's encode is queued on the card before batch i is copied back.
     python -m vavae_tpu_torch.pipelines.extract_features --data_path IMAGES \\
         --output_path LATENTS [--vae_ckpt CKPT] [--dtype fp32|bf16] [--device cuda]
 
-Images are PNG or JPEG, read by the port (``utils/png.py:read_image_rgb``),
-or, with PIL installed, any other type PIL reads. Before anything is
-encoded, every JPEG is checked on its markers (``utils/jpeg.py``), and the
-files the port's decoder refuses are listed in one error.
+Images are PNG, JPEG, WebP or BMP, read by the port
+(``utils/png.py:read_image_rgb``), or, with PIL installed, any other type
+PIL reads. Before anything is encoded, every JPEG, WebP and BMP file is
+checked on its headers (``utils/png.py:refused_images``), and the files the
+port's decoders refuse are listed in one error.
 """
 from __future__ import annotations
 
@@ -35,8 +36,7 @@ from vavae_tpu_torch.data.latent_dataset import ImgLatentDataset
 from vavae_tpu_torch.data.prefetch import prefetch
 from vavae_tpu_torch.parallel import mesh as mesh_lib
 from vavae_tpu_torch.tokenizer import VA_VAE, preprocess_images
-from vavae_tpu_torch.utils.jpeg import refused_jpegs
-from vavae_tpu_torch.utils.png import read_image_rgb
+from vavae_tpu_torch.utils.png import read_image_rgb, refused_images
 from vavae_tpu_torch.utils.safetensors_io import write_safetensors
 
 def list_image_folder(root: str) -> List[Tuple[str, int]]:
@@ -111,10 +111,11 @@ def extract(
     else:
         items = list_image_folder(data_path)
     # every process checks every file, so all of them stop together
-    refused = refused_jpegs([p for p, _ in items])
+    refused = refused_images([p for p, _ in items])
     if refused:
-        raise ValueError(f"{len(refused)} of {len(items)} images are JPEGs that neither the "
-                         "port's decoder nor PIL decodes; nothing was encoded:\n"
+        raise ValueError(f"{len(refused)} of {len(items)} images are JPEGs, WebP or BMP files "
+                         "that neither the port's decoders nor PIL decode; nothing was "
+                         "encoded:\n"
                          + "\n".join(f"  {p}: {why}" for p, why in refused))
     rank = mesh_lib.process_index()
     items = items[rank::mesh_lib.process_count()]

@@ -10,15 +10,14 @@ them. Corrupt data decodes as libjpeg-turbo's C code decodes it (its x86
 SIMD inverse DCT can round out-of-range coefficients differently). What PIL
 refuses too (hierarchical and arithmetic-coded lossless files, precisions
 other than 8 bits) raises ``ValueError`` naming the file; nothing is handed
-to PIL. ``refused_jpegs`` finds those from their frame header, without
+to PIL. ``jpeg_refusal`` finds those from their frame header, without
 decoding. ctypes releases the interpreter lock for the call, so threads
 decode in parallel.
 """
 from __future__ import annotations
 
 import ctypes
-from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import BinaryIO, Optional
 
 import numpy as np
 
@@ -26,8 +25,7 @@ from vavae_tpu_torch.native.build import load_library
 
 _ERR_LEN = 512
 _MAGIC = b"\xff\xd8\xff"
-_CHECK_HEAD = 1 << 14  # bytes read first: the SOF of most files lies in them
-_CHECK_THREADS = 8
+CHECK_HEAD = 1 << 14  # bytes read first: the SOF of most files lies in them
 
 
 def _library() -> ctypes.CDLL:
@@ -72,22 +70,21 @@ def jpeg_refusal(path: str) -> Optional[str]:
     either; else None, as for a file that is not a JPEG or is truncated
     (which PIL refuses too). Reads the first 16 KiB of most files, and all
     of one whose frame header lies further in."""
+    with open(path, "rb") as f:
+        return jpeg_head_refusal(f.read(CHECK_HEAD), f)
+
+
+def jpeg_head_refusal(head: bytes, f: BinaryIO) -> Optional[str]:
+    """``jpeg_refusal`` of the file open as ``f``, whose first ``CHECK_HEAD``
+    bytes (or all, if fewer) ``head`` holds; reads the rest of ``f`` only for
+    a JPEG whose frame header lies past them."""
+    if head[:3] != _MAGIC:
+        return None
     lib = _library()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    with open(path, "rb") as f:
-        data = f.read(_CHECK_HEAD)
-        if data[:3] != _MAGIC:
-            return None
-        rc = lib.jpeg_check(data, len(data), err, _ERR_LEN)
-        if rc == 1 and len(data) == _CHECK_HEAD:
-            data += f.read()
-            rc = lib.jpeg_check(data, len(data), err, _ERR_LEN)
+    rc = lib.jpeg_check(head, len(head), err, _ERR_LEN)
+    if rc == 1 and len(head) == CHECK_HEAD:
+        head += f.read()
+        rc = lib.jpeg_check(head, len(head), err, _ERR_LEN)
     return err.value.decode(errors="replace") if rc < 0 else None
 
-
-def refused_jpegs(paths: Sequence[str]) -> list[tuple[str, str]]:
-    """(path, reason) for each of ``paths`` that ``jpeg_refusal`` refuses,
-    in the order of ``paths``, checked on a pool of threads."""
-    with ThreadPoolExecutor(_CHECK_THREADS) as pool:
-        reasons = list(pool.map(jpeg_refusal, paths))
-    return [(p, r) for p, r in zip(paths, reasons) if r is not None]

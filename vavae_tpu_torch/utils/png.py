@@ -12,9 +12,11 @@ byte of a 16-bit sample, as PIL unpacks them), and palette images of 1, 2,
 4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is ignored, as
 ``convert("RGB")`` ignores it), plain or Adam7-interlaced, with any of the
 five scanline filters. ``read_image_rgb`` picks
-the reader by the file's first bytes, not its name: PNG here, JPEG through
-the port's decoder (``utils/jpeg.py``), any other type through PIL, imported
-only for it.
+the reader by the file's first bytes, not its name: PNG here, JPEG, WebP and
+BMP through the port's decoders (``utils/jpeg.py``, ``utils/webp.py``,
+``utils/bmp.py``), and the types left (GIF, TIFF, ICO, PPM and the others
+PIL reads by content) through PIL, imported only for them. ``refused_images``
+lists the JPEG, WebP and BMP files those decoders refuse on their headers.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import numpy as np
 
-from vavae_tpu_torch.utils.jpeg import decode_jpeg
+from vavae_tpu_torch.utils import bmp, webp
+from vavae_tpu_torch.utils.jpeg import CHECK_HEAD, decode_jpeg, jpeg_head_refusal
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → samples per pixel
@@ -231,23 +235,47 @@ def read_png(path: str) -> np.ndarray:
 
 
 _JPEG_MAGIC = b"\xff\xd8\xff"
+_CHECK_THREADS = 8
 
 
 def read_image_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8, as PIL's ``Image.open(path).convert("RGB")``: by the
-    file's first bytes, a PNG through ``decode_png``, a JPEG through the
-    port's decoder (an ImageNet file named ``.JPEG`` may hold a PNG), and
-    other types through PIL, imported only for them."""
+    file's first bytes, a PNG through ``decode_png``, a JPEG, WebP or BMP
+    through the port's decoders (an ImageNet file named ``.JPEG`` may hold a
+    PNG), and other types through PIL, imported only for them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _SIGNATURE:
         return _decode_png_rgb(data, path)
     if data[:3] == _JPEG_MAGIC:
         return decode_jpeg(data, path)
+    if webp.is_webp(data[:12]):
+        return webp.decode_webp(data, path)
+    if data[:2] == bmp.MAGIC:
+        return bmp.decode_bmp(data, path)
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path}: reading an image that is neither PNG nor JPEG needs PIL "
-                          "(Pillow), which is not installed") from e
+        raise ImportError(f"{path}: reading an image that is neither PNG, JPEG, WebP nor BMP "
+                          "needs PIL (Pillow), which is not installed") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def _refusal(path: str) -> Optional[str]:
+    """The file's head read once; the rest only for a JPEG whose frame header
+    lies past it, or a WebP or BMP file."""
+    with open(path, "rb") as f:
+        head = f.read(CHECK_HEAD)
+        return (jpeg_head_refusal(head, f) or webp.webp_head_refusal(head, f)
+                or bmp.bmp_head_refusal(head, f))
+
+
+def refused_images(paths: Sequence[str]) -> list[tuple[str, str]]:
+    """(path, reason) for each of ``paths`` that the port's JPEG, WebP or BMP
+    decoder refuses on its headers alone (``jpeg_refusal``,
+    ``webp_refusal``, ``bmp_refusal``), in the order of ``paths``, checked on
+    a pool of threads."""
+    with ThreadPoolExecutor(_CHECK_THREADS) as pool:
+        reasons = list(pool.map(_refusal, paths))
+    return [(p, r) for p, r in zip(paths, reasons) if r is not None]
