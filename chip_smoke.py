@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --phase36 [--out results.json]   # phases 1 and 36 alone
+    python3 chip_smoke.py --phase37 [--out results.json]   # phases 1 and 37 alone
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
@@ -274,6 +275,18 @@ Phases, each fatal on failure:
      ``TSNE_ITER_TOL``; of the whole run, where the iterations are chaotic
      and the layouts part, the final KL, normalised entropy, Gini and
      10-neighbour agreement within ``TSNE_TOL``.
+  37. with PIL made unimportable: (a) every committed GIF, TIFF, PNM and
+     ICO/CUR fixture (``tests/data/{gif,tiff,pnm,ico}``) through
+     ``read_image_rgb`` bit-equal to PIL's committed decodes, each file PIL
+     refuses raising, naming it, and each TIFF left to PIL (JPEG and CCITT)
+     raising ``ImportError`` naming it; a seeded 256×256 GIF, LZW TIFF
+     (predictor 2) and PPM, each read back equal to what was written, and
+     the decode rate of each (bytes to pixels), alone and on 8 threads; (b) ``extract`` with the
+     f16d32 VA-VAE over a tree of 128 such files named ``.jpg`` and
+     ``.png``, once to warm the path and once timed: images/s, and the
+     seconds its loader thread spent in ``read_image_rgb`` over its wall;
+     (c) ``refused_images`` over a tree holding one TGA file names that
+     file as needing PIL, and nothing else.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
 likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
@@ -391,6 +404,9 @@ from vavae_tpu_torch.utils.metrics_logger import read_events
 from vavae_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
 from vavae_tpu_torch.utils.jpeg import decode_jpeg
 from vavae_tpu_torch.utils.png import read_image_rgb, read_png, refused_images, write_pngs
+from vavae_tpu_torch.utils.gif import decode_gif
+from vavae_tpu_torch.utils.pnm import decode_pnm
+from vavae_tpu_torch.utils.tiff import decode_tiff
 from vavae_tpu_torch.utils.webp import decode_webp
 from vavae_tpu_torch.utils.safetensors_io import (
     flatten,
@@ -4780,11 +4796,189 @@ def phase_images_tsne(seed: int, device_info: dict, work: str) -> dict:
     return out
 
 
+# phase 37: the readers of GIF, TIFF, PNM and ICO/CUR files
+OTHER_EXTS = {"gif": (".gif",), "tiff": (".tif",), "pnm": (".pbm", ".pgm", ".ppm", ".pfm"),
+              "ico": (".ico", ".cur")}
+OTHER_FILES, OTHER_SIZE = 128, 256  # the misnamed tree that ``extract`` reads
+
+
+def _kit(kind: str, name: str):
+    """``tests/data/<kind>/<name>.py``: the PIL-free GIF and TIFF writers of
+    the tests."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(DATA, kind, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_other_fixtures() -> dict:
+    """Every committed GIF, TIFF, PNM and ICO/CUR fixture through
+    ``read_image_rgb`` against PIL's committed decodes; each file PIL refuses
+    raises naming it (``ImportError`` for one its plugin declines, an icon of
+    no entries), and each left to PIL (JPEG and CCITT TIFFs) raises
+    ``ImportError`` naming it."""
+    out = {}
+    for kind, exts in OTHER_EXTS.items():
+        folder = os.path.join(DATA, kind)
+        want = np.load(os.path.join(folder, "expected.npz"))
+        tally = {"equal": 0, "refused": 0, "left_to_pil": 0}
+        for name in sorted(os.listdir(folder)):
+            stem, ext = os.path.splitext(name)
+            if ext not in exts:
+                continue
+            path = os.path.join(folder, name)
+            if stem.startswith(("refused_", "pil_only_")):
+                key = "refused" if stem.startswith("refused_") else "left_to_pil"
+                try:
+                    read_image_rgb(path)
+                except (ValueError, ImportError) as e:
+                    if path not in str(e) or key == "left_to_pil" and not isinstance(e, ImportError):
+                        fail(f"{kind} fixture {name}: {type(e).__name__} {e}")
+                    tally[key] += 1
+                    continue
+                fail(f"{kind} fixture {name}: decoded, where PIL refuses it or is needed")
+            if not np.array_equal(read_image_rgb(path), want[stem]):
+                fail(f"{kind} fixture {name}: the decode differs from PIL's")
+            tally["equal"] += 1
+        out[kind] = tally
+    return out
+
+
+def _other_images(seed: int) -> dict:
+    """A seeded 256×256 picture as a GIF (a 6×6×6 colour cube), an LZW TIFF
+    (strips of 16 rows, predictor 2) and a PPM: {kind: (bytes, the RGB it
+    holds)}."""
+    n = OTHER_SIZE
+    rs = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    base = np.stack([xx + yy // 2, (xx * yy) // 97, 255 - yy + xx // 3], -1)
+    rgb = ((base % 256) + rs.integers(-12, 13, base.shape)).clip(0, 255).astype(np.uint8)
+    idx = (rgb // 43).astype(np.int64) @ np.array([36, 6, 1])
+    cube = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3, indexing="ij"), -1).reshape(216, 3)
+    gif = _kit("gif", "gifkit").gif(n, n, idx.ravel().tolist(), 8,
+                                    palette=cube.astype(np.uint8).tobytes())
+    tiff = _kit("tiff", "tiffkit").image(rgb, 8, compression=5, predictor=2, rows_per_strip=16)
+    ppm = f"P6\n{n} {n}\n255\n".encode() + rgb.tobytes()
+    return {"gif": (gif, cube.astype(np.uint8)[idx]), "tiff_lzw": (tiff, rgb), "ppm": (ppm, rgb)}
+
+
+def _tga(w: int, h: int) -> bytes:
+    """An uncompressed 24-bit TGA file (a type only PIL reads; its first
+    bytes are a cursor's magic)."""
+    header = (bytes([0, 0, 2]) + bytes(9) + w.to_bytes(2, "little") + h.to_bytes(2, "little")
+              + bytes([24, 0x20]))
+    return header + bytes(i % 251 for i in range(3 * w * h))
+
+
+def phase_other_images(seed: int, device_info: dict, work: str) -> dict:
+    """Phase 37, with PIL unimportable: (a) every GIF, TIFF, PNM and ICO/CUR
+    fixture against PIL's committed decodes, and decode rates of a 256×256
+    GIF, LZW TIFF and PPM, alone and on 8 threads; (b) ``extract`` with the
+    f16d32 VA-VAE over a tree of 128 such files named ``.jpg`` and
+    ``.png``, warmed, then timed; (c) ``refused_images`` over a tree holding
+    one TGA file names it as needing PIL, and nothing else."""
+    t_phase = time.perf_counter()
+    out = {}
+    with _unimportable("PIL"):
+        out["fixtures"] = _check_other_fixtures()
+        images = _other_images(seed)
+        rates = {}
+        decoders = {"gif": decode_gif, "tiff_lzw": decode_tiff, "ppm": decode_pnm}
+        for kind, (data, want) in images.items():
+            path = os.path.join(work, f"one_{kind}.jpg")
+            with open(path, "wb") as f:
+                f.write(data)
+            if not np.array_equal(read_image_rgb(path), want):
+                fail(f"the 256x256 {kind}: read back other than written")
+            decode = decoders[kind]
+            alone = _rate(lambda: decode(data), DECODE_REPS)
+            with ThreadPoolExecutor(DECODE_POOL) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(decode, [data] * (DECODE_REPS * DECODE_POOL)))
+                pooled = DECODE_REPS * DECODE_POOL / (time.perf_counter() - t0)
+            rates[kind] = {"alone": alone, f"threads_{DECODE_POOL}": pooled, "bytes": len(data)}
+        out["decode_per_s"] = rates
+
+        # (b) extract over the misnamed tree
+        root = os.path.join(work, "misnamed")
+        kinds = list(images)
+        for k in range(OTHER_FILES):
+            cls = os.path.join(root, f"class_{k % 2}")
+            os.makedirs(cls, exist_ok=True)
+            with open(os.path.join(cls, f"{k:04d}{'.jpg' if k % 4 < 2 else '.png'}"), "wb") as f:
+                f.write(images[kinds[k % 3]][0])
+        vae = VA_VAE(embed_dim=32, img_size=256, seed=seed, device="cuda")
+        extract(root, os.path.join(work, "misnamed_warm"), vae, batch_size=LSUN_BATCH,
+                image_size=256, shard_size=LSUN_SHARD, seed=seed)  # the path warmed
+        reader, decode_s = extract_features.read_image_rgb, [0.0]
+
+        def timed_reader(path):
+            t = time.perf_counter()
+            img = reader(path)
+            decode_s[0] += time.perf_counter() - t
+            return img
+
+        shards = os.path.join(work, "misnamed_latents")
+        extract_features.read_image_rgb = timed_reader
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            extract(root, shards, vae, batch_size=LSUN_BATCH, image_size=256,
+                    shard_size=LSUN_SHARD, seed=seed)
+            torch.cuda.synchronize()
+            extract_s = time.perf_counter() - t0
+        finally:
+            extract_features.read_image_rgb = reader
+        expect_counts(counts(), {}, "extraction over the misnamed tree")
+        del vae
+        torch.cuda.empty_cache()
+        got = _shards(shards)
+        if got["latents"].shape != (OTHER_FILES, 32, 16, 16) or not np.isfinite(got["latents"]).all():
+            fail(f"extraction over the misnamed tree: latents {got['latents'].shape}")
+        out["misnamed_extract"] = {"images": OTHER_FILES, "seconds": extract_s,
+                                   "images_per_s": OTHER_FILES / extract_s,
+                                   "decode_seconds_in_extract": decode_s[0],
+                                   "decode_share_in_extract": decode_s[0] / extract_s}
+
+        # (c) without PIL, the check names the file that needs it
+        tree = os.path.join(work, "with_tga")
+        os.makedirs(os.path.join(tree, "class_0"))
+        for k, kind in enumerate(kinds):
+            with open(os.path.join(tree, "class_0", f"{k}.png"), "wb") as f:
+                f.write(images[kind][0])
+        tga = os.path.join(tree, "class_0", "x.jpg")
+        with open(tga, "wb") as f:
+            f.write(_tga(8, 6))
+        paths = [p for p, _ in list_image_folder(tree)]
+        refused = refused_images(paths)
+        if [p for p, _ in refused] != [tga] or "needs PIL" not in refused[0][1]:
+            fail(f"refused_images over a tree with a TGA file: {refused}")
+        out["tga_check"] = {"files": len(paths), "named": refused[0][1]}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    r, ex = out["decode_per_s"], out["misnamed_extract"]
+    fx = out["fixtures"]
+    log(f"[other images] fixtures equal to PIL's: GIF {fx['gif']['equal']}, TIFF "
+        f"{fx['tiff']['equal']}, PNM {fx['pnm']['equal']}, ICO/CUR {fx['ico']['equal']} "
+        f"(refused as PIL: {sum(v['refused'] for v in fx.values())}, left to PIL: "
+        f"{sum(v['left_to_pil'] for v in fx.values())}); decode/s of 256x256 "
+        + ", ".join(f"{k} {v['alone']:.0f} alone, {v[f'threads_{DECODE_POOL}']:.0f} on "
+                    f"{DECODE_POOL} threads" for k, v in r.items())
+        + f"; misnamed tree extract {ex['images_per_s']:.1f} images/s warmed, {OTHER_FILES} files "
+        f"(its loader in read_image_rgb {ex['decode_share_in_extract']:.2f} of its wall); TGA "
+        f"named as needing PIL; phase 37 {out['phase_seconds']:.1f} s [{device_info['smi']}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
     ap.add_argument("--phase36", action="store_true",
                     help="run only the device check and phase 36 (WebP, BMP, the t-SNE)")
+    ap.add_argument("--phase37", action="store_true",
+                    help="run only the device check and phase 37 (GIF, TIFF, PNM, ICO)")
     ap.add_argument("--dist-case", help=argparse.SUPPRESS)  # a rank of phase 33's worlds
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4808,6 +5002,16 @@ def main(argv=None) -> int:
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"device": device, "images_tsne": images_tsne}, f, indent=1)
+        return 0
+    if args.phase37:
+        work = tempfile.mkdtemp(prefix="chip_smoke_p37_")
+        try:
+            other_images = phase_other_images(SEED, device, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "other_images": other_images}, f, indent=1)
         return 0
     builds = phase_build()
     kernels = phase_kernels(SEED)
@@ -4833,6 +5037,7 @@ def main(argv=None) -> int:
         data_io["vae"] = vae_training["train"].pop("imagenet")
         commands = phase_commands(SEED, device, os.path.join(keep, "extract_fp32"))
         images_tsne = phase_images_tsne(SEED, device, io_work)
+        other_images = phase_other_images(SEED, device, io_work)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(io_work, ignore_errors=True)
@@ -4858,9 +5063,10 @@ def main(argv=None) -> int:
                        "hires": hires, "samplers": samplers, "tokenizer": tokenizer,
                        "vae_training": vae_training, "apps": apps, "tools": tools,
                        "multidevice": multidevice, "data_io": data_io, "commands": commands,
-                       "images_tsne": images_tsne, "seconds": time.perf_counter() - t0},
+                       "images_tsne": images_tsne, "other_images": other_images,
+                       "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-36: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-37: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

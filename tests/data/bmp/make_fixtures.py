@@ -2,8 +2,9 @@
 ``python tests/data/bmp/make_fixtures.py``; needs PIL).
 
 Each fixture is a ``.bmp`` file; ``expected.npz`` holds PIL's decode of it,
-``Image.open(p).convert("RGB")``, under the file's stem. The card's machine
-has no PIL: ``chip_smoke.py`` phase 36 and ``tests/test_torch_bmp.py`` read
+``Image.open(p).convert("RGB")``, under the file's stem. PIL is not a stated
+package of the card's machine: ``chip_smoke.py`` phase 36, with PIL
+blocked, and ``tests/test_torch_bmp.py`` read
 these files.
 
 PIL writes the 1-bit, gray, 8-bit palette, 24-bit and 32-bit files; the

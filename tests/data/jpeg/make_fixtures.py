@@ -21,8 +21,8 @@ files whose scans leave coefficients unrefined, which libjpeg smooths; and
 the 500×375 photograph as SOF9 and SOF3. ``transcode.c`` writes them
 through the libjpeg that PIL bundles (built here with ``gcc`` against the
 system's ``jpeglib.h``), except the 4:2:0 lossless frame, which that
-libjpeg writes at 1x1 only and ``_lossless_420`` encodes here. The card's
-machine has no PIL:
+libjpeg writes at 1x1 only and ``_lossless_420`` encodes here. PIL is not a
+stated package of the card's machine:
 ``chip_smoke.py`` phase 34 and ``tests/test_torch_jpeg.py`` read these
 files.
 """

@@ -3,8 +3,9 @@
 
 Each fixture is a ``.webp`` file; ``expected.npz`` holds PIL's decode of it,
 ``Image.open(p).convert("RGB")`` under the file's stem, and for the files
-with alpha also ``convert("RGBA")`` under ``<stem>__rgba``. The card's
-machine has no PIL: ``chip_smoke.py`` phase 36 and
+with alpha also ``convert("RGBA")`` under ``<stem>__rgba``. PIL is not a
+stated package of the card's machine: ``chip_smoke.py`` phase 36, with
+PIL blocked, and
 ``tests/test_torch_webp.py`` read these files.
 
 - Lossy (VP8) files from PIL's encoder at several qualities and methods, at

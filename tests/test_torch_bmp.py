@@ -184,6 +184,20 @@ def test_refusals_name_the_file(tmp_path):
     assert bmp_refusal(str(FIXTURES / "rle4.bmp")) is None
 
 
+def test_decompression_bomb_refused_as_pil(tmp_path):
+    """A header past twice PIL's ``MAX_IMAGE_PIXELS`` is refused with PIL's
+    message, from the header."""
+    data = MAKE.bmp(40000, 30000, 24, bytes(16))
+    with pytest.raises(Image.DecompressionBombError) as pil:
+        Image.open(io.BytesIO(data))
+    path = tmp_path / "bomb.bmp"
+    path.write_bytes(data)
+    with pytest.raises(ValueError) as port:
+        read_image_rgb(str(path))
+    assert str(port.value) == f"{path}: {pil.value}"
+    assert bmp_refusal(str(path)) == str(pil.value)
+
+
 @pytest.fixture(scope="module")
 def mixed_folder(tmp_path_factory):
     """Two classes of BMP and WebP fixtures (with upper-case names, which

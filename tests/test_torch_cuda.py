@@ -691,7 +691,7 @@ def test_tsne_on_the_card_matches_the_host():
 def test_image_readers_on_the_card_machine(kind):
     """The WebP decoder (built on the card's machine from the repo's
     source) and the BMP reader against the committed expected arrays of
-    every fixture (PIL's decodes: that machine has no PIL)."""
+    every fixture (PIL's decodes: PIL is not a stated package of that machine)."""
     _cuda_or_skip()
     from pathlib import Path
 

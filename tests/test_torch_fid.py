@@ -347,9 +347,9 @@ def test_png_decoder_refuses_what_it_does_not_read(tmp_path):
 
 
 def test_non_png_images_need_pil(tmp_path, monkeypatch):
-    """A folder's GIF (a type the port does not decode) goes through PIL, and
-    without PIL the error names it; a JPEG, a WebP and a BMP go through the
-    port's decoders, which need no PIL."""
+    """A folder's TGA file (a type the port does not decode) goes through
+    PIL, and without PIL the error names it; a JPEG, a WebP, a BMP, a GIF, a
+    TIFF and a PPM go through the port's decoders, which need no PIL."""
     import builtins
 
     from PIL import Image
@@ -357,11 +357,11 @@ def test_non_png_images_need_pil(tmp_path, monkeypatch):
     from vavae_tpu_torch.utils.png import read_image_rgb
 
     img = Image.fromarray(np.full((8, 8, 3), 128, np.uint8))
-    gif = str(tmp_path / "x.gif")
-    img.save(gif)
-    assert read_image_rgb(gif).shape == (8, 8, 3)
+    tga = str(tmp_path / "x.tga")
+    img.save(tga)
+    assert read_image_rgb(tga).shape == (8, 8, 3)
     want = {}
-    for ext in ("jpg", "webp", "bmp"):
+    for ext in ("jpg", "webp", "bmp", "gif", "tif", "ppm"):
         path = str(tmp_path / f"x.{ext}")
         img.save(path)
         want[path] = np.asarray(Image.open(path).convert("RGB"))
@@ -373,7 +373,7 @@ def test_non_png_images_need_pil(tmp_path, monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ImportError, match=f"{gif}: .*needs PIL"):
-        read_image_rgb(gif)
+    with pytest.raises(ImportError, match=f"{tga}: .*needs PIL"):
+        read_image_rgb(tga)
     for path, w in want.items():
         np.testing.assert_array_equal(read_image_rgb(path), w)

@@ -466,7 +466,7 @@ def _manifest() -> dict:
 
 def test_committed_fixtures_equal_pil_decodes():
     """Each committed decode is PIL's decode of its file (the card's machine,
-    which has no PIL, holds the port's decoder to them), and the port's
+    where PIL is not a stated package, holds the port's decoder to them), and the port's
     decoder equals both."""
     for entry in _manifest()["fixtures"]:
         path = str(FIXTURES / entry["file"])

@@ -3,7 +3,8 @@ gray of 1, 2, 4, 8 and 16 bits, gray + alpha, RGB and RGBA of 8 and 16
 bits, palette of 1-8 bits, plain and Adam7-interlaced, against PIL's
 ``Image.open(p).convert("RGB")``, bit for bit. The committed fixtures of
 ``tests/data/png`` (written by its ``make_fixtures.py``) hold PIL's decodes
-in ``expected.npz``, which the card's machine, without PIL, reads too; a
+in ``expected.npz``, which the card's machine reads too (PIL is not
+one of its stated packages); a
 seeded sweep of sizes and filters goes through PIL itself.
 """
 import io

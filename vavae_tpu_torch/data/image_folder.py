@@ -2,9 +2,9 @@
 recursive class-per-subdirectory scan, the micro-Doppler split files and the
 real + generated mixed-domain set, as NHWC float32 batches in [-1, 1].
 
-Images are read by ``utils/png.py:read_image_rgb`` (PNG, JPEG, WebP and BMP
-by the port's own decoders, other types through PIL, imported only for
-them) and resized by
+Images are read by ``utils/png.py:read_image_rgb`` (PNG, JPEG, WebP, BMP,
+GIF, TIFF, PNM, ICO and CUR by the port's own decoders, whatever the file's
+name; other types through PIL, imported only for them) and resized by
 ``utils/pil_resize.py``, PIL's fixed-point BICUBIC, so items equal the JAX
 package's bit for bit. Orders, labels, shuffles and striping are its own.
 """

@@ -12,9 +12,9 @@ LDM-format trees, no downloads.
     the smallest side to ``size`` with BILINEAR and crop ``size``² at random
     (train) or in the centre (validation).
 
-Images are read by ``utils/png.py:read_image_rgb`` (the port's JPEG, WebP
-and BMP decoders, bit-exact with PIL's; LSUN's own export writes WebP
-files) and resized by
+Images are read by ``utils/png.py:read_image_rgb`` (the port's JPEG, WebP,
+BMP, GIF, TIFF, PNM and ICO decoders, bit-exact with PIL's, whatever name
+a filelist gives a file; LSUN's own export writes WebP files) and resized by
 ``utils/pil_resize.py`` (PIL's fixed-point filters), so items equal the JAX
 package's bit for bit. Crops draw from the stdlib ``random`` and LSUN's flip
 from ``random.random()``, as there, so one ``random.seed`` gives both

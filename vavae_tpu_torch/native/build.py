@@ -1,6 +1,7 @@
 """Build-and-load for the port's host C++ libraries.
 
-Each ``native/<name>.cpp`` (the shard reader and the JPEG and WebP decoders)
+Each ``native/<name>.cpp`` (the shard reader, the JPEG and WebP decoders
+and the LZW and PackBits decoders of GIF and TIFF)
 exposes a plain C interface. It is compiled with ``g++`` into a shared
 library under ``build/vavae_tpu_torch/`` (beside the package, listed in
 ``.gitignore``) at first use, named by the hash of its source and of the
@@ -23,7 +24,7 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vavae_tpu_torch"
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
-LINK = {"shard_reader": [], "jpeg_decoder": [], "webp_decoder": []}
+LINK = {"shard_reader": [], "jpeg_decoder": [], "webp_decoder": [], "lzw_decoder": []}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -15,11 +15,12 @@ i+1's encode is queued on the card before batch i is copied back.
     python -m vavae_tpu_torch.pipelines.extract_features --data_path IMAGES \\
         --output_path LATENTS [--vae_ckpt CKPT] [--dtype fp32|bf16] [--device cuda]
 
-Images are PNG, JPEG, WebP or BMP, read by the port
-(``utils/png.py:read_image_rgb``), or, with PIL installed, any other type
-PIL reads. Before anything is encoded, every JPEG, WebP and BMP file is
-checked on its headers (``utils/png.py:refused_images``), and the files the
-port's decoders refuse are listed in one error.
+Images are PNG, JPEG, WebP, BMP, GIF, TIFF, PNM, ICO or CUR, read by the
+port (``utils/png.py:read_image_rgb``), or, with PIL installed, any other
+type PIL reads. Before anything is encoded, every file is checked on its
+headers (``utils/png.py:refused_images``), and the files the port's
+decoders refuse, and without PIL the files that would need it, are listed
+in one error.
 """
 from __future__ import annotations
 
@@ -114,8 +115,8 @@ def extract(
     refused = refused_images([p for p, _ in items])
     if refused:
         raise ValueError(f"{len(refused)} of {len(items)} images are JPEGs, WebP or BMP files "
-                         "that neither the port's decoders nor PIL decode; nothing was "
-                         "encoded:\n"
+                         "(or GIF, TIFF, PNM, ICO or other images) that neither the port's "
+                         "decoders nor PIL decode here; nothing was encoded:\n"
                          + "\n".join(f"  {p}: {why}" for p, why in refused))
     rank = mesh_lib.process_index()
     items = items[rank::mesh_lib.process_count()]

@@ -30,8 +30,9 @@ from typing import BinaryIO, Optional
 
 import numpy as np
 
+from vavae_tpu_torch.utils.pil_limits import bomb_check
+
 MAGIC = b"BM"
-_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # PIL's DecompressionBombError bound
 _BIT2MODE = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"),
              24: ("RGB", "BGR"), 32: ("RGB", "BGRX")}
 _SUPPORTED_MASKS = {
@@ -72,16 +73,21 @@ def _u32(data: bytes, pos: int) -> int:
     return int.from_bytes(data[pos:pos + 4], "little")
 
 
-def _layout(data: bytes) -> _Layout:
-    if data[:2] != MAGIC:
+def layout(data: bytes, base: int = 14) -> _Layout:
+    """The layout of the BMP file ``data`` (its info header at ``base`` =
+    14), or of the DIB whose info header starts at ``base`` (no file header:
+    the pixels follow the palette), as in an icon or cursor file, whose
+    reader halves the height (the other half is the AND mask) and checks
+    the size as PIL does there."""
+    if base == 14 and data[:2] != MAGIC:
         raise ValueError("not a BMP file")
     lay = _Layout()
-    offset = _u32(data, 10)
-    header_size = _u32(data, 14)
-    header = data[18:18 + max(header_size - 4, 0)]
+    offset = _u32(data, 10) if base == 14 else 0
+    header_size = _u32(data, base)
+    header = data[base + 4:base + max(header_size, 4)]
     if len(header) < header_size - 4:
         raise ValueError("BMP header cut short")
-    pos = 14 + max(header_size, 4)  # the file position after the header
+    pos = base + max(header_size, 4)  # the file position after the header
     masks = None
     if header_size == 12:
         lay.width, lay.height, bits = _u16(header, 0), _u16(header, 2), _u16(header, 6)
@@ -140,11 +146,13 @@ def _layout(data: bytes) -> _Layout:
             lay.palette[:n] = bgr[:, 2::-1]
     lay.stride = ((lay.width * bits + 31) >> 3) & ~3
     lay.offset = offset or pos
+    return lay
+
+
+def _check_size(lay: _Layout) -> None:
     if lay.width <= 0 or lay.height <= 0:
         raise ValueError(f"BMP of {lay.width}x{lay.height} pixels")
-    if lay.width * lay.height > _MAX_PIXELS:
-        raise ValueError(f"BMP of {lay.width}x{lay.height} pixels is past PIL's limit")
-    return lay
+    bomb_check(lay.width, lay.height)
 
 
 def _unpack(rows: np.ndarray, width: int, rawmode: str) -> np.ndarray:
@@ -221,37 +229,44 @@ def _rle(data: bytes, start: int, width: int, height: int, rle4: bool) -> bytes:
     return bytes(out)
 
 
+def pixels(data: bytes, lay: _Layout) -> np.ndarray:
+    """The image of layout ``lay`` as (H, W, 3) uint8, as PIL's
+    ``convert("RGB")`` makes it (unchecked: ``decode_bmp`` checks the size)."""
+    w, h = lay.width, lay.height
+    if lay.rle is not None:
+        if lay.mode not in ("P", "L"):
+            raise ValueError(f"RLE pixels in a {lay.mode} BMP")
+        px = _rle(data, lay.offset, w, h, lay.rle)
+        if len(px) < w * h:
+            raise ValueError("not enough image data")
+        img = np.frombuffer(px, np.uint8, w * h).reshape(h, w)
+    else:
+        row_bytes = (w * _RAW_BITS[lay.rawmode] + 7) // 8
+        if lay.stride < row_bytes:
+            raise ValueError("BMP rows narrower than their pixels")
+        need = lay.offset + (h - 1) * lay.stride + row_bytes if h else 0
+        if need > len(data):
+            raise ValueError("BMP pixel data cut short")
+        buf = np.zeros(h * lay.stride, np.uint8)
+        body = np.frombuffer(data, np.uint8)[lay.offset:lay.offset + h * lay.stride]
+        buf[:len(body)] = body
+        img = _unpack(buf.reshape(h, lay.stride), w, lay.rawmode)
+    if lay.direction == -1:
+        img = img[::-1]
+    if lay.mode == "P":
+        return lay.palette[img]
+    if img.ndim == 2:
+        return np.repeat(img[:, :, None], 3, axis=2).astype(np.uint8)
+    return np.ascontiguousarray(img)
+
+
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """BMP bytes → (H, W, 3) uint8, as PIL's ``convert("RGB")`` makes it.
     ``name`` labels the errors."""
     try:
-        lay = _layout(data)
-        w, h = lay.width, lay.height
-        if lay.rle is not None:
-            if lay.mode not in ("P", "L"):
-                raise ValueError(f"RLE pixels in a {lay.mode} BMP")
-            px = _rle(data, lay.offset, w, h, lay.rle)
-            if len(px) < w * h:
-                raise ValueError("not enough image data")
-            img = np.frombuffer(px, np.uint8, w * h).reshape(h, w)
-        else:
-            row_bytes = (w * _RAW_BITS[lay.rawmode] + 7) // 8
-            if lay.stride < row_bytes:
-                raise ValueError("BMP rows narrower than their pixels")
-            need = lay.offset + (h - 1) * lay.stride + row_bytes if h else 0
-            if need > len(data):
-                raise ValueError("BMP pixel data cut short")
-            buf = np.zeros(h * lay.stride, np.uint8)
-            body = np.frombuffer(data, np.uint8)[lay.offset:lay.offset + h * lay.stride]
-            buf[:len(body)] = body
-            img = _unpack(buf.reshape(h, lay.stride), w, lay.rawmode)
-        if lay.direction == -1:
-            img = img[::-1]
-        if lay.mode == "P":
-            return lay.palette[img]
-        if img.ndim == 2:
-            return np.repeat(img[:, :, None], 3, axis=2).astype(np.uint8)
-        return np.ascontiguousarray(img)
+        lay = layout(data)
+        _check_size(lay)
+        return pixels(data, lay)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
 
@@ -277,7 +292,8 @@ def bmp_head_refusal(head: bytes, f: BinaryIO) -> Optional[str]:
         return None
     data = head + f.read()
     try:
-        lay = _layout(data)
+        lay = layout(data)
+        _check_size(lay)
         if lay.rle is not None and lay.mode not in ("P", "L"):
             return f"RLE pixels in a {lay.mode} BMP"
         if lay.rle is None and lay.stride < (lay.width * _RAW_BITS[lay.rawmode] + 7) // 8:

@@ -11,7 +11,7 @@ import time
 
 import torch
 
-TRACE_ATTEMPTS = 5
+TRACE_ATTEMPTS = 10
 GUARD_S = 0.05
 
 
@@ -32,11 +32,11 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def _trace(fn, reps: int) -> list:
+def _trace(fn, reps: int, guard_s: float = GUARD_S) -> list:
     """The CUDA events of ``reps`` calls of ``fn``, aggregated by name. The
     profiler runs ``reps`` calls as a warm-up step, whose records it
     discards, before the ``reps`` it keeps: the records of the kernels in a
-    trace's first moments are often missing. The card idles ``GUARD_S``
+    trace's first moments are often missing. The card idles ``guard_s``
     before each step ends."""
     cuda = torch.autograd.DeviceType.CUDA
     kept: list = []
@@ -52,7 +52,7 @@ def _trace(fn, reps: int) -> list:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(GUARD_S)
+            time.sleep(guard_s)
             prof.step()
     return kept
 
@@ -63,12 +63,13 @@ def device_kernels(fn, reps: int = 20) -> dict:
     divided by ``reps``. Every kernel of a call runs in every call, so a
     trace in which a kernel's launch count is not a whole multiple of
     ``reps``, or that holds no kernel at all, lost records: it is reported
-    and taken again, and after ``TRACE_ATTEMPTS`` such traces the run
-    fails."""
+    and taken again, with a longer idle before each step ends (the traces
+    of calls of a few microseconds lose records most); after
+    ``TRACE_ATTEMPTS`` such traces the run fails."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        events = _trace(fn, reps)
+        events = _trace(fn, reps, GUARD_S * attempt)
         partial = {ev.key: ev.count for ev in events if ev.count % reps}
         if events and not partial:
             return {ev.key: ev.self_device_time_total / 1e3 / reps for ev in events}

@@ -12,11 +12,15 @@ byte of a 16-bit sample, as PIL unpacks them), and palette images of 1, 2,
 4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is ignored, as
 ``convert("RGB")`` ignores it), plain or Adam7-interlaced, with any of the
 five scanline filters. ``read_image_rgb`` picks
-the reader by the file's first bytes, not its name: PNG here, JPEG, WebP and
-BMP through the port's decoders (``utils/jpeg.py``, ``utils/webp.py``,
-``utils/bmp.py``), and the types left (GIF, TIFF, ICO, PPM and the others
-PIL reads by content) through PIL, imported only for them. ``refused_images``
-lists the JPEG, WebP and BMP files those decoders refuse on their headers.
+the reader by the file's first bytes, not its name, in the order PIL's
+plugins try them: BMP, GIF, JPEG, PNM, PNG here, ICO and CUR, TIFF and WebP
+through the port's decoders (``utils/bmp.py``, ``utils/gif.py``,
+``utils/jpeg.py``, ``utils/pnm.py``, ``utils/ico.py``, ``utils/tiff.py``,
+``utils/webp.py``), and the types left (TGA, PCX, PSD, JPEG 2000 and the
+other plugins PIL opens by content, and TIFFs of the compressions and
+layouts ``utils/tiff.py`` leaves to PIL) through PIL, imported only for
+them. ``refused_images`` lists the files those decoders refuse on their
+headers and, where PIL cannot be imported, the files that would need it.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from vavae_tpu_torch.utils import bmp, webp
+from vavae_tpu_torch.utils import bmp, gif, ico, pnm, tiff, webp
 from vavae_tpu_torch.utils.jpeg import CHECK_HEAD, decode_jpeg, jpeg_head_refusal
+from vavae_tpu_torch.utils.pil_limits import NeedsPil
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → samples per pixel
@@ -181,7 +186,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat, palette = 8, None, [], None
-    while pos < len(data):
+    while pos + 8 <= len(data):  # a cut chunk header ends the file, as in PIL
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
         pos += 12 + length
@@ -199,7 +204,10 @@ def decode_png(data: bytes) -> np.ndarray:
     if depth not in _DEPTHS.get(ctype, ()) or interlace not in (0, 1):
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, "
                          f"interlace {interlace}")
-    raw = zlib.decompress(b"".join(idat))
+    try:  # a stream cut after the last row (its checksum missing) is whole enough for PIL
+        raw = zlib.decompressobj().decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from None
     samples = _samples(raw, h, w, depth, _CHANNELS.get(ctype, 1), interlace)
     if ctype != 3:
         return _to_8_bits(samples, depth, ctype)
@@ -238,44 +246,90 @@ _JPEG_MAGIC = b"\xff\xd8\xff"
 _CHECK_THREADS = 8
 
 
+_OTHERS = "an image that is neither PNG, JPEG, WebP, BMP, GIF, TIFF, PNM, ICO nor CUR"
+
+
+def _ported(head: bytes) -> bool:
+    """Whether a file that starts with ``head`` (its first 12 bytes or
+    more) goes to one of the port's decoders (which may still leave it to
+    PIL)."""
+    return (head[:2] == bmp.MAGIC or gif.is_gif(head) or head[:3] == _JPEG_MAGIC
+            or pnm.is_pnm(head) or head[:8] == _SIGNATURE or ico.is_ico(head)
+            or tiff.is_tiff(head) or webp.is_webp(head))
+
+
 def read_image_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8, as PIL's ``Image.open(path).convert("RGB")``: by the
-    file's first bytes, a PNG through ``decode_png``, a JPEG, WebP or BMP
-    through the port's decoders (an ImageNet file named ``.JPEG`` may hold a
-    PNG), and other types through PIL, imported only for them."""
+    file's first bytes (an ImageNet file named ``.JPEG`` may hold a PNG, a
+    ``.jpg`` a GIF), in the order PIL's plugins try them, a BMP, GIF, JPEG,
+    PNM, PNG, ICO or CUR, TIFF or WebP through the port's decoders, and
+    other types (and the files those decoders leave to PIL, ``NeedsPil``)
+    through PIL, imported only for them."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == _SIGNATURE:
-        return _decode_png_rgb(data, path)
-    if data[:3] == _JPEG_MAGIC:
-        return decode_jpeg(data, path)
-    if webp.is_webp(data[:12]):
-        return webp.decode_webp(data, path)
-    if data[:2] == bmp.MAGIC:
-        return bmp.decode_bmp(data, path)
+    what = _OTHERS
+    try:
+        if data[:2] == bmp.MAGIC:
+            return bmp.decode_bmp(data, path)
+        if gif.is_gif(data):
+            return gif.decode_gif(data, path)
+        if data[:3] == _JPEG_MAGIC:
+            return decode_jpeg(data, path)
+        if pnm.is_pnm(data):
+            return pnm.decode_pnm(data, path)
+        if data[:8] == _SIGNATURE:
+            return _decode_png_rgb(data, path)
+        if ico.is_ico(data):
+            return ico.decode_ico(data, path)
+        if tiff.is_tiff(data):
+            return tiff.decode_tiff(data, path)
+        if webp.is_webp(data):
+            return webp.decode_webp(data, path)
+    except NeedsPil as e:
+        what = str(e)
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path}: reading an image that is neither PNG, JPEG, WebP nor BMP "
-                          "needs PIL (Pillow), which is not installed") from e
+        raise ImportError(f"{path}: reading {what} needs PIL (Pillow), which is not "
+                          "installed") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
 
 
-def _refusal(path: str) -> Optional[str]:
+def _pil_importable() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _refusal(path: str, pil: bool) -> Optional[str]:
     """The file's head read once; the rest only for a JPEG whose frame header
-    lies past it, or a WebP or BMP file."""
+    lies past it, or a WebP, BMP, GIF, PNM, ICO, CUR or TIFF file whose
+    headers need it. Without PIL (``pil`` False), also a file that would
+    need it."""
     with open(path, "rb") as f:
         head = f.read(CHECK_HEAD)
-        return (jpeg_head_refusal(head, f) or webp.webp_head_refusal(head, f)
-                or bmp.bmp_head_refusal(head, f))
+        try:
+            why = (jpeg_head_refusal(head, f) or webp.webp_head_refusal(head, f)
+                   or bmp.bmp_head_refusal(head, f) or gif.gif_head_refusal(head, f)
+                   or pnm.pnm_head_refusal(head, f) or ico.ico_head_refusal(head, f)
+                   or tiff.tiff_head_refusal(head, f))
+        except NeedsPil as e:
+            return None if pil else f"reading {e} needs PIL (Pillow), which is not installed"
+    if why is None and not pil and not _ported(head):
+        why = f"reading {_OTHERS} needs PIL (Pillow), which is not installed"
+    return why
 
 
 def refused_images(paths: Sequence[str]) -> list[tuple[str, str]]:
-    """(path, reason) for each of ``paths`` that the port's JPEG, WebP or BMP
-    decoder refuses on its headers alone (``jpeg_refusal``,
-    ``webp_refusal``, ``bmp_refusal``), in the order of ``paths``, checked on
-    a pool of threads."""
+    """(path, reason) for each of ``paths`` that the port's decoders refuse
+    on their headers alone (``jpeg_refusal``, ``webp_refusal``,
+    ``bmp_refusal`` and the GIF, PNM, ICO/CUR and TIFF readers' header
+    checks), and, where PIL cannot be imported, each that would need it, in
+    the order of ``paths``, checked on a pool of threads."""
+    pil = _pil_importable()
     with ThreadPoolExecutor(_CHECK_THREADS) as pool:
-        reasons = list(pool.map(_refusal, paths))
+        reasons = list(pool.map(lambda p: _refusal(p, pil), paths))
     return [(p, r) for p, r in zip(paths, reasons) if r is not None]
