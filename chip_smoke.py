@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --phase36 [--out results.json]   # phases 1 and 36 alone
     python3 chip_smoke.py --phase37 [--out results.json]   # phases 1 and 37 alone
+    python3 chip_smoke.py --phase38 [--out results.json]   # phases 1, 2 and 38 alone
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
@@ -287,9 +288,26 @@ Phases, each fatal on failure:
      seconds its loader thread spent in ``read_image_rgb`` over its wall;
      (c) ``refused_images`` over a tree holding one TGA file names that
      file as needing PIL, and nothing else.
+  38. the workflow trained on the card: (a) the learning check
+     (``apps/learning_check.py``, the port of ``tests/test_learning_tpu.py``):
+     DiT-S/2 (depth 12, width 384, 6 heads of 64, bf16, SwiGLU, RoPE,
+     RMSNorm) through ``DiTTrainer`` for 1,200 steps at batch 64 on 4
+     classes of seeded 16×16×32 latents (lr 3e-4, β2 0.95, EMA 0.99), then
+     euler-50 split-CFG at scale 2 from the EMA weights, 4 samples a class:
+     the last loss below half the first, at least 0.75 of the samples
+     nearest their class's mean, #1 and #2 launched exactly 12 × 1,200 in
+     training and #1 12 × 49 in sampling; ms/step; (b), in its own
+     processes beside (a): ``python -m vavae_tpu_torch e2e_onchip --smoke
+     --device cuda``: every stage of the whole workflow (dataset, VA-VAE
+     training, export, extraction, DiT training, sampling, tokenizer
+     evaluation, gauge FID) exits 0 on the card, and the record holds them
+     all with finite metrics; then #1 and #2 in fp32 at the full e2e run's
+     DiT-S/2 train step (32, 6, 64, 64) against their plain versions, timed
+     beside SDPA and the bound.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
-likelihood's, and holds ``flash_fwd`` against its plain version at the 1024²
+likelihood's, both also at the learning check's train step (B = 64), and
+holds ``flash_fwd`` against its plain version at the 1024²
 shapes (B = 4 and 2, H = 16, N = 4,096, D = 72) in its three dtype pairs
 (fp32 q̃, k̃ with bf16 v; all bf16; all fp32) and at N = 4,033 (the last key
 tile holds one key and 63 masked ones), within 2e-2 max-abs and, tighter,
@@ -311,6 +329,7 @@ import logging
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -352,6 +371,7 @@ from vavae_tpu_torch.apps import analyze_metrics, domain_adaptation, generation_
 from vavae_tpu_torch.apps import generate_and_filter as gen_filter
 from vavae_tpu_torch.apps import iterative_finetune, lora_finetune, quantize_dit, select_users
 from vavae_tpu_torch.apps import autotune_sampler, convert_latents, export_torch, preflight
+from vavae_tpu_torch.apps import e2e_onchip, learning_check
 from vavae_tpu_torch.apps import prepare_dataset_split, validate_export
 from vavae_tpu_torch.apps.train_classifier import (
     ClassifierTrainer,
@@ -674,9 +694,10 @@ def _attention_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float,
 
 
 # the micro-Doppler DiT-S/2's forward shapes (N = 64 tokens, 6 heads of 64):
-# its dopri5 CFG phase and a batch of 16, half of one 128-query wgmma block
+# its dopri5 CFG phase and a batch of 16, half of one 128-query wgmma block;
+# and the learning check's train step (phase 38), batch 64
 MICRO_FWD_CASES = [(16, 6, 64, 64, True), (16, 6, 64, 64, False),
-                   (8, 6, 64, 64, True), (8, 6, 64, 64, False)]
+                   (8, 6, 64, 64, True), (8, 6, 64, 64, False), (64, 6, 64, 64, True)]
 
 
 def phase_kernels(seed: int) -> dict:
@@ -747,7 +768,8 @@ BWD_CASES = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
              (16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
              (4, 16, 1024, 72, True),
-             (4, 6, 64, 64, True)]  # the micro-Doppler DiT-S/2 likelihood's
+             (4, 6, 64, 64, True),  # the micro-Doppler DiT-S/2 likelihood's
+             (64, 6, 64, 64, True)]  # the learning check's train step (phase 38)
 
 
 def phase_bwd_kernel(seed: int) -> dict:
@@ -4972,6 +4994,107 @@ def phase_other_images(seed: int, device_info: dict, work: str) -> dict:
     return out
 
 
+def phase_learning(device_info: dict) -> dict:
+    """Phase 38 (a): the learning check (``apps/learning_check.py``, the
+    port of ``tests/test_learning_tpu.py``) on the card: DiT-S/2 bf16 for
+    1,200 steps, then euler-50 split-CFG from the EMA weights. The JAX
+    test's assertions, and #1 and #2 launched exactly depth × steps in
+    training (no remat) and #1 depth × model calls in sampling."""
+    reset_counts()
+    res = learning_check.run("cuda")
+    got = counts()
+    depth, steps, calls = res["depth"], res["steps"], res["sample_model_calls"]
+    want = {"nat_attention_fwd": depth * (steps + calls), "nat_attention_bwd": depth * steps}
+    expect_counts(got, want, "the learning check")
+    if res["train_launches"] != [depth * steps] * 2 or res["sample_launches"] != [depth * calls, 0]:
+        fail(f"the learning check: launches in training {res['train_launches']}, in sampling "
+             f"{res['sample_launches']}")
+    log(f"[learning] DiT-S/2 bf16 batch {res['batch']}, {steps} steps: loss "
+        f"{res['first_loss']:.4f} → {res['last_loss']:.4f}, {res['ms_per_step']:.2f} ms/step "
+        f"({res['train_s']:.1f} s), euler-{learning_check.SAMPLE_STEPS} split-CFG "
+        f"{res['sample_s']:.2f} s, nearest-class-mean accuracy {res['accuracy']:.4f}; launches "
+        f"#1 {res['train_launches'][0]} + {res['sample_launches'][0]}, #2 "
+        f"{res['train_launches'][1]} [{device_info['smi']}]")
+    if not learning_check.passed(res):
+        fail(f"the learning check failed: {res}")
+    return res
+
+
+def start_e2e_smoke(work: str) -> tuple[subprocess.Popen, float]:
+    """Phase 38 (b), started: ``python -m vavae_tpu_torch e2e_onchip --smoke
+    --device cuda``, its output to ``work``."""
+    with open(os.path.join(work, "e2e_smoke.log"), "w") as log_file:
+        p = subprocess.Popen([sys.executable, "-m", "vavae_tpu_torch", "e2e_onchip", "--smoke",
+                              "--device", "cuda", "--workdir", os.path.join(work, "e2e"),
+                              "--out", os.path.join(work, "e2e_smoke.json")],
+                             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log_file,
+                             stderr=subprocess.STDOUT, start_new_session=True)
+    return p, time.perf_counter()
+
+
+def stop_e2e_smoke(p: subprocess.Popen) -> None:
+    """Phase 38 (b)'s process group (the command and its stage) killed."""
+    if p.poll() is None:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+
+
+def finish_e2e_smoke(device_info: dict, work: str, p: subprocess.Popen, t0: float) -> dict:
+    """Phase 38 (b), finished: every stage of the run exited 0 on the card
+    and its record holds them all, each with finite metrics."""
+    try:
+        rc = p.wait(timeout=900)
+    finally:
+        stop_e2e_smoke(p)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(os.path.join(work, "e2e_smoke.log")) as f:
+            fail(f"e2e_onchip --smoke: rc {rc}\n{f.read()[-4000:]}")
+    with open(os.path.join(work, "e2e_smoke.json")) as f:
+        doc = json.load(f)
+    stages = doc["stages"]
+    if list(stages) != list(e2e_onchip.STAGES) or not doc["source_sha256"]:
+        fail(f"e2e_onchip --smoke: stages {list(stages)}, source hash {doc['source_sha256']}")
+    if doc["device"]["smi"] != device_info["smi"]:
+        fail(f"e2e_onchip --smoke: device {doc['device']}, expected {device_info['smi']}")
+    tok, dit, gauge = (stages[s]["metrics"] for s in ("evaluate_tokenizer", "train_dit",
+                                                        "gauge_fid"))
+    numbers = [stages[s]["wall_s"] for s in stages] + [
+        tok["psnr"], tok["ssim"], dit["final_train_loss"], stages["train_vavae"]["metrics"]["val"],
+        gauge["gauge_fid_vs_real"], gauge["real_split_floor"], gauge["gauge_fid_matched_n"]]
+    if not all(np.isfinite(numbers)) or stages["sample"]["metrics"]["images"] != 4:
+        fail(f"e2e_onchip --smoke: record {stages}")
+    log(f"[e2e smoke] e2e_onchip --smoke on the card: "
+        + ", ".join(f"{s} {stages[s]['wall_s']:.1f} s" for s in stages)
+        + f"; {seconds:.1f} s in all [{device_info['smi']}]")
+    return {"seconds": seconds, "stages": {s: stages[s]["wall_s"] for s in stages}}
+
+
+def run_learning(device_info: dict) -> dict:
+    """Phase 38: (b) the e2e smoke started in its subprocesses, (a) the
+    learning check beside it in this process, then (b)'s record read; and
+    #1 and #2 in fp32 at the full e2e run's DiT-S/2 train step (batch 32).
+    (a) is host-bound and (b) is mostly processes starting, so the two
+    share the card for the phase's time."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p38_")
+    try:
+        smoke, t_smoke = start_e2e_smoke(work)
+        try:
+            learning = phase_learning(device_info)
+        except BaseException:
+            stop_e2e_smoke(smoke)
+            raise
+        out = {"learning": learning,
+               "e2e_smoke": finish_e2e_smoke(device_info, work, smoke, t_smoke),
+               "e2e_kernels": lora_kernel_rows(SEED + 38, B=32, H=6, tag="e2e")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"[learning] phase 38 {out['phase_seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -4979,6 +5102,9 @@ def main(argv=None) -> int:
                     help="run only the device check and phase 36 (WebP, BMP, the t-SNE)")
     ap.add_argument("--phase37", action="store_true",
                     help="run only the device check and phase 37 (GIF, TIFF, PNM, ICO)")
+    ap.add_argument("--phase38", action="store_true",
+                    help="run only the device check, the build and phase 38 (the learning "
+                         "check and the e2e smoke)")
     ap.add_argument("--dist-case", help=argparse.SUPPRESS)  # a rank of phase 33's worlds
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5014,6 +5140,12 @@ def main(argv=None) -> int:
                 json.dump({"device": device, "other_images": other_images}, f, indent=1)
         return 0
     builds = phase_build()
+    if args.phase38:
+        learning = run_learning(device)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "build": builds, "learning": learning}, f, indent=1)
+        return 0
     kernels = phase_kernels(SEED)
     kernels.update(phase_bwd_kernel(SEED))
     kernels.update(phase_small_kernels(SEED))
@@ -5038,6 +5170,7 @@ def main(argv=None) -> int:
         commands = phase_commands(SEED, device, os.path.join(keep, "extract_fp32"))
         images_tsne = phase_images_tsne(SEED, device, io_work)
         other_images = phase_other_images(SEED, device, io_work)
+        learning = run_learning(device)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(io_work, ignore_errors=True)
@@ -5064,9 +5197,9 @@ def main(argv=None) -> int:
                        "vae_training": vae_training, "apps": apps, "tools": tools,
                        "multidevice": multidevice, "data_io": data_io, "commands": commands,
                        "images_tsne": images_tsne, "other_images": other_images,
-                       "seconds": time.perf_counter() - t0},
+                       "learning": learning, "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-37: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-38: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

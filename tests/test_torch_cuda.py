@@ -707,3 +707,22 @@ def test_image_readers_on_the_card_machine(kind):
         if f"{path.stem}__rgba" in want.files:
             np.testing.assert_array_equal(decode_webp(path.read_bytes(), alpha=True),
                                           want[f"{path.stem}__rgba"], err_msg=path.name)
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_train_then_conditional_sample_learns():
+    """The port of ``tests/test_learning_tpu.py`` (``apps/learning_check.py``,
+    which ``chip_smoke.py`` phase 38 runs too): DiT-S/2 bf16 trained 1,200
+    steps on per-class latents, its EMA weights CFG-sampled; the last loss
+    below half the first, at least 0.75 of the samples nearest their class's
+    mean, #1 and #2 launched exactly once a block a step and #1 once a
+    block a sampling model call."""
+    _cuda_or_skip()
+    from vavae_tpu_torch.apps import learning_check
+
+    res = learning_check.run("cuda")
+    assert learning_check.passed(res), res
+    depth, steps, calls = res["depth"], res["steps"], res["sample_model_calls"]
+    assert res["train_launches"] == [depth * steps, depth * steps]
+    assert res["sample_launches"] == [depth * calls, 0]

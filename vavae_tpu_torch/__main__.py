@@ -1,7 +1,9 @@
 """The port's command index: ``python -m vavae_tpu_torch [command] [args...]``.
 
 The JAX package's 22 commands (``vavae_tpu/__main__.py``), each pointing at
-the port's module, and the port's own profiling pipelines.
+the port's module, the JAX package's whole-workflow scripts
+(``scripts/e2e_onchip.py``, ``scripts/golden_numbers.py``) as commands, and
+the port's own profiling pipelines.
 ``python -m vavae_tpu_torch`` lists them; ``python -m vavae_tpu_torch
 sample --demo ...`` is ``python -m vavae_tpu_torch.pipelines.sample --demo
 ...``. Exit codes: 0, 1 without a command, 2 for an unknown one, else the
@@ -46,6 +48,11 @@ COMMANDS = {
     "preflight": (_A + "preflight", "config doctor: shapes, weights, datasets, outputs"),
     "export_torch": (_A + "export_torch",
                      "export checkpoints BACK to the reference's torch formats"),
+    # whole-workflow drivers
+    "e2e_onchip": (_A + "e2e_onchip",
+                   "dataset -> VA-VAE -> latents -> DiT -> samples -> evals, one record"),
+    "golden_numbers": (_A + "golden_numbers",
+                       "reproduce rFID/FID from the released artifacts (--check: layout)"),
     # the port's profilers (the card)
     "profile_sample": (_P + "profile_sample", "device time of sampling by kernel class"),
     "profile_train": (_P + "profile_train", "device time of a train step by kernel class"),
