@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phase36 [--out results.json]   # phases 1 and 36 alone
     python3 chip_smoke.py --phase37 [--out results.json]   # phases 1 and 37 alone
     python3 chip_smoke.py --phase38 [--out results.json]   # phases 1, 2 and 38 alone
+    python3 chip_smoke.py --phase39 [--out results.json]   # phases 1, 2, 39 and its phase-3 rows
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, each fatal on failure:
@@ -304,9 +305,21 @@ Phases, each fatal on failure:
      all with finite metrics; then #1 and #2 in fp32 at the full e2e run's
      DiT-S/2 train step (32, 6, 64, 64) against their plain versions, timed
      beside SDPA and the bound.
+  39. the big registry variant at full size: ``python -m vavae_tpu_torch
+     big_variant``'s body (``apps/big_variant.py:run``) on
+     LightningDiT-1p6B/1 (depth 28, width 1792, 28 heads of 64, N = 256,
+     1.63 B parameters, bf16 over fp32 weights, bf16 Adam μ, remat "dots")
+     at batch 8 on one card, 2 steps: its own checks (finite losses, the
+     step count, moved parameters and EMA, #1 and #2 launched [56, 28] a
+     step, each part of the state at its arithmetic), those bytes held to
+     14 bytes an element of state and 4 of gradients, ms/step, img/s and
+     peak memory; then the loss gradients of a 1p6B-width model cut to
+     depth 4 (batch 16) with both kernels against plain attention, within
+     ``PATH_TOL``.
 Phase 3 also holds the forward kernel at the micro-Doppler DiT-S/2's shapes
 (N = 64, 6 heads of 64, with and without RoPE) and the backward at its
-likelihood's, both also at the learning check's train step (B = 64), and
+likelihood's, both also at the learning check's train step (B = 64) and at
+the big variants' (8, 28, 256, 64) and (8, 24, 256, 64) with RoPE, and
 holds ``flash_fwd`` against its plain version at the 1024²
 shapes (B = 4 and 2, H = 16, N = 4,096, D = 72) in its three dtype pairs
 (fp32 q̃, k̃ with bf16 v; all bf16; all fp32) and at N = 4,033 (the last key
@@ -371,7 +384,7 @@ from vavae_tpu_torch.apps import analyze_metrics, domain_adaptation, generation_
 from vavae_tpu_torch.apps import generate_and_filter as gen_filter
 from vavae_tpu_torch.apps import iterative_finetune, lora_finetune, quantize_dit, select_users
 from vavae_tpu_torch.apps import autotune_sampler, convert_latents, export_torch, preflight
-from vavae_tpu_torch.apps import e2e_onchip, learning_check
+from vavae_tpu_torch.apps import big_variant, e2e_onchip, learning_check
 from vavae_tpu_torch.apps import prepare_dataset_split, validate_export
 from vavae_tpu_torch.apps.train_classifier import (
     ClassifierTrainer,
@@ -569,14 +582,14 @@ def plain_attention(branch: str):
 
 
 @contextlib.contextmanager
-def xl_depth(depth: int):
-    """Smoke-only: the XL registry entries at XL width, cut to ``depth``."""
-    saved = dict(dit._VARIANTS["XL"])
-    dit._VARIANTS["XL"] = dict(saved, depth=depth)
+def variant_depth(size: str, depth: int):
+    """Smoke-only: the ``size`` registry entries at their width, cut to ``depth``."""
+    saved = dict(dit._VARIANTS[size])
+    dit._VARIANTS[size] = dict(saved, depth=depth)
     try:
         yield
     finally:
-        dit._VARIANTS["XL"] = saved
+        dit._VARIANTS[size] = saved
 
 
 def branch_config(branch: str) -> Config:
@@ -698,15 +711,18 @@ def _attention_bound(B: int, H: int, N: int, D: int, rope: bool) -> tuple[float,
 # and the learning check's train step (phase 38), batch 64
 MICRO_FWD_CASES = [(16, 6, 64, 64, True), (16, 6, 64, 64, False),
                    (8, 6, 64, 64, True), (8, 6, 64, 64, False), (64, 6, 64, 64, True)]
-
-
-def phase_kernels(seed: int) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [(16, 16, 256, 72, True), (16, 16, 256, 72, False),
+# the big variants' train step at batch 8 (phase 39): 1p6B/1 and 1p0B/1, 28
+# and 24 heads of 64 at N = 256, the forward and the backward
+BIG_CASES = [(8, 28, 256, 64, True), (8, 24, 256, 64, True)]
+FWD_CASES = [(16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (8, 16, 256, 72, True), (8, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
              (4, 16, 1024, 72, True), (4, 16, 1024, 72, False),
-             *MICRO_FWD_CASES]
+             *MICRO_FWD_CASES, *BIG_CASES]
+
+
+def phase_kernels(seed: int, cases=FWD_CASES) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst, rows = 0.0, []
     for B, H, N, D, rope in cases:
         qkv, tables = _attention_case(B, H, N, D, rope, gen)
@@ -769,13 +785,14 @@ BWD_CASES = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
              (4, 16, 1024, 72, True),
              (4, 6, 64, 64, True),  # the micro-Doppler DiT-S/2 likelihood's
-             (64, 6, 64, 64, True)]  # the learning check's train step (phase 38)
+             (64, 6, 64, 64, True),  # the learning check's train step (phase 38)
+             *BIG_CASES]
 
 
-def phase_bwd_kernel(seed: int) -> dict:
+def phase_bwd_kernel(seed: int, cases=BWD_CASES) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     worst, rows = 0.0, []
-    for B, H, N, D, rope in BWD_CASES:
+    for B, H, N, D, rope in cases:
         qkv, tables = _attention_case(B, H, N, D, rope, gen)
         g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
         got = fused_qkv_attention_bwd(qkv, g, rope=tables)
@@ -1150,7 +1167,7 @@ def _training_loss(model, transport, x, y, t, x0, drop):
 
 
 def phase_train_path(cfg: Config, model, seed: int, branch: str = "production",
-                     batch: int = 2 * BATCH, tol: float = PATH_TOL) -> dict:
+                     batch: int = 2 * BATCH, tol: float = PATH_TOL, what: str = "XL/1") -> dict:
     """XL/1 gradients of the training loss with both kernels against those
     with attention forced through the plain version (autograd of it); any
     DiT of ``cfg`` with ``model``, within ``tol``."""
@@ -1182,21 +1199,21 @@ def phase_train_path(cfg: Config, model, seed: int, branch: str = "production",
     # route has no backward kernel
     fwd_n = (2 if model.use_checkpoint else 1) * model.depth
     want = {fwd: fwd_n} if bwd is None else {fwd: fwd_n, bwd: model.depth}
-    expect_counts(launches, want, f"{branch} XL/1 training backward")
+    expect_counts(launches, want, f"{branch} {what} training backward")
     with plain_attention(branch):
         plain, parts_plain = grads()
     rel = ((with_kernel - plain).norm() / plain.norm()).item()
     rel_parts = {key: ((parts_kernel[key] - parts_plain[key]).norm()
                        / parts_plain[key].norm()).item() for key in groups}
     if not (rel <= tol and all(r <= tol for r in rel_parts.values())):
-        fail(f"{branch} XL/1 gradients with the kernels vs plain attention: relative error "
+        fail(f"{branch} {what} gradients with the kernels vs plain attention: relative error "
              f"{rel}, {rel_parts} (limit {tol})")
     qkv_part = f", attn.qkv {rel_parts['attn.qkv']:.3e}" if "attn.qkv" in rel_parts else ""
-    log(f"[train-path] {branch} XL/1 loss gradients B={B} N={s * s} depth {model.depth}, kernels vs "
-        f"plain attention: relative error {rel:.3e}{qkv_part}")
+    log(f"[train-path] {branch} {what} loss gradients B={B} N={s * s} depth {model.depth}, kernels "
+        f"vs plain attention: relative error {rel:.3e}{qkv_part}")
     for key, r in rel_parts.items():
         if key != "attn.qkv":
-            log(f"[train-path] {branch} XL/1 {key} gradients, kernels vs plain attention: "
+            log(f"[train-path] {branch} {what} {key} gradients, kernels vs plain attention: "
                 f"relative error {r:.3e}")
     return {"rel_err": rel, **{f"rel_err_{key}": r for key, r in rel_parts.items()},
             "launches": [launches[fwd], launches[bwd] if bwd else 0]}
@@ -1275,7 +1292,7 @@ def phase_entry_point(seed: int, branch: str = "production") -> dict:
             "data": {"data_path": data},
             "train": {"max_steps": 4, "global_batch_size": 8, "ckpt_every": 2, "log_every": 2,
                       "output_dir": os.path.join(work, "out"), "exp_name": "smoke"}})
-        with xl_depth(depth):  # an XL/1-width DiT, depth 2
+        with variant_depth("XL", depth):  # an XL/1-width DiT, depth 2
             reset_counts()
             t0 = time.perf_counter()
             first = do_train(cfg, device="cuda")
@@ -1313,7 +1330,7 @@ def phase_no_rope(seed: int) -> dict:
     """Phase 14: the forward kernel without RoPE, on an XL/1-width qk-norm
     model at depth NO_ROPE_DEPTH, forward and loss gradients."""
     branch = "qknorm_no_rope"
-    with xl_depth(NO_ROPE_DEPTH):
+    with variant_depth("XL", NO_ROPE_DEPTH):
         cfg, model = build_xl(seed, branch)
     on_path = phase_kernel_on_path(model, seed, branch)
     train_path = phase_train_path(cfg, model, seed, branch)
@@ -1338,7 +1355,7 @@ def phase_hires(seed: int, device: dict) -> dict:
     del model
     torch.cuda.empty_cache()
     for branch in ("hires", "hires_qknorm"):
-        with xl_depth(HIRES_GRAD_DEPTH):
+        with variant_depth("XL", HIRES_GRAD_DEPTH):
             cfg, model = build_xl(seed, branch)
         out[f"{branch}_train_path"] = phase_train_path(cfg, model, seed, branch, HIRES_BATCH)
         del model
@@ -1857,7 +1874,7 @@ def phase_extraction(seed: int, device_info: dict, work: str) -> tuple[dict, VA_
         "data": {"data_path": out["fp32"]},
         "train": {"max_steps": steps, "global_batch_size": 8, "ckpt_every": steps,
                   "log_every": 1, "output_dir": os.path.join(work, "train"), "exp_name": "smoke"}})
-    with xl_depth(depth):
+    with variant_depth("XL", depth):
         reset_counts()
         t0 = time.perf_counter()
         state = do_train(cfg, device="cuda")
@@ -2548,7 +2565,7 @@ def phase_lora_xl(seed: int) -> dict:
     depth cut to ``LORA_XL_DEPTH``, bf16, remat "dots") with both kernels
     against plain attention."""
     cfg = branch_config("production")
-    with xl_depth(LORA_XL_DEPTH):
+    with variant_depth("XL", LORA_XL_DEPTH):
         model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
     randomize_(model, seed)
     trainer = LoRATrainer(model, build_transport(cfg), rank=LORA_RANK, alpha=LORA_ALPHA)
@@ -3377,7 +3394,7 @@ def _tools_do_train(seed: int, work: str) -> dict:
         os.environ.update(VAVAE_PROFILE=prof, VAVAE_PROFILE_AT="2", VAVAE_PROFILE_STEPS="2")
         ckpt_lib.AsyncCheckpointer.save = mirrored
         try:
-            with xl_depth(TOOLS_DEPTH):
+            with variant_depth("XL", TOOLS_DEPTH):
                 t0 = time.perf_counter()
                 do_train(cfg, device="cuda")
                 seconds[mode] = time.perf_counter() - t0
@@ -3722,7 +3739,7 @@ def _dist_case_entry(work: str) -> dict:
     world, fwd, bwd, depth = mesh_lib.process_count(), "nat_attention_fwd", "nat_attention_bwd", 2
     out = {}
     for name, par in _entry_layouts(world).items():
-        with xl_depth(depth):
+        with variant_depth("XL", depth):
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -3742,7 +3759,7 @@ def _dist_case_entry(work: str) -> dict:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with xl_depth(depth):
+    with variant_depth("XL", depth):
         folder = do_sample(cfg, device="cuda")
     got = counts()
     expect_counts(got, {fwd: depth * (SAMPLER_STEPS - 1)}, "rank-striped sampling")
@@ -3762,7 +3779,7 @@ def _dist_trainer(branch: str, mesh=None):
     """An XL/1-width DiT at depth DIST_DEPTH (seeded random weights) and its
     production trainer, on ``mesh``."""
     cfg = branch_config(branch)
-    with xl_depth(DIST_DEPTH):
+    with variant_depth("XL", DIST_DEPTH):
         model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
     randomize_(model, SEED)
     return build_trainer(cfg, model, steps_per_epoch=1, max_steps=DIST_STEPS, mesh=mesh)
@@ -3836,7 +3853,7 @@ def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
             write_safetensors(os.path.join(work, "latents", f"shard_{i:03d}.safetensors"), {
                 "latents": lat, "latents_flip": np.ascontiguousarray(lat[..., ::-1]),
                 "labels": rs.integers(0, 1000, (24,)).astype(np.int32)})
-        with xl_depth(2):
+        with variant_depth("XL", 2):
             _, model = build_xl(seed)
         write_safetensors(os.path.join(work, "xl.safetensors"),
                           flatten(dit_state_to_jax(model.state_dict()), "params"))
@@ -3847,7 +3864,7 @@ def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
         t0 = time.perf_counter()
         procs = _dist_start("entry", world, work, "nccl")
         procs_b = _dist_start("layouts", 2, work, "gloo") if with_b else []
-        with xl_depth(2):
+        with variant_depth("XL", 2):
             do_train(_entry_config(work, "single"), device="cuda")
         ref = {}
         for branch in ("production", "qknorm"):
@@ -4195,7 +4212,7 @@ def _train_reader_ab(shards: str, work: str) -> dict:
             "train": {"max_steps": IO_AB_STEPS, "global_batch_size": IO_READER_BATCH,
                       "ckpt_every": 10 ** 9, "log_every": IO_AB_WINDOW,
                       "output_dir": out_dir, "exp_name": "ab"}})
-        with xl_depth(IO_TRAIN_DEPTH), contextlib.ExitStack() as stack:
+        with variant_depth("XL", IO_TRAIN_DEPTH), contextlib.ExitStack() as stack:
             if name == "python":
                 stack.enter_context(_patched(ImgLatentDataset, "batches", _python_batches))
             reset_counts()
@@ -4269,7 +4286,7 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
                   "ckpt_every": IO_TRAIN_STEPS, "log_every": 1,
                   "output_dir": os.path.join(work, "train"), "exp_name": "imagenet"}})
     fwd, bwd = BRANCHES["production"]["fwd"], BRANCHES["production"]["bwd"]
-    with xl_depth(IO_TRAIN_DEPTH):
+    with variant_depth("XL", IO_TRAIN_DEPTH):
         reset_counts()
         t0 = time.perf_counter()
         state = do_train(cfg, device="cuda")
@@ -4287,7 +4304,7 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
     out["train_reader_ab"] = ab = _train_reader_ab(rate_shards, work)
 
     # a FID-folder sampling run through the native PNG writer
-    with xl_depth(IO_SAMPLE_DEPTH):
+    with variant_depth("XL", IO_SAMPLE_DEPTH):
         scfg, model = build_xl(seed)
     ckpt = os.path.join(work, "xl_depth2.safetensors")
     write_safetensors(ckpt, flatten(dit_state_to_jax(model.state_dict()), "params"))
@@ -4301,7 +4318,7 @@ def phase_imagenet(seed: int, device_info: dict, work: str, root: str, manifest:
     run = scfg.merged_with({"ckpt_path": ckpt, "sample_folder": os.path.join(work, "samples"),
                             "data": {"latent_norm": False},
                             "sample": {"num_sampling_steps": SAMPLER_STEPS, "fid_num": IO_SAMPLE_NUM}})
-    with xl_depth(IO_SAMPLE_DEPTH), _patched(sample_mod, "write_pngs", recording_writer):
+    with variant_depth("XL", IO_SAMPLE_DEPTH), _patched(sample_mod, "write_pngs", recording_writer):
         reset_counts()
         t0 = time.perf_counter()
         sample_folder = do_sample(run, device="cuda")
@@ -5095,6 +5112,50 @@ def run_learning(device_info: dict) -> dict:
     return out
 
 
+# -- phase 39: the big registry variant at full size ----------------------------------
+
+BIG_VARIANT, BIG_BATCH, BIG_STEPS = "LightningDiT-1p6B/1", 8, 2
+BIG_PATH_DEPTH = 4
+
+
+def run_big_variant(seed: int, device_info: dict) -> dict:
+    """Phase 39: (a) ``big_variant``'s body on the full-size 1p6B/1 at batch
+    8, #1 and #2 counted over its run, the state's bytes held to 14 an
+    element and the gradients' to 4; (b) the loss gradients of a 1p6B-width
+    DiT cut to depth 4 with both kernels against plain attention."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rec = big_variant.run(BIG_VARIANT, BIG_BATCH, BIG_STEPS, seed, "cuda")
+    got = counts()
+    depth = dit._VARIANTS["1p6B"]["depth"]
+    expect_counts(got, {"nat_attention_fwd": BIG_STEPS * 2 * depth,
+                        "nat_attention_bwd": BIG_STEPS * depth}, "phase 39 big_variant")
+    n = rec["params"]
+    want = {part: n * size for part, size in big_variant.PART_BYTES.items()}
+    held = {part: v["measured"] for part, v in rec["state_bytes"].items()}
+    if held != want or rec["largest_param_shape"] != [10752, 1792]:
+        fail(f"phase 39: state bytes {held}, expected {want}; largest parameter "
+             f"{rec['largest_param_shape']}")
+    log(f"[big] {BIG_VARIANT} ({n:,} parameters) batch {BIG_BATCH}, {BIG_STEPS} steps: loss "
+        f"{rec['loss_step1']:.4f} → {rec['loss_step2']:.4f}, init {rec['init_s']:.2f} s, steps "
+        f"{rec['first_step_s']:.3f} / {rec['second_step_s']:.3f} s, {rec['ms_per_step']:.2f} "
+        f"ms/step, {rec['img_per_s']:.2f} img/s, peak {rec['peak_bytes'] / 2**30:.2f} GiB, "
+        f"state {sum(want.values()) - want['grads']:,} B + gradients {want['grads']:,} B, "
+        f"launches per step {rec['launches_per_step']} [{device_info['smi']}]")
+    torch.cuda.empty_cache()
+    cfg = Config(PRODUCTION).merged_with({"model": {"model_type": BIG_VARIANT}})
+    with variant_depth("1p6B", BIG_PATH_DEPTH):
+        model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
+    randomize_(model, seed)
+    path = phase_train_path(cfg, model, seed, what=f"{BIG_VARIANT}-width")
+    del model
+    torch.cuda.empty_cache()
+    out = {"command": rec, "train_path": path, "phase_seconds": time.perf_counter() - t0}
+    log(f"[big] phase 39 {out['phase_seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -5105,6 +5166,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase38", action="store_true",
                     help="run only the device check, the build and phase 38 (the learning "
                          "check and the e2e smoke)")
+    ap.add_argument("--phase39", action="store_true",
+                    help="run only the device check, the build, phase 3 at the big variants' "
+                         "shapes and phase 39 (LightningDiT-1p6B/1 at full size)")
     ap.add_argument("--dist-case", help=argparse.SUPPRESS)  # a rank of phase 33's worlds
     ap.add_argument("--dist-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5146,6 +5210,15 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump({"device": device, "build": builds, "learning": learning}, f, indent=1)
         return 0
+    if args.phase39:
+        kernels = phase_kernels(SEED, BIG_CASES)
+        kernels.update(phase_bwd_kernel(SEED, BIG_CASES))
+        big = run_big_variant(SEED, device)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "build": builds, "kernels": kernels,
+                           "big_variant": big}, f, indent=1)
+        return 0
     kernels = phase_kernels(SEED)
     kernels.update(phase_bwd_kernel(SEED))
     kernels.update(phase_small_kernels(SEED))
@@ -5171,6 +5244,7 @@ def main(argv=None) -> int:
         images_tsne = phase_images_tsne(SEED, device, io_work)
         other_images = phase_other_images(SEED, device, io_work)
         learning = run_learning(device)
+        big = run_big_variant(SEED, device)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(io_work, ignore_errors=True)
@@ -5197,9 +5271,10 @@ def main(argv=None) -> int:
                        "vae_training": vae_training, "apps": apps, "tools": tools,
                        "multidevice": multidevice, "data_io": data_io, "commands": commands,
                        "images_tsne": images_tsne, "other_images": other_images,
-                       "learning": learning, "seconds": time.perf_counter() - t0},
+                       "learning": learning, "big_variant": big,
+                       "seconds": time.perf_counter() - t0},
                       f, indent=1)
-    log(f"[run] phases 1-38: {time.perf_counter() - t0:.1f} s")
+    log(f"[run] phases 1-39: {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -377,10 +377,10 @@ def test_commands_cover_jax_and_import_port_modules():
     from vavae_tpu_torch.__main__ import COMMANDS
 
     assert set(JAX_COMMANDS) <= set(COMMANDS)
-    # the port's profilers, and the JAX package's whole-workflow scripts
+    # the port's profilers, and the JAX package's whole-workflow and big-variant scripts
     assert set(COMMANDS) - set(JAX_COMMANDS) == {"profile_sample", "profile_train",
                                                  "profile_attention_fwd", "e2e_onchip",
-                                                 "golden_numbers"}
+                                                 "golden_numbers", "big_variant"}
     for name, (module, _) in COMMANDS.items():
         assert module.startswith("vavae_tpu_torch."), name
         assert callable(importlib.import_module(module).main), name

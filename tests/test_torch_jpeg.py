@@ -500,3 +500,56 @@ def test_committed_imagenet_crops_match_the_port(tmp_path):
         crop = want["crops"][want["fixture"][i]]
         np.testing.assert_array_equal(x, (crop / 127.5 - 1.0).astype(np.float32))
         assert y == want["labels"][i]
+
+
+# -- the decompression-bomb bound (PIL's, from the frame header) ---------------------------------
+
+
+def _sized(data: bytes, h: int, w: int) -> bytes:
+    """``data`` with its SOF0 frame saying h × w pixels."""
+    sof = data.index(b"\xff\xc0")
+    return data[:sof + 5] + h.to_bytes(2, "big") + w.to_bytes(2, "big") + data[sof + 9:]
+
+
+def test_bomb_jpeg_is_refused_as_pil_refuses_it(tmp_path):
+    """A baseline JPEG of a few hundred bytes whose SOF0 says 13,400 ×
+    13,400 = 179,560,000 pixels: refused from the frame header with PIL's
+    message before anything is allocated by the pixel, and named by
+    ``refused_images``."""
+    path = tmp_path / "bomb.jpg"
+    path.write_bytes(_sized(_encode(_image(8, 8, 11), quality=90), 13400, 13400))
+    assert path.stat().st_size < 1000
+    with pytest.raises(Image.DecompressionBombError) as pil:
+        Image.open(path)
+    want = str(pil.value)
+    assert want.startswith("Image size (179560000 pixels) exceeds limit of 178956970 pixels")
+    with pytest.raises(ValueError) as e:
+        read_image_rgb(str(path))
+    assert str(e.value) == f"{path}: {want}"
+    assert jpeg_refusal(str(path)) == want
+    assert refused_images([str(path)]) == [(str(path), want)]
+
+
+@pytest.mark.parametrize("h,refused", [(2731, True), (2730, False)])
+def test_bomb_bound_boundary_jpeg(tmp_path, h, refused):
+    """65,535 × 2,731 = 178,976,085 pixels lies past 2 × MAX_IMAGE_PIXELS =
+    178,956,970 and is refused; 65,535 × 2,730 = 178,910,550 is not. Held
+    on the header check alone (also behind 20 KB of APP1, past the first
+    16 KiB that ``refused_images`` reads), as PIL's ``Image.open`` holds
+    it, so no 179 M pixels are decoded."""
+    base = _encode(_image(8, 8, 12), quality=90)
+    late = _join([(0xE1, b"\xff\xe1" + (20002).to_bytes(2, "big") + bytes(20000))]
+                 + _segments(base))
+    for i, data in enumerate((base, late)):
+        path = tmp_path / f"edge{i}.jpg"
+        path.write_bytes(_sized(data, h, 65535))
+        if refused:
+            with pytest.raises(Image.DecompressionBombError) as pil:
+                Image.open(path)
+            assert refused_images([str(path)]) == [(str(path), str(pil.value))]
+            with pytest.raises(ValueError, match="decompression bomb"):
+                read_jpeg(str(path))
+        else:
+            with pytest.warns(Image.DecompressionBombWarning), Image.open(path) as im:
+                assert im.size == (65535, h)  # opened (a warning only), as the port passes it
+            assert jpeg_refusal(str(path)) is None and refused_images([str(path)]) == []

@@ -441,6 +441,14 @@ def case_preempt(out):
     return {"step": train_dit.do_train(spec["preempt"], device="cpu").step}
 
 
+def case_big_variant(out):
+    """The big-variant command's body (``apps/big_variant.py:run``) on
+    LightningDiT-S/2 at batch 2: FSDP over the world."""
+    from vavae_tpu_torch.apps import big_variant
+
+    return big_variant.run("LightningDiT-S/2", 2, 2, 0, "cpu")
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 

@@ -2,7 +2,8 @@
 
 The JAX package's 22 commands (``vavae_tpu/__main__.py``), each pointing at
 the port's module, the JAX package's whole-workflow scripts
-(``scripts/e2e_onchip.py``, ``scripts/golden_numbers.py``) as commands, and
+(``scripts/e2e_onchip.py``, ``scripts/golden_numbers.py``) and its big-variant
+run (``scripts/dryrun_big_variant.py``) as commands, and
 the port's own profiling pipelines.
 ``python -m vavae_tpu_torch`` lists them; ``python -m vavae_tpu_torch
 sample --demo ...`` is ``python -m vavae_tpu_torch.pipelines.sample --demo
@@ -53,6 +54,8 @@ COMMANDS = {
                    "dataset -> VA-VAE -> latents -> DiT -> samples -> evals, one record"),
     "golden_numbers": (_A + "golden_numbers",
                        "reproduce rFID/FID from the released artifacts (--check: layout)"),
+    "big_variant": (_A + "big_variant",
+                    "train a big registry variant at full size, FSDP over the world"),
     # the port's profilers (the card)
     "profile_sample": (_P + "profile_sample", "device time of sampling by kernel class"),
     "profile_train": (_P + "profile_train", "device time of a train step by kernel class"),

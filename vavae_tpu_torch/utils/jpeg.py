@@ -9,10 +9,10 @@ scans leave coefficients unrefined are block-smoothed as libjpeg smooths
 them. Corrupt data decodes as libjpeg-turbo's C code decodes it (its x86
 SIMD inverse DCT can round out-of-range coefficients differently). What PIL
 refuses too (hierarchical and arithmetic-coded lossless files, precisions
-other than 8 bits) raises ``ValueError`` naming the file; nothing is handed
-to PIL. ``jpeg_refusal`` finds those from their frame header, without
-decoding. ctypes releases the interpreter lock for the call, so threads
-decode in parallel.
+other than 8 bits, and a frame past PIL's decompression-bomb bound) raises
+``ValueError`` naming the file; nothing is handed to PIL. ``jpeg_refusal``
+finds those from their frame header, without decoding. ctypes releases the
+interpreter lock for the call, so threads decode in parallel.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import BinaryIO, Optional
 import numpy as np
 
 from vavae_tpu_torch.native.build import load_library
+from vavae_tpu_torch.utils.pil_limits import bomb_check
 
 _ERR_LEN = 512
 _MAGIC = b"\xff\xd8\xff"
@@ -44,14 +45,27 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes → (H, W, 3) uint8 RGB. ``name`` labels the errors."""
-    lib = _library()
+def _size(lib: ctypes.CDLL, data: bytes) -> tuple[int, int]:
+    """(height, width) from the frame header, which ``jpeg_header`` reads
+    without allocating anything by the pixel, held to PIL's bomb bound;
+    ``ValueError`` for what either refuses."""
     err = ctypes.create_string_buffer(_ERR_LEN)
     dims = (ctypes.c_int64 * 2)()
     if lib.jpeg_header(data, len(data), dims, err, _ERR_LEN) != 0:
-        raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
-    out = np.empty((dims[0], dims[1], 3), np.uint8)
+        raise ValueError(err.value.decode(errors="replace"))
+    bomb_check(dims[1], dims[0])
+    return dims[0], dims[1]
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes → (H, W, 3) uint8 RGB. ``name`` labels the errors."""
+    lib = _library()
+    try:
+        size = _size(lib, data)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    out = np.empty((*size, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
     if lib.jpeg_decode_rgb(data, len(data), out.ctypes.data, out.nbytes, err, _ERR_LEN) != 0:
         raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
     return out
@@ -67,8 +81,8 @@ def read_jpeg(path: str) -> np.ndarray:
 def jpeg_refusal(path: str) -> Optional[str]:
     """Why ``read_jpeg`` refuses the file at ``path``, judged on its frame
     header alone: an SOF marker or a precision that PIL does not decode
-    either; else None, as for a file that is not a JPEG or is truncated
-    (which PIL refuses too). Reads the first 16 KiB of most files, and all
+    either, or a frame past PIL's decompression-bomb bound; else None, as
+    for a file that is not a JPEG or is truncated (which PIL refuses too). Reads the first 16 KiB of most files, and all
     of one whose frame header lies further in."""
     with open(path, "rb") as f:
         return jpeg_head_refusal(f.read(CHECK_HEAD), f)
@@ -86,5 +100,12 @@ def jpeg_head_refusal(head: bytes, f: BinaryIO) -> Optional[str]:
     if rc == 1 and len(head) == CHECK_HEAD:
         head += f.read()
         rc = lib.jpeg_check(head, len(head), err, _ERR_LEN)
-    return err.value.decode(errors="replace") if rc < 0 else None
+    if rc < 0:
+        return err.value.decode(errors="replace")
+    if rc == 0:  # the frame header lies in head
+        try:
+            _size(lib, head)
+        except ValueError as e:
+            return str(e)
+    return None
 

@@ -11,7 +11,9 @@ the same 8-bit samples of it: grayscale of 1, 2, 4, 8 or 16 bits (scaled by
 byte of a 16-bit sample, as PIL unpacks them), and palette images of 1, 2,
 4 or 8 bits (expanded through ``PLTE``; ``tRNS`` is ignored, as
 ``convert("RGB")`` ignores it), plain or Adam7-interlaced, with any of the
-five scanline filters. ``read_image_rgb`` picks
+five scanline filters. As PIL's ``Image.open``, it checks the CRC of every
+chunk before the first IDAT and no later one, and refuses an image past
+PIL's decompression-bomb bound from IHDR. ``read_image_rgb`` picks
 the reader by the file's first bytes, not its name, in the order PIL's
 plugins try them: BMP, GIF, JPEG, PNM, PNG here, ICO and CUR, TIFF and WebP
 through the port's decoders (``utils/bmp.py``, ``utils/gif.py``,
@@ -28,13 +30,13 @@ import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import BinaryIO, Optional, Sequence
 
 import numpy as np
 
 from vavae_tpu_torch.utils import bmp, gif, ico, pnm, tiff, webp
 from vavae_tpu_torch.utils.jpeg import CHECK_HEAD, decode_jpeg, jpeg_head_refusal
-from vavae_tpu_torch.utils.pil_limits import NeedsPil
+from vavae_tpu_torch.utils.pil_limits import NeedsPil, bomb_check
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → samples per pixel
@@ -178,32 +180,75 @@ def _to_8_bits(s: np.ndarray, depth: int, ctype: int) -> np.ndarray:
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
+class _Cut(Exception):
+    """The data ends inside the chunks before the first IDAT."""
+
+
+def _head_chunks(data: bytes) -> tuple[Optional[tuple], Optional[np.ndarray], int]:
+    """IHDR's fields (None without one), the PLTE (None without one) and the
+    offset of the first IDAT or IEND chunk, read from the chunks before it
+    as PIL's ``Image.open`` reads them (``PngImageFile._open``): each chunk
+    whole, its CRC (``zlib.crc32`` over type and body) equal to the stored
+    one, known or not (``PngStream.crc``), and the image's size held to
+    PIL's bomb bound as soon as IHDR is read. Raises ``_Cut`` where the
+    data ends first, ``ValueError`` for what PIL refuses."""
+    pos, header, palette = 8, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise _Cut
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        if tag in (b"IDAT", b"IEND"):
+            return header, palette, pos
+        end = pos + 8 + length
+        if end + 4 > len(data):
+            raise _Cut
+        body = data[pos + 8:end]
+        if zlib.crc32(body, zlib.crc32(tag)) != struct.unpack(">I", data[end:end + 4])[0]:
+            raise ValueError(f"broken PNG file (bad header checksum in {tag!r})")
+        if tag == b"IHDR":
+            if length < 13:
+                raise ValueError("Truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
+            bomb_check(header[0], header[1])
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        pos = end + 4
+
+
+def _check_header(header: Optional[tuple]) -> None:
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    _, _, depth, ctype, _, _, interlace = header
+    if depth not in _DEPTHS.get(ctype, ()) or interlace not in (0, 1):
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace}")
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → (H, W, C) uint8: C is the file's samples per pixel (1
     gray, 2 gray + alpha, 3 RGB, 4 RGBA), and 3 for a palette image, whose
     indices are looked up in ``PLTE``; samples of other depths than 8 are
-    brought to 8 bits as PIL brings them."""
+    brought to 8 bits as PIL brings them. The chunks before the first IDAT
+    are checked as PIL checks them (``_head_chunks``); the later ones are
+    not, as PIL checks none of their CRCs."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, header, idat, palette = 8, None, [], None
+    try:
+        header, palette, pos = _head_chunks(data)
+    except _Cut:
+        raise ValueError("truncated PNG file (it ends before its image data)") from None
+    _check_header(header)
+    w, h, depth, ctype, _, _, interlace = header
+    idat = []
     while pos + 8 <= len(data):  # a cut chunk header ends the file, as in PIL
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
         pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
+        if tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
             break
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth not in _DEPTHS.get(ctype, ()) or interlace not in (0, 1):
-        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace}")
     try:  # a stream cut after the last row (its checksum missing) is whole enough for PIL
         raw = zlib.decompressobj().decompress(b"".join(idat))
     except zlib.error as e:
@@ -217,6 +262,29 @@ def decode_png(data: bytes) -> np.ndarray:
     if idx.max(initial=0) >= len(palette):
         raise ValueError(f"palette index {idx.max()} past the {len(palette)}-entry PLTE")
     return palette[idx]
+
+
+def png_head_refusal(head: bytes, f: BinaryIO) -> Optional[str]:
+    """Why ``decode_png`` refuses the PNG open as ``f`` on its chunks before
+    the first IDAT (a bad CRC, a cut chunk, IHDR's size past PIL's bomb
+    bound or fields PIL does not read), else None (also for a file that is
+    not a PNG). ``head`` holds its first ``CHECK_HEAD`` bytes (or all, if
+    fewer); the rest of ``f`` is read only when those chunks run past them."""
+    if head[:8] != _SIGNATURE:
+        return None
+    try:
+        try:
+            header, _, _ = _head_chunks(head)
+        except _Cut:
+            if len(head) < CHECK_HEAD:
+                raise
+            header, _, _ = _head_chunks(head + f.read())
+        _check_header(header)
+    except _Cut:
+        return "truncated PNG file (it ends before its image data)"
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def _rgb(img: np.ndarray) -> np.ndarray:
@@ -306,13 +374,14 @@ def _pil_importable() -> bool:
 
 def _refusal(path: str, pil: bool) -> Optional[str]:
     """The file's head read once; the rest only for a JPEG whose frame header
-    lies past it, or a WebP, BMP, GIF, PNM, ICO, CUR or TIFF file whose
-    headers need it. Without PIL (``pil`` False), also a file that would
-    need it."""
+    lies past it, a PNG whose chunks before the first IDAT run past it, or
+    a WebP, BMP, GIF, PNM, ICO, CUR or TIFF file whose headers need it.
+    Without PIL (``pil`` False), also a file that would need it."""
     with open(path, "rb") as f:
         head = f.read(CHECK_HEAD)
         try:
-            why = (jpeg_head_refusal(head, f) or webp.webp_head_refusal(head, f)
+            why = (jpeg_head_refusal(head, f) or png_head_refusal(head, f)
+                   or webp.webp_head_refusal(head, f)
                    or bmp.bmp_head_refusal(head, f) or gif.gif_head_refusal(head, f)
                    or pnm.pnm_head_refusal(head, f) or ico.ico_head_refusal(head, f)
                    or tiff.tiff_head_refusal(head, f))
@@ -325,9 +394,9 @@ def _refusal(path: str, pil: bool) -> Optional[str]:
 
 def refused_images(paths: Sequence[str]) -> list[tuple[str, str]]:
     """(path, reason) for each of ``paths`` that the port's decoders refuse
-    on their headers alone (``jpeg_refusal``, ``webp_refusal``,
-    ``bmp_refusal`` and the GIF, PNM, ICO/CUR and TIFF readers' header
-    checks), and, where PIL cannot be imported, each that would need it, in
+    on their headers alone (``jpeg_refusal``, ``png_head_refusal``,
+    ``webp_refusal``, ``bmp_refusal`` and the GIF, PNM, ICO/CUR and TIFF
+    readers' header checks), and, where PIL cannot be imported, each that would need it, in
     the order of ``paths``, checked on a pool of threads."""
     pil = _pil_importable()
     with ThreadPoolExecutor(_CHECK_THREADS) as pool:
