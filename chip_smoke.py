@@ -56,14 +56,16 @@ Phases, each fatal on failure:
      depth 4, its forward and its loss gradients against plain attention;
   15. the long route at 1024² (``data.image_size: 1024``, 64×64×32 latents,
      N = 4,096 tokens), where attention runs ``flash_fwd`` (``_flash_kernel``)
-     on q, k rotated beforehand with the fp32 tables: XL/1 euler-250
-     split-CFG sampling at per-batch 2 + f16d32 decode to 1024² uint8
-     images (6,972 ``flash_fwd`` launches and none of any other kernel), the
-     XL/1 forward at batch 4 of the production and the qk-norm model against
-     plain attention, and the loss gradients of XL/1-width models cut to
+     on q, k rotated beforehand with the fp32 tables, XL/1 at full width cut
+     to depth ``CUT_DEPTH``: euler-250 split-CFG sampling at per-batch 2 +
+     f16d32 decode to 1024² uint8 images (249 · depth ``flash_fwd``
+     launches and none of any other kernel), the forward at batch 4 of the
+     production and the qk-norm model against plain attention, and the
+     loss gradients of XL/1-width models cut to
      depth 2 at batch 2 against plain attention (the backward is autograd of
      the exact op; remat "dots" runs the kernel again);
-  16. the fixed-grid samplers on XL/1 at the production ``sample:`` settings
+  16. the fixed-grid samplers on XL/1 (depth ``CUT_DEPTH``, as in 17, 19
+     and 20) at the production ``sample:`` settings
      cut to ``SAMPLER_STEPS`` steps, batch 8, each decoded: heun, Adams–
      Bashforth 2 and 3, the velocity cache (k = 3, orders 1 and 2) through
      ``build_sample_fn``, the adaptive cache through the split-CFG sampler
@@ -154,8 +156,8 @@ Phases, each fatal on failure:
      batch, as many PNGs as accepted (at least one), each decoding to its
      image, the stats consistent; samples/s and the seconds of sampling,
      decode and classifier;
-  28. ``quantize_dit.main`` on the production XL/1 (seeded random weights,
-     a DiT train-state file) at batch 8 with ``--sample_check 4`` (euler-50
+  28. ``quantize_dit.main`` on the production XL/1 (depth ``CUT_DEPTH``,
+     seeded random weights, a DiT train-state file) at batch 8 with ``--sample_check 4`` (euler-50
      split-CFG from the same noise with the fp and the dequantized weights)
      and ``--out``: sizes, compression, fp and dequantized forward ms, the
      output and sample deviations, #1's exact launches; ``int8_matmul`` at
@@ -183,20 +185,21 @@ Phases, each fatal on failure:
      target BN statistics and adapted probabilities on the card against
      the CPU (1e-5 relative and 1e-5 max-abs, TF32 off); ``select_support``
      with each strategy; each entry point's seconds;
-  31. ``autotune_sampler.main`` on the production XL/1 (full width and
-     depth, bf16, seeded random weights in a DiT train-state file, the
+  31. ``autotune_sampler.main`` on the production XL/1 (full width, depth
+     ``CUT_DEPTH``, bf16, seeded random weights in a DiT train-state file, the
      production ``sample:`` block, config given as JSON) with ``--n 8
      --batch 8 --ref_steps 250``, the full ladder: the exact euler-250
      reference, the noise-floor probe, euler 125/100/50, AB3 100/62, heun
      83/62, the fixed cache k = 3, 6 and the adaptive cache at its three
-     tolerances; #1's launches exactly 28 × the model calls of all those
+     tolerances; #1's launches exactly depth × the model calls of all those
      runs by the samplers' evaluation rules (the adaptive runs' from their
      ``cfg_evals``), no other kernel; the JSON evidence, the overlay, and
      the recommended block equal to ``_method_config`` of the winner with the
      production keys carried through; each method's seconds and cost;
   32. the tools: ``python -m vavae_tpu_torch --help`` (exit 0) and an
      unknown command (exit 2) as subprocesses; ``preflight.main`` on the
-     XL/1 config and checkpoint (28 #1 launches); ``export_torch --kind
+     XL/1 config and checkpoint of phase 31 (depth ``CUT_DEPTH``, as all of
+     phase 32's XL/1: ``CUT_DEPTH`` #1 launches); ``export_torch --kind
      dit`` reloaded by ``load_dit_params`` (the XL/1 forward at batch 16
      bit-equal) and ``--kind vae`` of phase 24's last state loaded by
      ``VA_VAE`` (decode bit-equal); ``prepare_dataset_split`` on phase 26's
@@ -212,8 +215,10 @@ Phases, each fatal on failure:
      plain attention and against the natural route, within 3e-2;
   33. the multi-device paths (``run_multidevice``): a world of every card
      over NCCL (``do_train`` and rank-striped sampling at XL/1 width, depth
-     2) and two ranks sharing the card over gloo (DP, FSDP and TP steps
-     against one process);
+     2), two ranks sharing the card over gloo (DP, FSDP and TP steps
+     against one process), and four gloo ranks on it under tensor = 4 at
+     LightningDiT-1p6B/1's full width (28 heads cut 7 a rank, MLP rows
+     1,195, 1,195, 1,194, 1,194 of 4,778) with and without QK-norm;
   34. the data and I/O modules: the committed JPEG fixtures of
      ``tests/data/jpeg`` (Huffman, arithmetic-coded, lossless and
      block-smoothed files) through the port's decoder, and the PNG
@@ -483,6 +488,11 @@ BATCH = 8
 HIRES = 1024        # data.image_size of the long-route phase: 64×64 latents, N = 4,096
 HIRES_BATCH = 2     # its per-batch size
 HIRES_GRAD_DEPTH = 2
+# XL/1 at full width cut to this depth in the paths past the main ones that
+# time and count (phase 15's 1024² sampling and forwards, 16-17, 19-20, 28,
+# 31-32): their launches stay exact at any depth, and the script keeps
+# inside its time limit
+CUT_DEPTH = 4
 TRAIN_BATCH = 32
 TRAIN_WARMUP, TRAIN_TIMED = 2, 8
 SEED = 0  # weights, noise and labels are all drawn from generators seeded with it
@@ -714,11 +724,13 @@ MICRO_FWD_CASES = [(16, 6, 64, 64, True), (16, 6, 64, 64, False),
 # the big variants' train step at batch 8 (phase 39): 1p6B/1 and 1p0B/1, 28
 # and 24 heads of 64 at N = 256, the forward and the backward
 BIG_CASES = [(8, 28, 256, 64, True), (8, 24, 256, 64, True)]
+# a rank's call of 1p6B/1 under tensor = 4 (phase 33 (c)): 7 of its 28 heads
+TP4_CASES = [(8, 7, 256, 64, True)]
 FWD_CASES = [(16, 16, 256, 72, True), (16, 16, 256, 72, False),
              (8, 16, 256, 72, True), (8, 16, 256, 72, False),
              (4, 16, 200, 64, True), (4, 16, 200, 64, False),
              (4, 16, 1024, 72, True), (4, 16, 1024, 72, False),
-             *MICRO_FWD_CASES, *BIG_CASES]
+             *MICRO_FWD_CASES, *BIG_CASES, *TP4_CASES]
 
 
 def phase_kernels(seed: int, cases=FWD_CASES) -> dict:
@@ -786,7 +798,7 @@ BWD_CASES = [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
              (4, 16, 1024, 72, True),
              (4, 6, 64, 64, True),  # the micro-Doppler DiT-S/2 likelihood's
              (64, 6, 64, 64, True),  # the learning check's train step (phase 38)
-             *BIG_CASES]
+             *BIG_CASES, *TP4_CASES]
 
 
 def phase_bwd_kernel(seed: int, cases=BWD_CASES) -> dict:
@@ -866,14 +878,16 @@ def _rotated_bhnd(q, k, v, tables):
 
 def phase_small_kernels(seed: int) -> dict:
     """The separate-q/k/v kernels (the qk-norm branch) at the sampling (B=16)
-    and training (B=32) shapes and at N = 1,024, with v a strided view of the
+    and training (B=32) shapes, at N = 1,024 and at a rank's 7 heads of 64
+    under tensor = 4 (phase 33 (c)), with v a strided view of the
     projection."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 20)
     result = {}
     for rope in (True, False):
         name = "attn_small_fwd_rope" if rope else "attn_small_fwd"
         worst, rows = 0.0, []
-        for B, H, N, D in [(16, 16, 256, 72), (4, 16, 1024, 72)]:
+        for B, H, N, D in [(16, 16, 256, 72), (4, 16, 1024, 72),
+                           *(c[:4] for c in TP4_CASES)]:
             q, k, v, tables = _small_case(B, H, N, D, rope, gen)
             out = flash_attention(q, k, v, rope=tables)
             torch.cuda.synchronize()
@@ -907,7 +921,7 @@ def phase_small_kernels(seed: int) -> dict:
 
     worst, rows = 0.0, []
     for B, H, N, D, rope in [(32, 16, 256, 72, True), (32, 16, 256, 72, False),
-                             (4, 16, 1024, 72, True)]:
+                             (4, 16, 1024, 72, True), *TP4_CASES]:
         q, k, v, tables = _small_case(B, H, N, D, rope, gen)
         g = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
         got = flash_attention_bwd(q, k, v, g, rope=tables)
@@ -1343,13 +1357,14 @@ def phase_hires(seed: int, device: dict) -> dict:
     """Phase 15: the long route at 1024²: XL/1 sampling + decode at per-batch
     2 and the XL/1 forward at batch 4 against plain attention (production),
     the same forward with qk-norm, and the loss gradients of both branches
-    at depth HIRES_GRAD_DEPTH, batch 2."""
-    cfg, model = build_xl(seed, "hires")
-    out = {"main_path": phase_main_path(cfg, model, seed, device, "hires", HIRES_BATCH),
-           "kernel_on_path": phase_kernel_on_path(model, seed, "hires", 2 * HIRES_BATCH)}
-    del model
-    torch.cuda.empty_cache()
-    _, model = build_xl(seed, "hires_qknorm")
+    at depth HIRES_GRAD_DEPTH, batch 2. The models are cut to CUT_DEPTH."""
+    with variant_depth("XL", CUT_DEPTH):
+        cfg, model = build_xl(seed, "hires")
+        out = {"main_path": phase_main_path(cfg, model, seed, device, "hires", HIRES_BATCH),
+               "kernel_on_path": phase_kernel_on_path(model, seed, "hires", 2 * HIRES_BATCH)}
+        del model
+        torch.cuda.empty_cache()
+        _, model = build_xl(seed, "hires_qknorm")
     out["qknorm_kernel_on_path"] = phase_kernel_on_path(model, seed, "hires_qknorm",
                                                         2 * HIRES_BATCH)
     del model
@@ -1719,7 +1734,12 @@ def phase_fid(seed: int, work: str) -> dict:
 
 
 def run_samplers(seed: int, device_info: dict) -> dict:
-    """Phases 16-20."""
+    """Phases 16-20, XL/1 cut to CUT_DEPTH."""
+    with variant_depth("XL", CUT_DEPTH):
+        return _run_samplers(seed, device_info)
+
+
+def _run_samplers(seed: int, device_info: dict) -> dict:
     t0 = time.perf_counter()
     cfg, model = build_xl(seed)
     vae = VA_VAE(embed_dim=32, img_size=cfg.data.image_size, seed=seed, device="cuda")
@@ -2881,7 +2901,12 @@ def phase_quantize(seed: int, device_info: dict, work: str) -> dict:
     """Phase 28: ``quantize_dit.main`` on the production XL/1 (seeded random
     weights) at batch 8 with ``--sample_check 4`` and ``--out``; the int8
     product on the card against the CPU's at an XL/1 ``qkv`` shape; the
-    written file read back."""
+    written file read back. XL/1 cut to CUT_DEPTH."""
+    with variant_depth("XL", CUT_DEPTH):
+        return _phase_quantize(seed, device_info, work)
+
+
+def _phase_quantize(seed: int, device_info: dict, work: str) -> dict:
     cfg, model = build_xl(seed)
     cfg = cfg.merged_with({"sample": {"num_sampling_steps": SAMPLER_STEPS}})
     ckpt = os.path.join(work, "xl.safetensors")  # the weights alone: a 2.6 GB file, not 5.2
@@ -3295,7 +3320,7 @@ def _autotune_calls(doc: dict, cfg: Config) -> int:
 
 
 def phase_autotune(seed: int, device_info: dict, work: str) -> dict:
-    """Phase 31: ``autotune_sampler.main`` on XL/1 (full width and depth,
+    """Phase 31: ``autotune_sampler.main`` on XL/1 (full width, depth CUT_DEPTH,
     bf16, seeded random weights in a train-state file, the production
     ``sample:`` block) with the full ladder: the exact euler-250 reference,
     the noise-floor probe, euler 125/100/50, AB3 100/62, heun 83/62, the
@@ -3478,8 +3503,8 @@ def _ab_route(seed: int) -> dict:
     res.update(rel_err_vs_natural=rel, grad_rel_err_vs_natural=rel_grad)
     log(f"[tools] VAVAE_ATTN_NATURAL=0 XL/1 B={B}: vs plain attention forward "
         f"{res['kernel_on_path']['rel_err']:.3e}, gradients {res['train_path']['rel_err']:.3e}; "
-        f"vs the natural route forward {rel:.3e}, gradients {rel_grad:.3e}; 28 "
-        f"attn_small_fwd_rope a forward, 28 attn_small_bwd a backward")
+        f"vs the natural route forward {rel:.3e}, gradients {rel_grad:.3e}; {CUT_DEPTH} "
+        f"attn_small_fwd_rope a forward, {CUT_DEPTH} attn_small_bwd a backward")
     return res
 
 
@@ -3501,7 +3526,7 @@ def phase_tools(seed: int, device_info: dict, work: str, autotune: dict, keep: s
     except SystemExit as e:
         fail(f"preflight on the XL/1 config exited {e.code}")
     res["preflight_s"] = time.perf_counter() - t0
-    expect_counts(counts(), {"nat_attention_fwd": 28}, "preflight's forward")
+    expect_counts(counts(), {"nat_attention_fwd": CUT_DEPTH}, "preflight's forward")
 
     # the DiT's export, reloaded by the port's loader: the same forward bit for bit
     cfg = load_config(autotune["config"])
@@ -3587,7 +3612,7 @@ def phase_tools(seed: int, device_info: dict, work: str, autotune: dict, keep: s
     res["do_train"] = _tools_do_train(seed, work)
     res["ab_route"] = _ab_route(seed)
     d = res["do_train"]
-    log(f"[tools] dispatcher {res['cli_s']:.1f} s; preflight {res['preflight_s']:.1f} s (28 "
+    log(f"[tools] dispatcher {res['cli_s']:.1f} s; preflight {res['preflight_s']:.1f} s ({CUT_DEPTH} "
         f"nat_attention_fwd); export_torch --kind dit {res['export_dit_s']:.1f} s, forward "
         f"bit-equal; --kind vae decode bit-equal; validate_export {res['validate_s']:.1f} s "
         f"({res['users']} users, mean PSNR {res['mean_psnr']:.2f}, VF mean cosine "
@@ -3598,7 +3623,13 @@ def phase_tools(seed: int, device_info: dict, work: str, autotune: dict, keep: s
 
 
 def run_tools(seed: int, device_info: dict, keep: str) -> dict:
-    """Phases 31-32."""
+    """Phases 31-32, XL/1 cut to CUT_DEPTH (phase 32 reads phase 31's
+    checkpoint)."""
+    with variant_depth("XL", CUT_DEPTH):
+        return _run_tools(seed, device_info, keep)
+
+
+def _run_tools(seed: int, device_info: dict, keep: str) -> dict:
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     try:
@@ -3635,6 +3666,12 @@ DIST_LAYOUTS = {  # name -> ((data, fsdp, tensor), branch)
     "tp": ((1, 1, 2), "production"),
     "tp_qknorm": ((1, 1, 2), "qknorm"),
 }
+# (c): four gloo ranks on card 0, tensor = 4 at LightningDiT-1p6B/1's full
+# width (1,792, 28 heads of 64, MLP 4,778: uneven rows) cut to depth 2, at
+# (c)'s global batch, against one process; the limits are (b)'s
+TP4_VARIANT, TP4_DEPTH, TP4_BATCH, TP4_TENSOR = "1p6B", 2, 8, 4
+TP4_LAYOUTS = {"tp4": "production", "tp4_qknorm": "qknorm"}  # name -> branch
+TP4_HEADS, TP4_ROWS = [7, 7, 7, 7], [1195, 1195, 1194, 1194]  # each rank's
 
 
 def _free_port() -> int:
@@ -3706,7 +3743,8 @@ def _dist_worker(case: str, work: str) -> None:
     mesh_lib.multihost_init("cuda")
     result = {"world": mesh_lib.process_count(), "rank": mesh_lib.process_index(),
               "backend": torch_dist.get_backend()}
-    result.update({"entry": _dist_case_entry, "layouts": _dist_case_layouts}[case](work))
+    result.update({"entry": _dist_case_entry, "layouts": _dist_case_layouts,
+                   "tensor4": _dist_case_tensor4}[case](work))
     with open(os.path.join(work, f"{case}_{mesh_lib.process_index()}.json"), "w") as f:
         json.dump(result, f)
     mesh_lib.barrier()
@@ -3775,14 +3813,60 @@ def _dist_batches(seed: int) -> list:
              rs.integers(0, 1000, (DIST_BATCH,)).astype(np.int32)) for _ in range(DIST_STEPS)]
 
 
-def _dist_trainer(branch: str, mesh=None):
-    """An XL/1-width DiT at depth DIST_DEPTH (seeded random weights) and its
+def _dist_trainer(branch: str, mesh=None, size: str = "XL", depth: int = DIST_DEPTH):
+    """A ``size``/1-width DiT at ``depth`` (seeded random weights) and its
     production trainer, on ``mesh``."""
-    cfg = branch_config(branch)
-    with variant_depth("XL", DIST_DEPTH):
+    cfg = branch_config(branch).merged_with({"model": {"model_type": f"LightningDiT-{size}/1"}})
+    with variant_depth(size, depth):
         model = create_dit(cfg.model, 16, cfg.data.num_classes, device="cuda")
     randomize_(model, SEED)
     return build_trainer(cfg, model, steps_per_epoch=1, max_steps=DIST_STEPS, mesh=mesh)
+
+
+def _tp4_batches(seed: int) -> list:
+    rs = np.random.default_rng(seed + 34)
+    return [(rs.standard_normal((TP4_BATCH, 16, 16, 32)).astype(np.float32),
+             rs.integers(0, 1000, (TP4_BATCH,)).astype(np.int32)) for _ in range(DIST_STEPS)]
+
+
+def _dist_case_tensor4(work: str) -> dict:
+    """(c), a rank of four sharing the card over gloo: DIST_STEPS train steps
+    of the 1p6B/1-width DiT under tensor = 4 (both attention branches), the
+    launches of each step counted apart; the gathered parameters to a file."""
+    from vavae_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for name, branch in TP4_LAYOUTS.items():
+        mesh = mesh_lib.make_mesh(1, 1, TP4_TENSOR)
+        trainer = _dist_trainer(branch, mesh, TP4_VARIANT, TP4_DEPTH)
+        state = trainer.distribute(trainer.init_state())
+        fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
+        losses, norms, ms, launches = [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for x, y in _tp4_batches(SEED):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.train_step(state, mesh_lib.shard_batch(mesh, (x, y)))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = counts()
+            expect_counts(got, {fwd: 2 * TP4_DEPTH, bwd: TP4_DEPTH}, f"(c) {name} step")
+            launches.append([got[fwd], got[bwd]])
+        full = state.gathered()
+        if mesh_lib.process_index() == 0:
+            torch.save([p.detach().float().cpu() for p in full.params],
+                       os.path.join(work, f"{name}_params.pt"))
+        block = trainer.model.blocks[0]
+        out[name] = {"losses": losses, "grad_norms": norms, "ms_per_step": ms,
+                     "launches_per_step": launches, "local_heads": block.attn.num_heads,
+                     "mlp_rows": block.mlp.w3.weight.shape[1],
+                     "qkv_rows": block.attn.qkv.weight.shape[0],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del trainer, state, full
+        torch.cuda.empty_cache()
+    return out
 
 
 def _dist_case_layouts(work: str) -> dict:
@@ -3836,16 +3920,20 @@ def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
     batch-32 global batches: an XL/1-width DiT at depth 4, DIST_STEPS steps
     under DP, FSDP = 2, tensor = 2 and tensor = 2 with QK-norm (#1/#2 and
     #3/#6 on 8 local heads of 72), against one process at batch 32 (the
-    losses, the gradient norms and the parameters). (a)'s
-    and (b)'s ranks and this process's references run side by side, so
-    their times include each other's load. On a
-    machine of several cards (a) runs a world of each card; its
-    checkpoints are then held to DIST_PARAM_TOL, and ``with_b=False``
-    leaves (b) out."""
+    losses, the gradient norms and the parameters). (c) Four ranks sharing
+    the card over gloo: a LightningDiT-1p6B/1-width DiT (1,792, 28 heads,
+    MLP 4,778) at depth 2, DIST_STEPS steps at batch 8 under tensor = 4 and
+    tensor = 4 with QK-norm (#1/#2 and #3/#6 on 7 local heads of 64, MLP
+    rows 1,195, 1,195, 1,194, 1,194; every step's launches exact), against
+    one process, to (b)'s limits. (a)'s, (b)'s and (c)'s ranks and this
+    process's references run side by side, so their times include each
+    other's load. On a machine of several cards (a) runs a world of each
+    card; its checkpoints are then held to DIST_PARAM_TOL, and
+    ``with_b=False`` leaves (b) and (c) out."""
     work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     t_phase = time.perf_counter()
     world = torch.cuda.device_count()
-    procs, procs_b = [], []
+    procs, procs_b, procs_c = [], [], []
     try:
         rs = np.random.default_rng(seed)
         for i in range(2):
@@ -3864,17 +3952,21 @@ def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
         t0 = time.perf_counter()
         procs = _dist_start("entry", world, work, "nccl")
         procs_b = _dist_start("layouts", 2, work, "gloo") if with_b else []
+        procs_c = _dist_start("tensor4", TP4_TENSOR, work, "gloo") if with_b else []
         with variant_depth("XL", 2):
             do_train(_entry_config(work, "single"), device="cuda")
-        ref = {}
+        ref, ref_c = {}, {}
         for branch in ("production", "qknorm"):
-            trainer = _dist_trainer(branch)
-            state = trainer.init_state()
-            metrics = [trainer.train_step(state, b) for b in _dist_batches(seed)]
-            ref[branch] = ([m["loss"].item() for m in metrics],
-                           [m["grad_norm"].item() for m in metrics],
-                           [p.detach().float().cpu() for p in state.params])
-            del trainer, state
+            for refs, args, batches in ((ref, (), _dist_batches(seed)),
+                                        (ref_c, (None, TP4_VARIANT, TP4_DEPTH),
+                                         _tp4_batches(seed))):
+                trainer = _dist_trainer(branch, *args)
+                state = trainer.init_state()
+                metrics = [trainer.train_step(state, b) for b in batches]
+                refs[branch] = ([m["loss"].item() for m in metrics],
+                                [m["grad_norm"].item() for m in metrics],
+                                [p.detach().float().cpu() for p in state.params])
+                del trainer, state
         torch.cuda.empty_cache()
         entry = _dist_wait(procs, "entry", work)
         entry_s = time.perf_counter() - t0
@@ -3946,15 +4038,48 @@ def run_multidevice(seed: int, device_info: dict, with_b: bool = True) -> dict:
                              + f" peak {r[name]['peak_bytes'] / 2**30:.2f} GiB launches "
                              f"{r[name]['launches']}" for i, r in enumerate(ranks))
                 + f" [{device_info['smi']}]")
+
+        ranks = _dist_wait(procs_c, "tensor4", work)
+        tensor4_s = time.perf_counter() - t0
+        result.update({"tensor4": ranks, "tensor4_s": tensor4_s, "rel_c": {}})
+        for name, branch in TP4_LAYOUTS.items():
+            rs = [r[name] for r in ranks]
+            if any(r["losses"] != rs[0]["losses"] for r in rs):
+                fail(f"phase 33 (c) {name}: the ranks' losses differ: {[r['losses'] for r in rs]}")
+            heads, rows = [r["local_heads"] for r in rs], [r["mlp_rows"] for r in rs]
+            if heads != TP4_HEADS or rows != TP4_ROWS or any(
+                    r["qkv_rows"] != 3 * 64 * h for r, h in zip(rs, heads)):
+                fail(f"phase 33 (c) {name}: local heads {heads}, MLP rows {rows}, qkv rows "
+                     f"{[r['qkv_rows'] for r in rs]}; expected {TP4_HEADS}, {TP4_ROWS}")
+            want_losses, want_norms, want_params = ref_c[branch]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], want_losses))
+            norm_rel = max(abs(a - b) / abs(b) for a, b in zip(rs[0]["grad_norms"], want_norms))
+            param_rel = _frob(torch.load(os.path.join(work, f"{name}_params.pt")), want_params)
+            result["rel_c"][name] = {"loss": loss_rel, "grad_norm": norm_rel, "params": param_rel}
+            if not (loss_rel <= DIST_LOSS_TOL and norm_rel <= DIST_NORM_TOL
+                    and param_rel <= DIST_PARAM_TOL):
+                fail(f"phase 33 (c) {name}: loss rel {loss_rel:.3e} (limit {DIST_LOSS_TOL}), "
+                     f"grad norm rel {norm_rel:.3e} (limit {DIST_NORM_TOL}), "
+                     f"params rel {param_rel:.3e} (limit {DIST_PARAM_TOL})")
+            fwd, bwd = BRANCHES[branch]["fwd"], BRANCHES[branch]["bwd"]
+            log(f"[dist] (c) {name} gloo world {TP4_TENSOR} ({branch}, LightningDiT-{TP4_VARIANT}/1 "
+                f"width, depth {TP4_DEPTH}, batch {TP4_BATCH}): local heads of 64 {heads}, MLP "
+                f"rows {rows}; loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e}, params rel "
+                f"{param_rel:.3e} against world 1; {fwd}/{bwd} launches per step "
+                + " | ".join(f"rank {i}: {r['launches_per_step']}, ms/step "
+                             + ", ".join(f"{t:.0f}" for t in r["ms_per_step"])
+                             + f", peak {r['peak_bytes'] / 2**30:.2f} GiB"
+                             for i, r in enumerate(rs))
+                + f" [{device_info['smi']}]")
     finally:
-        for p in procs + procs_b:  # a failure leaves no rank running
+        for p in procs + procs_b + procs_c:  # a failure leaves no rank running
             if p.poll() is None:
                 p.kill()
                 p.communicate()
         shutil.rmtree(work, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_phase
     log(f"[dist] phase 33: {result['seconds']:.1f} s ((a) done after {entry_s:.1f} s, (b) "
-        f"after {layouts_s:.1f} s, side by side)")
+        f"after {layouts_s:.1f} s, (c) after {tensor4_s:.1f} s, side by side)")
     return result
 
 
@@ -5166,6 +5291,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase38", action="store_true",
                     help="run only the device check, the build and phase 38 (the learning "
                          "check and the e2e smoke)")
+    ap.add_argument("--phase33", action="store_true",
+                    help="run only the device check, the build, phase 3 at a tensor-parallel "
+                         "rank's shapes and phase 33 (the multi-device paths)")
     ap.add_argument("--phase39", action="store_true",
                     help="run only the device check, the build, phase 3 at the big variants' "
                          "shapes and phase 39 (LightningDiT-1p6B/1 at full size)")
@@ -5209,6 +5337,15 @@ def main(argv=None) -> int:
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"device": device, "build": builds, "learning": learning}, f, indent=1)
+        return 0
+    if args.phase33:
+        kernels = phase_kernels(SEED, TP4_CASES)
+        kernels.update(phase_bwd_kernel(SEED, TP4_CASES))
+        multidevice = run_multidevice(SEED, device)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "build": builds, "kernels": kernels,
+                           "multidevice": multidevice}, f, indent=1)
         return 0
     if args.phase39:
         kernels = phase_kernels(SEED, BIG_CASES)

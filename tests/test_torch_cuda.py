@@ -726,3 +726,40 @@ def test_train_then_conditional_sample_learns():
     depth, steps, calls = res["depth"], res["steps"], res["sample_model_calls"]
     assert res["train_launches"] == [depth * steps, depth * steps]
     assert res["sample_launches"] == [depth * calls, 0]
+
+
+# a tensor-parallel rank's call where the tensor size does not divide the
+# heads (parallel/tensor_parallel.py:pieces): 1p6B/1 at tensor = 4 (7 heads
+# of 64), 1p0B/1 at tensor = 8 (3 of 64), XL/1 at tensor = 12 (1 of 72),
+# each at the training path's (B, N) = (8, 256)
+UNEVEN_LOCAL_HEADS = [(8, 7, 256, 64), (8, 3, 256, 64), (8, 1, 256, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,D", UNEVEN_LOCAL_HEADS)
+@pytest.mark.parametrize("entry", ["fused_qkv", "separate"])
+def test_cuda_kernels_on_uneven_local_heads(entry, B, H, N, D):
+    """Forward and backward through autograd on a rank's odd local head
+    count (bf16, RoPE): one forward and one backward launch, the output
+    within 2e-2 max-abs and each gradient within 3e-2 of max|ref| of the
+    plain version's autograd."""
+    _cuda_or_skip()
+    if entry == "fused_qkv":
+        x, g, tables = _bwd_case(B, H, N, D, True, torch.bfloat16, seed=7)
+        inputs = [x.requires_grad_(True)]
+        run, plain, fwd = fused_qkv_attention, fused_qkv_attention_reference, "launches"
+    else:
+        q, k, v, g, tables = _flash_case(B, H, N, D, True, torch.bfloat16, seed=7)
+        inputs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        run, plain, fwd = flash_attention, flash_attention_reference, "rope_launches"
+    before = (getattr(run, fwd), run.bwd_launches)
+    out = run(*inputs, rope=tables)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (getattr(run, fwd), run.bwd_launches) == (before[0] + 1, before[1] + 1)
+    refs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = plain(*refs, rope=tables)
+    (want.float() * g.float()).sum().backward()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    for a, b in zip(inputs, refs):
+        assert _max_rel(a.grad, b.grad) <= 3e-2

@@ -9,7 +9,13 @@ time; here each kernel's ``.cu`` (#1 ``nat_attention_fwd``, #2
 ``nat_attention_bwd``, #3 ``attn_small_fwd`` with RoPE, #6
 ``attn_small_bwd``) runs on a rank's 8 heads and is held against the plain
 version over all 16 heads, sliced to the rank's, at the kernels' own
-tolerances (forward 2e-2 max-abs, backward 3e-2 of max|ref|)."""
+tolerances (forward 2e-2 max-abs, backward 3e-2 of max|ref|).
+
+A tensor size that does not divide the heads leaves ranks odd counts
+(``tensor_parallel.pieces``: the first ``H % T`` ranks one more), and the
+grids are sized from them: 7 heads of 64 a rank of 1p6B/1 (28 heads) at
+tensor = 4, 3 of 64 of 1p0B/1 (24) at tensor = 8, and 1 of 72 of XL/1 (16)
+at tensor = 12 (ranks 0-3 hold 2, the rest 1)."""
 import pytest
 import torch
 
@@ -68,6 +74,61 @@ def test_separate_qkv_kernels_on_local_heads(libs, rank):
     out = run_small(small_fwd_function(libs["small_fwd"]), lq, lk, local_v, tables)
     want = flash_attention_reference(q, k, v, tables)[:, :, h]
     assert not torch.isnan(out.float()).any()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    got = run_small_bwd(small_bwd_function(libs["small_bwd"]), lq, lk, local_v, lg, tables)
+    want = [t[:, :, h] for t in flash_attention_bwd_reference(q, k, v, g, tables)]
+    assert _small_bwd_error(got, want) <= 3e-2
+
+
+# (H, D, tensor, rank): rank's heads start at rank·(H // T) + min(rank, H % T)
+UNEVEN = {
+    "1p6B_tensor4_rank3_7x64": (28, 64, 4, 3),
+    "1p0B_tensor8_rank5_3x64": (24, 64, 8, 5),
+    "XL_tensor12_rank7_1x72": (16, 72, 12, 7),
+}
+
+
+def _uneven_heads(case: str) -> tuple[int, int, slice]:
+    H, D, tensor, rank = UNEVEN[case]
+    q, r = divmod(H, tensor)
+    start = rank * q + min(rank, r)
+    return H, D, slice(start, start + q + (rank < r))
+
+
+@pytest.mark.parametrize("case", UNEVEN)
+def test_fused_qkv_kernels_on_uneven_local_heads(libs, case):
+    """#1 and #2 on a rank's fused qkv of 7, 3 or 1 local heads."""
+    H, D, h = _uneven_heads(case)
+    local_h = h.stop - h.start
+    gen = torch.Generator().manual_seed(H + D)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen).bfloat16()
+    g = torch.randn((B, N, H, D), generator=gen).bfloat16()
+    tables = _tables(N, D)
+    local = qkv[:, :, :, h].contiguous()
+    out = _run(nat_fwd_function(libs["nat_fwd"]), local, tables)
+    want = fused_qkv_attention_reference(qkv, tables)[:, :, h]
+    assert out.shape == (B, N, local_h, D) and not torch.isnan(out.float()).any()
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    dqkv = run_bwd(bwd_function(libs["nat_bwd"]), local, g[:, :, h].contiguous(), tables)
+    want = fused_qkv_attention_bwd_reference(qkv, g, tables)[:, :, :, h]
+    assert not torch.isnan(dqkv.float()).any()
+    assert bwd_error(dqkv, want) <= 3e-2
+
+
+@pytest.mark.parametrize("case", UNEVEN)
+def test_separate_qkv_kernels_on_uneven_local_heads(libs, case):
+    """#3 and #6 (the QK-norm branch, RoPE) on a rank's q and k of 7, 3 or
+    1 local heads and the strided v view of its fused qkv."""
+    H, D, h = _uneven_heads(case)
+    local_h = h.stop - h.start
+    q, k, v, g, tables = small_case(B, N, H, D, True, torch.bfloat16, seed=H + D)
+    local_qkv = torch.zeros((B, N, 3, local_h, D), dtype=v.dtype)
+    local_qkv[:, :, 2] = v[:, :, h]
+    local_v = local_qkv[:, :, 2]
+    lq, lk, lg = (t[:, :, h].contiguous() for t in (q, k, g))
+    out = run_small(small_fwd_function(libs["small_fwd"]), lq, lk, local_v, tables)
+    want = flash_attention_reference(q, k, v, tables)[:, :, h]
+    assert out.shape == (B, N, local_h, D) and not torch.isnan(out.float()).any()
     assert (out.float() - want.float()).abs().max().item() <= 2e-2
     got = run_small_bwd(small_bwd_function(libs["small_bwd"]), lq, lk, local_v, lg, tables)
     want = [t[:, :, h] for t in flash_attention_bwd_reference(q, k, v, g, tables)]

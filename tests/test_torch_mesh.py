@@ -7,9 +7,13 @@ parallelism, FSDP and tensor parallelism (fused-qkv, QK-norm and GELU-MLP
 models); grad_accum = 2 under DP; and one DP, FSDP and tensor-parallel step
 from the JAX init with the JAX draws. A second launch, of four processes,
 runs the DiT steps on the two-axis meshes (data × fsdp, data × tensor,
-fsdp × tensor). Each is held against one process on the global batch, and
-the steps from the JAX init against the JAX ``DiTTrainer`` on the 8-device
-CPU mesh under the same layout.
+fsdp × tensor) and under tensor sizes that divide neither the heads nor
+the MLP width (tensor = 4 on 170 MLP rows, on 6 and on 2 heads, with
+QK-norm; fsdp × tensor on 3 heads and on 1), the tensor = 4 step from the
+JAX init, and a checkpoint passed between tensor = 4 and tensor = 1. Each
+is held against one process on the global batch, and the steps from the
+JAX init against the JAX ``DiTTrainer`` on the 8-device CPU mesh under the
+same layout.
 """
 import numpy as np
 import pytest
@@ -24,10 +28,10 @@ LR = W.TRAIN_OPT["lr"]
 JAX_OPT = dict(lr=1e-3, beta2=0.95, weight_decay=0.01, max_grad_norm=1.0, ema_decay=0.9)
 
 
-def _jax_reference(out):
+def _jax_reference(*outs):
     """The JAX DiTTrainer's step on mesh8 from its own init under each
     layout of JAX_LAYOUTS, and the port's inputs for the same step
-    (``jax_inputs.pt``)."""
+    (``jax_inputs.pt`` in each of ``outs``)."""
     import jax
 
     from test_torch_train import _jax_draws, create_jax_transport
@@ -49,8 +53,9 @@ def _jax_reference(out):
         jstate = jt.replicate(jt.init_state(rng, x.shape))
         if name == "dp":
             params0 = dit_state_from_jax(jax.device_get(jstate.params))
-            torch.save({"params": params0, "opt": JAX_OPT, "batch": (x, y),
-                        "draws": (t, x0, None)}, out / "jax_inputs.pt")
+            for out in outs:
+                torch.save({"params": params0, "opt": JAX_OPT, "batch": (x, y),
+                            "draws": (t, x0, None)}, out / "jax_inputs.pt")
         jstate, jmetrics = jt.train_step(jstate, rng, jt.shard_batch((x, y)))
         res[name] = {"loss": float(jmetrics["loss"]), "grad_norm": float(jmetrics["grad_norm"]),
                      "params": dit_state_from_jax(jax.device_get(jstate.params)),
@@ -67,7 +72,7 @@ def _single():
         losses, norms = W.run_dit_steps(tr, state, W.dit_batches(2))
         out[name] = {"losses": losses, "norms": norms, "names": state.names,
                      "params": [p.detach().clone() for p in state.params],
-                     "ema": state.ema_params, "mu": state.opt.mu}
+                     "ema": state.ema_params, "mu": state.opt.mu, "nu": state.opt.nu}
     return out
 
 
@@ -78,10 +83,11 @@ def world(tmp_path_factory, mesh8):
     process's steps while they run."""
     out = tmp_path_factory.mktemp("mesh")
     out4 = tmp_path_factory.mktemp("mesh4")
-    jax_ref = _jax_reference(out)
+    jax_ref = _jax_reference(out, out4)
     cases = ("mesh", "dit_steps", "grad_accum", "jax_inputs")
+    cases4 = ("dit_steps", "jax_inputs", "tp_ckpt")
     launch = W.Launch(cases, 2, out)
-    launch4 = W.Launch(["dit_steps"], 4, out4)
+    launch4 = W.Launch(cases4, 4, out4)
     single = _single()
     launch.wait()
     launch4.wait()
@@ -90,14 +96,14 @@ def world(tmp_path_factory, mesh8):
         return [torch.load(root / f"{case}_{r}.pt", weights_only=False) for r in range(n)]
 
     res = {case: load(case) for case in cases} | {"jax": jax_ref, "single": single}
-    res["dit_steps4"] = load("dit_steps", out4, 4)
+    res |= {case + "4": load(case, out4, 4) for case in cases4}
     return res
 
 
-def _layout_ranks(world, layout):
-    """Every rank's DiT steps under ``layout``, from the world it spans."""
-    return [r[layout] for r in world["dit_steps" if layout in world["dit_steps"][0]
-                                     else "dit_steps4"]]
+def _layout_ranks(world, layout, case="dit_steps"):
+    """Every rank's result of ``case`` under ``layout``, from the world it
+    spans."""
+    return [r[layout] for r in world[case if layout in world[case][0] else case + "4"]]
 
 
 # -- the mesh ------------------------------------------------------------------------------
@@ -173,7 +179,9 @@ def test_launch_env_contracts(monkeypatch):
 def test_layout_step_matches_single_process(world, layout):
     """Two steps under DP, FSDP = 2 and tensor = 2 (fused qkv with SwiGLU,
     QK-norm, GELU MLP) in a world of 2, and under data × fsdp (HSDP), data
-    × tensor and fsdp × tensor in a world of 4: every rank's losses equal
+    × tensor, fsdp × tensor and the uneven tensor splits in a world of 4
+    (tensor = 4 on 170 MLP rows, 6 heads, 2 heads, with QK-norm; fsdp 2 ×
+    tensor 2 on 3 heads and on 1): every rank's losses equal
     and within 2e-4 of one process's (tests/test_mesh.py's tolerance), grad
     norms (clipping on) within 1e-5; the gathered params, EMA and Adam first
     moment within 1e-4 relative, each weight within 2·lr a step."""
@@ -258,8 +266,9 @@ def test_grad_accum_under_dp_is_one_step_on_the_mean_gradient(world):
 
 def _check_against_jax(world, layout):
     want = world["jax"][layout]
-    r0, r1 = (r[layout] for r in world["jax_inputs"])
-    assert r0["loss"] == r1["loss"]
+    ranks = _layout_ranks(world, layout, "jax_inputs")
+    r0 = ranks[0]
+    assert all(r["loss"] == r0["loss"] for r in ranks)
     for key in ("loss", "grad_norm"):
         assert abs(r0[key] - want[key]) <= 1e-4 * abs(want[key]), key
     names = list(want["params"])
@@ -279,11 +288,14 @@ def test_dp_step_matches_jax_mesh8(world):
     _check_against_jax(world, "dp")
 
 
-@pytest.mark.parametrize("layout", ["fsdp", "tp"])
+@pytest.mark.parametrize("layout", ["fsdp", "tp", "tp4"])
 def test_sharded_step_matches_jax_mesh8(world, layout):
     """As test_dp_step_matches_jax_mesh8, for the port's FSDP = 2 and tensor
     = 2 steps (gathered) against the JAX DiTTrainer's step on mesh8 with
-    fsdp = 4 and tensor = 2, at the same tolerance."""
+    fsdp = 4 and tensor = 2, and for the port's tensor = 4 step in a world
+    of 4 (MLP rows 43, 43, 42, 42 of 170) against the JAX step on mesh8
+    with data = 2 and tensor = 4 (where GSPMD leaves ``w3`` replicated), at
+    the same tolerance."""
     _check_against_jax(world, layout)
 
 
@@ -299,3 +311,69 @@ def test_fsdp_over_tensor_split_shards_the_heads(world):
         rows = torch.cat([s * C + torch.arange(t * C // 2, (t + 1) * C // 2) for s in range(3)])
         full = f["params"]["blocks.0.attn.qkv.weight"]
         torch.testing.assert_close(f["qkv_local"], full[rows].chunk(2)[k], rtol=0, atol=0)
+
+
+def _sizes(n: int, parts: int) -> list[int]:
+    return [n // parts + (r < n % parts) for r in range(parts)]
+
+
+@pytest.mark.parametrize("layout", ["tp4", "tp4_heads6", "tp4_heads2", "tp4_qknorm",
+                                    "tp4_qknorm_heads2", "fsdp_tp_heads3", "fsdp_tp_heads1"])
+def test_uneven_tensor_split(world, layout):
+    """A tensor size that divides neither the heads nor the MLP width: the
+    heads cut whole and the MLP rows one by one into contiguous pieces whose
+    sizes differ by at most one, the first ``size % tensor`` ranks holding
+    one more (tensor = 4 on 6 heads: 2, 2, 1, 1; on 170 rows: 43, 43, 42,
+    42; on 2 heads: 1, 1, 0, 0). Rank r's qkv is q, k and v of its heads (its
+    FSDP half under fsdp × tensor, where a rank with no heads keeps its
+    empty piece whole), and its fan-out rows are its rows of gate and of
+    up."""
+    shape, kw = W.DIT_CASES[layout]
+    tensor, fsdp = shape[2], shape[1]
+    C = kw.get("hidden_size", 64)
+    H = kw.get("num_heads", 4)
+    D = C // H
+    for rank, res in enumerate(_layout_ranks(world, layout)):
+        t, k = rank % tensor, rank // tensor % fsdp
+        heads = _sizes(H, tensor)
+        assert res["num_heads"] == heads[t]
+        h0 = sum(heads[:t])
+        rows = torch.cat([s * C + torch.arange(h0 * D, (h0 + heads[t]) * D) for s in range(3)])
+        want = res["params"]["blocks.0.attn.qkv.weight"][rows]
+        if fsdp > 1 and want.numel():
+            want = want.chunk(fsdp)[k]
+        torch.testing.assert_close(res["qkv_local"], want, rtol=0, atol=0)
+        fan_out = res["params"]["blocks.0.mlp.w12.weight"]
+        F = fan_out.shape[0] // 2
+        sizes = _sizes(F, tensor)
+        r0 = sum(sizes[:t])
+        rows = torch.cat([s * F + torch.arange(r0, r0 + sizes[t]) for s in range(2)])
+        want = fan_out[rows]
+        if fsdp > 1:
+            want = want.chunk(fsdp)[k]
+        torch.testing.assert_close(res["fan_out_local"], want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["tensor4_to_1", "tensor1_to_4"])
+def test_checkpoint_moves_between_tensor_layouts(world, case):
+    """A checkpoint written after step 1 under tensor = 4 (MLP 170 rows,
+    uneven) and restored into a state of another init under tensor = 1, and
+    the reverse: step 2 there gives one process's two steps, as the JAX
+    package's layout-free checkpoints do. Losses within 2e-4 relative, the
+    params, EMA and both Adam moments within 1e-4 (Frobenius), each weight
+    within 2·lr a step; every rank alike."""
+    ranks = [r[case] for r in world["tp_ckpt4"]]
+    r0 = ranks[0]
+    ref = world["single"]["tp4"]
+    assert r0["step"] == 2 and r0["tensor"] == ([4, 1] if case == "tensor4_to_1" else [1, 4])
+    for r in ranks[1:]:
+        assert r["losses"] == r0["losses"]
+    np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=2e-4)
+    for key in ("params", "ema", "mu", "nu"):
+        for name in ref["names"]:
+            for r in ranks[1:]:
+                assert torch.equal(r0[key][name], r[key][name]), (key, name)
+        got = [r0[key][n] for n in ref["names"]]
+        assert W.rel(got, ref[key]) < 1e-4, key
+    assert max((r0["params"][n] - p).abs().max().item()
+               for n, p in zip(ref["names"], ref["params"])) <= 2 * 2 * LR

@@ -126,6 +126,15 @@ DIT_CASES = {
     "dp_tp": ((2, 1, 2), {}),
     "fsdp_tp": ((1, 2, 2), {}),  # FSDP2 over the head split
     "fsdp_tp_qknorm": ((1, 2, 2), {"use_qknorm": True}),
+    # tensor sizes that divide neither the heads nor the MLP width, as the
+    # JAX trainer takes them: uneven pieces (tensor_parallel.pieces)
+    "tp4": ((1, 1, 4), {}),  # MLP rows 43, 43, 42, 42 of 170
+    "tp4_heads6": ((1, 1, 4), {"hidden_size": 48, "num_heads": 6}),  # heads 2, 2, 1, 1
+    "tp4_heads2": ((1, 1, 4), {"num_heads": 2}),  # heads 1, 1, 0, 0
+    "tp4_qknorm": ((1, 1, 4), {"use_qknorm": True}),
+    "tp4_qknorm_heads2": ((1, 1, 4), {"num_heads": 2, "use_qknorm": True}),
+    "fsdp_tp_heads3": ((1, 2, 2), {"hidden_size": 48, "num_heads": 3}),  # heads 2, 1
+    "fsdp_tp_heads1": ((1, 2, 2), {"hidden_size": 32, "num_heads": 1}),  # heads 1, 0
 }
 # the layouts of the step from the JAX init: name -> (this world's mesh,
 # the JAX mesh8's make_mesh kwargs)
@@ -133,6 +142,7 @@ JAX_LAYOUTS = {
     "dp": ((2, 1, 1), {}),
     "fsdp": ((1, 2, 1), {"data": 2, "fsdp": 4}),
     "tp": ((1, 1, 2), {"data": 4, "tensor": 2}),
+    "tp4": ((1, 1, 4), {"data": 2, "tensor": 4}),  # MLP 170: uneven here, w3 replicated there
 }
 TRAIN_OPT = dict(lr=1e-3, max_grad_norm=0.05, ema_decay=0.9)
 
@@ -322,7 +332,9 @@ def case_grad_accum(out):
 def case_jax_inputs(out):
     """One step from the JAX init with the JAX draws handed in
     (``jax_inputs.pt``, written by the test) under each layout of
-    JAX_LAYOUTS; the gathered params and EMA."""
+    JAX_LAYOUTS that spans this world; the gathered params and EMA."""
+    import math
+
     import torch
 
     from vavae_tpu_torch.parallel import mesh as M
@@ -330,6 +342,8 @@ def case_jax_inputs(out):
     inp = torch.load(os.path.join(out, "jax_inputs.pt"), weights_only=False)
     res = {}
     for name, (shape, _) in JAX_LAYOUTS.items():
+        if math.prod(shape) != M.process_count():
+            continue
         mesh = M.make_mesh(*shape)
         model = tiny_dit(class_dropout_prob=0.0)
         model.load_state_dict(inp["params"])
@@ -340,6 +354,39 @@ def case_jax_inputs(out):
         res[name] = {"loss": losses[0], "grad_norm": norms[0],
                      "params": dict(zip(full.names, (p.detach().clone() for p in full.params))),
                      "ema": dict(zip(full.names, full.ema_params))}
+    return res
+
+
+def case_tp_ckpt(out):
+    """A checkpoint written under tensor = 4 resumed under tensor = 1, and
+    the reverse: step 1 of DIT_CASES' tiny DiT in one layout,
+    ``save_checkpoint``, ``restore_checkpoint`` into a state of another
+    init in the other layout, step 2 there; the losses and the gathered
+    state after step 2."""
+    from vavae_tpu_torch.parallel import mesh as M
+    from vavae_tpu_torch.train import checkpoint as ckpt_lib
+
+    batches = dit_batches(2)
+    mesh4 = M.make_mesh(1, 1, 4)
+    res = {}
+    for name, (first, second) in {"tensor4_to_1": (mesh4, None),
+                                  "tensor1_to_4": (None, mesh4)}.items():
+        tr = dit_trainer(tiny_dit(), first)
+        state = tr.distribute(tr.init_state())
+        losses, _ = run_dit_steps(tr, state, batches[:1], first)
+        ckpt_dir = os.path.join(out, f"ckpt_{name}")
+        ckpt_lib.save_checkpoint(ckpt_dir, 1, state)  # collective; rank 0 writes
+        tr = dit_trainer(tiny_dit(seed=1), second)
+        state = tr.init_state()
+        ckpt_lib.restore_checkpoint(os.path.join(ckpt_dir, "0000001.safetensors"), state)
+        state = tr.distribute(state)
+        losses += run_dit_steps(tr, state, batches[1:], second)[0]
+        full = state.gathered()
+        res[name] = {"losses": losses, "step": full.step, "tensor": [
+            m.size(M.TENSOR_AXIS) if m is not None else 1 for m in (first, second)]} | {
+            key: dict(zip(full.names, (t.detach().clone() for t in ts)))
+            for key, ts in (("params", full.params), ("ema", full.ema_params),
+                            ("mu", full.opt.mu), ("nu", full.opt.nu))}
     return res
 
 

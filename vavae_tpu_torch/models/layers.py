@@ -207,6 +207,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         B, N, _ = x.shape  # num_heads is the local count under tensor parallelism
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim)
+        if self.num_heads == 0:
+            # a tensor-parallel rank left with no heads: no attention, and a
+            # zero partial product into proj's all-reduce
+            return self.proj(qkv[:, :, 2].reshape(B, N, 0))
         if not self.qk_norm and natural_attention_enabled():
             out = fused_qkv_attention(qkv, rope=rope)
             return self.proj(out.reshape(B, N, -1))

@@ -313,13 +313,13 @@ def evaluate(trainer: DiTTrainer, state: TrainState, dataset: ImgLatentDataset, 
     return float(np.mean(losses)) if losses else float("nan")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> TrainState:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="key.path=value overrides")
     args = ap.parse_args(argv)
-    do_train(load_config(args.config, overrides=args.overrides), device=args.device)
+    return do_train(load_config(args.config, overrides=args.overrides), device=args.device)
 
 
 if __name__ == "__main__":

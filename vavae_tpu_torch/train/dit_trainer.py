@@ -185,6 +185,16 @@ class StateLayout:
     def fsdp(self) -> int:
         return self.mesh.size(FSDP_AXIS)
 
+    def fsdp_sharded(self, i: int) -> bool:
+        """Whether FSDP shards parameter ``i``: every one but a tensor piece
+        with no elements (on a rank with no heads), which FSDP2 cannot
+        reduce-scatter, so ``DiTTrainer.distribute`` leaves it whole."""
+        shape = list(self.shapes[i])
+        split = self.splits[i]
+        if split is not None and split.sharded:
+            shape[split.dim] = len(split.index[self.mesh.index(TENSOR_AXIS)])
+        return self.fsdp > 1 and math.prod(shape) > 0
+
     def local(self, i: int, full: torch.Tensor) -> torch.Tensor:
         """Rank's part of parameter ``i``'s full tensor ``full``."""
         x = full
@@ -192,14 +202,14 @@ class StateLayout:
         if split is not None and split.sharded:
             r = self.mesh.index(TENSOR_AXIS)
             x = x.index_select(split.dim, split.index[r].to(x.device))
-        if self.fsdp > 1:
+        if self.fsdp_sharded(i):
             x = _chunk(x, self.fsdp, self.mesh.index(FSDP_AXIS))
         return x.clone()
 
     def gather(self, i: int, local: torch.Tensor) -> torch.Tensor:
         """Parameter ``i``'s full tensor from every rank's part (collective)."""
         x = local_tensor(local).detach()
-        if self.fsdp > 1:
+        if self.fsdp_sharded(i):
             x = torch.cat(mesh_lib.all_gather_rows(x.contiguous(), self.mesh.group(FSDP_AXIS)))
         split = self.splits[i]
         if split is not None and split.sharded:
@@ -352,9 +362,12 @@ class DiTTrainer:
 
             axes = (DATA_AXIS, FSDP_AXIS) if mesh.size(DATA_AXIS) > 1 else (FSDP_AXIS,)
             dmesh = mesh.device_mesh(axes, self.device.type)
+            # FSDP2 cannot reduce-scatter an empty gradient: the tensor
+            # pieces of a rank with no heads stay whole (StateLayout.fsdp_sharded)
+            empty = {p for p in self.model.parameters() if not p.numel()} or None
             for block in self.model.blocks:
-                fully_shard(block, mesh=dmesh)
-            fully_shard(self.model, mesh=dmesh)
+                fully_shard(block, mesh=dmesh, ignored_params=empty)
+            fully_shard(self.model, mesh=dmesh, ignored_params=empty)
         names, params = zip(*self.model.named_parameters())
         if list(names) != state.names:
             raise RuntimeError("distributing changed the model's parameter names")
@@ -432,7 +445,10 @@ class DiTTrainer:
         for p in state.params:
             p.grad = None
         loss.backward()
-        grads = [local_tensor(p.grad) for p in state.params]
+        # a parameter this rank's forward never reached (the QK-norm of a
+        # tensor-parallel rank with no heads) has a zero gradient here
+        grads = [torch.zeros_like(local_tensor(p)) if p.grad is None else local_tensor(p.grad)
+                 for p in state.params]
         for p in state.params:
             p.grad = None
         mse, loss = mse.detach().clone(), loss.detach().clone()
