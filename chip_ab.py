@@ -16,8 +16,9 @@ its ``vavae_tpu_torch.pipelines.profile_sample --image_size 1024 --batch 2``
 (the 1024² sampling forwards, where attention takes the long route). Every
 run also times the checkout's two small-route forward wrappers, with and
 without RoPE, at the shapes in
-``FWD_SHAPES``, so that checkouts whose ``chip_smoke.py`` measures other
-shapes are read at the same ones. Every checkout builds and runs its own
+``FWD_SHAPES``, and the fp32 fused-qkv forward and backward (with SDPA's
+fp32 forward and backward) at ``FP32_SHAPES``, so that checkouts whose
+``chip_smoke.py`` measures other shapes are read at the same ones. Every checkout builds and runs its own
 kernels and modules, but all are timed by this tree's
 ``vavae_tpu_torch/utils/device_timing.py``, loaded into each run in place of
 the checkout's own timing functions, so that every reading has one
@@ -42,9 +43,13 @@ KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd_rope", "att
            "attn_small_bwd", "flash_fwd")
 FWD_KERNELS = ("nat_attention_fwd", "attn_small_fwd_rope", "attn_small_fwd")
 FWD_SHAPES = [(16, 16, 256, 72), (4, 16, 1024, 72)]  # the 256² paths' and N = 1,024
+# fp32 #1 and #2 with RoPE at the micro-Doppler DiTs' shapes: the LoRA step,
+# the B/2 train step and CFG sampling, the e2e DiT-S/2 train step; and a
+# ragged head of three tiles
+FP32_SHAPES = [(16, 6, 64, 64), (8, 12, 64, 64), (32, 6, 64, 64), (2, 6, 130, 64)]
 
 RUNNER = """
-import importlib.util, json, sys
+import importlib.util, json, math, sys
 import torch
 import chip_smoke as c
 spec = importlib.util.spec_from_file_location("_ab_device_timing", sys.argv[1])
@@ -72,6 +77,26 @@ for B, H, N, D in json.loads(sys.argv[4]):
             lambda: fused_qkv_attention(qkv, rope=tables))
         r["forward_shapes"]["attn_small_fwd " + tag] = c.device_ms(
             lambda: flash_attention(q, k, qkv[:, :, 2], rope=tables))
+from vavae_tpu_torch.ops.flash_attention import fold_sin, fused_qkv_attention_bwd
+r["fp32"] = {}
+for B, H, N, D in json.loads(sys.argv[5]):
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda")
+    g = torch.randn((B, N, H, D), generator=gen, device="cuda")
+    cos, sin = rope_2d_freqs(D, math.ceil(N ** 0.5))
+    tables = (torch.as_tensor(cos[:N], device="cuda"), torch.as_tensor(sin[:N], device="cuda"))
+    cosf, sinf = fold_sin(tables, device="cuda")
+    rot = lambda x: x * cosf[None, :, None] + torch.roll(x, D // 2, dims=-1) * sinf[None, :, None]
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (rot(qkv[:, :, 0]), rot(qkv[:, :, 1]), qkv[:, :, 2]))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    out, gt = sdpa(), g.transpose(1, 2).contiguous()
+    fwd = lambda: fused_qkv_attention(qkv, rope=tables)
+    bwd = lambda: fused_qkv_attention_bwd(qkv, g, rope=tables)
+    r["fp32"][f"({B}, {H}, {N}, {D})"] = {
+        "fwd_device_ms": c.device_kernels(fwd), "bwd_device_ms": c.device_kernels(bwd),
+        "sdpa_device_ms": c.device_ms(sdpa),
+        "sdpa_bwd_device_ms": c.device_ms(
+            lambda: torch.autograd.grad(out, (q, k, v), gt, retain_graph=True))}
 if sys.argv[3] == "1":
     for branch in ("production", "qknorm"):
         r["train_" + branch] = c.phase_train_steps(c.SEED, r["device"], branch)
@@ -85,7 +110,7 @@ def run(label: str, checkout: Path, out: Path, train: bool, profile: bool,
     env = dict(os.environ, PYTHONPATH=str(checkout))
     with open(out.with_suffix(".log"), "w") as log:
         rc = subprocess.run([sys.executable, "-c", RUNNER, str(TIMING), str(out), str(int(train)),
-                             json.dumps(FWD_SHAPES)],
+                             json.dumps(FWD_SHAPES), json.dumps(FP32_SHAPES)],
                             cwd=checkout, env=env, stdout=log, stderr=subprocess.STDOUT).returncode
         if rc == 0 and profile:
             prof = out.with_name(out.stem + "_profile_train.json")
@@ -113,9 +138,16 @@ def summary(out: Path) -> None:
     if "forward_shapes" in r:
         print(f"{out.stem} forward wrappers, device ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in r["forward_shapes"].items()))
+    for shape, t in r.get("fp32", {}).items():
+        fwd, bwd = (sum(t[key].values()) for key in ("fwd_device_ms", "bwd_device_ms"))
+        body = [k.split("(")[0].split("::")[-1] for k in t["fwd_device_ms"]]
+        print(f"{out.stem} fp32 {shape} rope: #1 device {fwd:.4f} ms ({', '.join(body)}), SDPA "
+              f"{t['sdpa_device_ms']:.4f}; #2 device {bwd:.4f} ms, SDPA backward "
+              f"{t['sdpa_bwd_device_ms']:.4f}")
     for source, kernels in r["build_s"].get("resources", {}).items():
         for kernel, res in sorted(kernels.items()):
-            if kernel.startswith(("attn_fwd_wgmma_kernel", "flash_fwd_wgmma_kernel")):
+            if kernel.startswith(("attn_fwd_wgmma_kernel", "flash_fwd_wgmma_kernel",
+                                  "attn_fwd_tf32_kernel", "attn_bwd_tf32_kernel")):
                 print(f"{out.stem} {source}.cu {kernel}: {res}")
     for n in ("nat_attention_bwd", "attn_small_bwd"):
         by = r.get(n, {}).get("rows", [{}])[0].get("device_ms_by_kernel")

@@ -13,8 +13,8 @@ Phases, each fatal on failure:
      the separate-q/k/v attention forward and backward, the long-route
      forward), from ``ops/csrc``, one nvcc per source, all started together;
      each kernel instance's registers and spills from the compiler's report
-     (``-Xptxas -v``), where an instance of the forward's wgmma body at a
-     head dim of at most 80 must not spill;
+     (``-Xptxas -v``), where an instance of the forward's wgmma body or of
+     the fp32 3xTF32 bodies at a head dim of at most 80 must not spill;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes, bf16 (forward 2e-2 max-abs, backward 3e-2 of
      max|ref|); times (CUDA events, median of 30 after warm-up) of the
@@ -25,7 +25,11 @@ Phases, each fatal on failure:
      sequence of the in-kernel-RoPE route), with the device time of each
      launch of their body; each forward wrapper call must run one kernel,
      its wgmma body, and each backward wrapper must give bit-identical
-     gradients on a second call;
+     gradients on a second call; then the fp32 calls of all five
+     small-route kernels at the micro-Doppler DiTs' shapes and a ragged one
+     (forward 1e-5 max-abs, backward 1e-4 of max|ref|, bit-identical twice),
+     each of which must run the 3xTF32 body, beside SDPA's fp32 time and the
+     bound of three TF32 products;
   4. sampling path: LightningDiT-XL/1 (depth 28, width 1152, bf16, random
      non-zero weights from the seed) → 250-step euler split-CFG sampling
      (cfg 10, interval 0.11, shift 0.3) at batch 8 → f16d32 VA-VAE decode to
@@ -659,6 +663,8 @@ KERNELS = ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd", "attn_sma
 
 WGMMA_FWD = "attn_fwd_wgmma_kernel"  # the forward body of the small route's bf16 calls
 LONG_FWD = "flash_fwd_wgmma_kernel"  # the long route's body for aligned calls with bf16 v
+TF32_FWD = "attn_fwd_tf32_kernel"  # the body of every fp32 small-route forward call with D <= 128
+TF32_BWD = "attn_bwd_tf32_kernel"  # the body of every fp32 backward call
 
 
 def phase_build() -> dict:
@@ -679,9 +685,10 @@ def phase_build() -> dict:
         for kernel, r in sorted(resources[name].items()):
             log(f"[build] {name}.cu {kernel}: {r.get('registers')} registers, spills "
                 f"{r.get('spill_stores')} bytes stored / {r.get('spill_loads')} loaded")
-            dp = int(kernel.split("<")[1].split(">")[0]) if kernel.startswith(WGMMA_FWD) else 0
-            wgmma = 0 < dp <= 80 or kernel.startswith(LONG_FWD)
-            if wgmma and (r.get("spill_stores") or r.get("spill_loads")):
+            dp = (int(kernel.split("<")[1].split(">")[0].split(",")[0])
+                  if kernel.startswith((WGMMA_FWD, TF32_FWD, TF32_BWD)) else 0)
+            no_spill = 0 < dp <= 80 or kernel.startswith(LONG_FWD)
+            if no_spill and (r.get("spill_stores") or r.get("spill_loads")):
                 fail(f"{name}.cu {kernel} spills: {r}")
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
     return {"seconds": {name: seconds for name, (_, seconds) in built.items()},
@@ -1087,6 +1094,101 @@ def phase_long_kernel(seed: int) -> dict:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return {"flash_fwd": {"worst_err": worst, "worst_rel_err": worst_rel, "rows": rows}}
+
+
+ATTN_TOL_F32 = 1e-5   # fp32 forward max-abs: summation order only
+BWD_TOL_F32 = 1e-4    # fp32 backward max|err| / max|ref|
+# fp32 calls of the micro-Doppler DiTs (N = 64, heads of 64, RoPE): the LoRA
+# step (16, 6), the B/2 train step and CFG sampling (8, 12), the e2e DiT-S/2
+# train step (32, 6), and a ragged three-tile head; B/2's cond-only sampling
+# (4, 12) runs the forward alone
+FP32_CASES = [(16, 6, 64, 64), (8, 12, 64, 64), (32, 6, 64, 64), (2, 6, 130, 64)]
+FP32_FWD_ONLY = [(4, 12, 64, 64)]
+
+
+def _fp32_body_times(fn, body: str, what: str) -> dict:
+    """A wrapper call's device time by kernel, which must include ``body``
+    and no other attention kernel (the backward's table folding runs beside it)."""
+    by_kernel = {_short_kernel_name(k): v for k, v in device_kernels(fn).items()}
+    attention = [k for k in by_kernel if k.startswith("attn_")]
+    if len(attention) != 1 or not attention[0].startswith(body):
+        fail(f"{what} ran {sorted(by_kernel)}, expected {body} as its only attention kernel")
+    return {"device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel}
+
+
+def phase_fp32_kernels(seed: int) -> dict:
+    """The fp32 calls of #1, #2, #3, #4 and #6 (the 3xTF32 bodies of
+    ``attention_tf32.cuh``) at the micro-Doppler DiTs' shapes and a ragged
+    one, each against its plain version (forward 1e-5 max-abs, backward 1e-4
+    of max|ref|), with the kernel's ms and device ms (the profiler's kernel
+    names show the body), SDPA's fp32 time on q, k rotated beforehand
+    (forward, backward) and the bound (three TF32 products at the TF32 peak
+    vs the bytes). v is the strided view of the projection on the separate
+    entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    rows = {name: [] for name in ("nat_attention_fwd", "nat_attention_bwd", "attn_small_fwd_rope",
+                                  "attn_small_fwd", "attn_small_bwd")}
+    for B, H, N, D in FP32_CASES + FP32_FWD_ONLY:
+        with_bwd = (B, H, N, D) in FP32_CASES
+        qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda")
+        q, k, g = (torch.randn((B, N, H, D), generator=gen, device="cuda") for _ in range(3))
+        v = qkv[:, :, 2]
+        cos, sin = rope_2d_freqs(D, int(np.ceil(N ** 0.5)))
+        tables = (torch.as_tensor(cos[:N], device="cuda"), torch.as_tensor(sin[:N], device="cuda"))
+        # the library yardstick: SDPA's forward and backward on q, k rotated
+        # beforehand and v, fp32 (B, H, N, D)
+        qt, kt, vt = (t.requires_grad_(True) for t in _rotated_bhnd(qkv[:, :, 0], qkv[:, :, 1], v,
+                                                                    tables))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+        out = sdpa()
+        gt = g.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
+        library = {"fwd": (time_ms(sdpa), device_ms(sdpa))}
+        if with_bwd:
+            library["bwd"] = (time_ms(sdpa_bwd), device_ms(sdpa_bwd))
+        calls = [("nat_attention_fwd", lambda: fused_qkv_attention(qkv, rope=tables),
+                  lambda: fused_qkv_attention_reference(qkv, rope=tables), "fwd"),
+                 ("attn_small_fwd_rope", lambda: flash_attention(q, k, v, rope=tables),
+                  lambda: flash_attention_reference(q, k, v, rope=tables), "fwd"),
+                 ("attn_small_fwd", lambda: flash_attention(q, k, v),
+                  lambda: flash_attention_reference(q, k, v), "fwd")]
+        if with_bwd:
+            calls += [("nat_attention_bwd", lambda: fused_qkv_attention_bwd(qkv, g, rope=tables),
+                       lambda: fused_qkv_attention_bwd_reference(qkv, g, rope=tables), "bwd"),
+                      ("attn_small_bwd", lambda: flash_attention_bwd(q, k, v, g, rope=tables),
+                       lambda: flash_attention_bwd_reference(q, k, v, g, rope=tables), "bwd")]
+        for name, fn, ref, kind in calls:
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            got = [got] if isinstance(got, torch.Tensor) else list(got)
+            want = [want] if isinstance(want, torch.Tensor) else list(want)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+            if kind == "fwd" and not err <= ATTN_TOL_F32:
+                fail(f"{name} fp32 at {(B, H, N, D)}: max-abs {err} > {ATTN_TOL_F32}")
+            if kind == "bwd":
+                if not rel <= BWD_TOL_F32:
+                    fail(f"{name} fp32 at {(B, H, N, D)}: max-rel {rel} > {BWD_TOL_F32}")
+                check_deterministic(fn, f"{name} fp32 at {(B, H, N, D)}")
+            rope = name != "attn_small_fwd"
+            row = {"shape": [B, H, N, D], "dtype": "fp32", "rope": rope, "max_abs_err": err,
+                   "max_rel_err": rel, "ms": time_ms(fn),
+                   **_fp32_body_times(fn, TF32_FWD if kind == "fwd" else TF32_BWD,
+                                      f"{name} fp32 at {(B, H, N, D)}"),
+                   "library_ms": library[kind][0], "library_device_ms": library[kind][1]}
+            row["bound_ms"], row["bound_by"] = _fp32_attention_bound(
+                B, H, N, D, 4.0 if kind == "fwd" else 10.0, 4 if kind == "fwd" else 7, rope)
+            rows[name].append(row)
+            log(f"[kernels] {name} fp32 B={B} H={H} N={N} D={D} rope={rope}: max-abs {err:.3e} "
+                f"(max-rel {rel:.3e}), kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row["device_ms_by_kernel"].items()))
+                + f"), SDPA{' backward' if kind == 'bwd' else ''} {row['library_ms']:.4f} ms "
+                f"(device {row['library_device_ms']:.4f}), bound {row['bound_ms'] * 1e3:.2f} us "
+                f"({row['bound_by']})")
+        del qkv, q, k, g, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return {f"{name}_fp32": {"worst_err": max(r["max_abs_err"] for r in rs), "rows": rs}
+            for name, rs in rows.items()}
 
 
 def build_xl(seed: int, branch: str = "production"):
@@ -2421,14 +2523,16 @@ def write_latent_shards(root: str, seed: int) -> None:
 
 
 def _fp32_attention_bound(B: int, H: int, N: int, D: int, flops_per: float,
-                          tensors: int) -> tuple[float, str]:
-    """Least time on an H100 of an fp32 attention call: ``flops_per``·B·H·N²·D
-    operations at the fp32 (non-tensor-core) peak — the fp32 bodies run on
-    the FMA units — vs ``tensors`` fp32 (B, N, H, D) tensors and the two
-    (N, D) tables moved once."""
-    flops = flops_per * B * H * N * N * D
-    nbytes = 4.0 * tensors * B * N * H * D + 2 * N * D * 4
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+                          tensors: int, rope: bool = True) -> tuple[float, str]:
+    """Least time on an H100 of an fp32 attention call with D <= 128, the
+    same work at fp32 accuracy on the tensor cores: ``flops_per``·B·H·N²·D
+    operations taken three times (3xTF32: hi·hi, hi·lo, lo·hi) at the TF32
+    peak, vs ``tensors`` fp32 (B, N, H, D) tensors and, with RoPE, the two
+    (N, D) tables moved once. At (16, 6, 64, 64): forward 0.61 us of
+    operations against 1.89 us of bytes, backward 1.53 against 3.30."""
+    flops = 3 * flops_per * B * H * N * N * D
+    nbytes = 4.0 * tensors * B * N * H * D + (2 * N * D * 4 if rope else 0)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -2879,7 +2983,7 @@ DIT_B_MICRODOPPLER = {
                "per_proc_batch_size": 4, "cfg_interval_start": 0.11, "timestep_shift": 0.1},
 }
 ITER_ROUNDS, ITER_STEPS, ITER_BATCH, ITER_SAMPLES, ITER_USERS = 2, 4, 8, 4, 2
-B2_GRAD_TOL = 1e-3    # fp32 B/2 gradients, kernels (first FMA bodies) vs plain attention
+B2_GRAD_TOL = 1e-3    # fp32 B/2 gradients, kernels (the 3xTF32 bodies) vs plain attention
 DA_USERS, DA_PER_USER = 31, 10
 DA_STAT_TOL = 1e-5    # card vs CPU: target BN statistics, relative (max-abs / max)
 DA_PROB_TOL = 1e-5    # card vs CPU: adapted probabilities, max-abs
@@ -5360,6 +5464,7 @@ def main(argv=None) -> int:
     kernels.update(phase_bwd_kernel(SEED))
     kernels.update(phase_small_kernels(SEED))
     kernels.update(phase_long_kernel(SEED))
+    kernels.update(phase_fp32_kernels(SEED))
     production = run_paths("production", device)
     qknorm = run_paths("qknorm", device)
     no_rope = phase_no_rope(SEED)

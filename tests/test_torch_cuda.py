@@ -54,9 +54,15 @@ def _cuda_or_skip():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
 
 
+# the micro-Doppler DiTs' calls (fp32 on their paths): the LoRA step, the B/2
+# train step and CFG sampling, the e2e DiT-S/2 train step
+MICRO_SHAPES = [(16, 6, 64, 64), (8, 12, 64, 64), (32, 6, 64, 64)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,N,D", [(16, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8)])
+@pytest.mark.parametrize("B,H,N,D", [(16, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8),
+                                     *MICRO_SHAPES])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # bf16: 2e-2 max-abs, the TPU kernel's tolerance; fp32: summation order only
@@ -98,7 +104,8 @@ def _max_rel(got, want) -> float:
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 2, 37, 8),
-                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64)])
+                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64),
+                                     *MICRO_SHAPES])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref|: bf16 3e-2, the TPU backward kernel's tolerance
@@ -189,7 +196,8 @@ def test_flash_bwd_kernel_refuses_cpu_tensors():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,N,D", [(16, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8)])
+@pytest.mark.parametrize("B,H,N,D", [(16, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8),
+                                     *MICRO_SHAPES])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_flash_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # bf16: 2e-2 max-abs, the TPU kernel's tolerance; fp32: summation order only
@@ -271,7 +279,8 @@ def test_cuda_fwd_wrappers_launch_one_kernel(entry, rope):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,N,D", [(32, 16, 256, 72), (2, 3, 200, 64), (1, 3, 37, 8),
-                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64)])
+                                     (4, 16, 1024, 72), (2, 3, 200, 128), (4, 6, 64, 64),
+                                     *MICRO_SHAPES])
 @pytest.mark.parametrize("rope", [True, False])
 def test_cuda_flash_bwd_kernel_matches_plain_version(B, H, N, D, rope, dtype):
     # max|err| / max|ref| of each of dq, dk, dv: bf16 3e-2, the TPU backward
@@ -299,6 +308,24 @@ def test_cuda_bwd_kernels_are_deterministic(entry, N):
         run = lambda: [fused_qkv_attention_bwd(x, g, rope=tables)]  # noqa: E731
     else:
         q, k, v, g, tables = _flash_case(4, 16, N, 72, True, torch.bfloat16, seed=7)
+        run = lambda: list(flash_attention_bwd(q, k, v, g, rope=tables))  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,D", MICRO_SHAPES)
+@pytest.mark.parametrize("entry", ["fused_qkv", "separate"])
+def test_cuda_fp32_bwd_kernels_are_deterministic(entry, B, H, N, D):
+    """The fp32 backward (the 3xTF32 body) gives bit-identical gradients on a
+    second call at the micro-Doppler shapes."""
+    _cuda_or_skip()
+    if entry == "fused_qkv":
+        x, g, tables = _bwd_case(B, H, N, D, True, torch.float32, seed=8)
+        run = lambda: [fused_qkv_attention_bwd(x, g, rope=tables)]  # noqa: E731
+    else:
+        q, k, v, g, tables = _flash_case(B, H, N, D, True, torch.float32, seed=8)
         run = lambda: list(flash_attention_bwd(q, k, v, g, rope=tables))  # noqa: E731
     first, second = run(), run()
     torch.cuda.synchronize()

@@ -1,8 +1,9 @@
-"""The backward body (``attention_bwd.cuh``) through both backward
-entries, ``nat_attention_bwd.cu`` and ``attn_small_bwd.cu``, run on the CPU
-against the plain versions, and two faults planted in copies of each, which
-the check must catch. The emulation and helpers are
-``tests/torch_emulation.py``."""
+"""The backward bodies through both backward entries, ``nat_attention_bwd.cu``
+and ``attn_small_bwd.cu``, run on the CPU against the plain versions: bf16
+the wgmma passes of ``attention_bwd.cuh``, fp32 the 3xTF32 body of
+``attention_tf32.cuh`` (one tile at N = 64 and 50, the scratch path above);
+and two faults planted in copies of the bf16 body, which the check must
+catch. The emulation and helpers are ``tests/torch_emulation.py``."""
 import pytest
 import torch
 

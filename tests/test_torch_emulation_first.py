@@ -2,7 +2,10 @@
 sources, run on the CPU against their plain versions: the fused-qkv and the
 separate-q/k/v forwards (fp32, and bf16 calls the wgmma body does not take)
 and the long route's mma.sync and FMA bodies, with the faults planted in the
-long one. The emulation and helpers are ``tests/torch_emulation.py``."""
+long one. The fp32 cases with D <= 128 reach the 3xTF32 body
+(``attention_tf32.cuh``, its own file: ``test_torch_emulation_tf32.py``),
+those at D = 250 and 256 and the long route's all-fp32 pair the FMA body.
+The emulation and helpers are ``tests/torch_emulation.py``."""
 import pytest
 import torch
 

@@ -120,6 +120,7 @@ struct EmuBlock {
   std::vector<std::barrier<>*> warps;
   float xchg[1024];
   uint32_t mma_a[1024][4], mma_b[1024][2], wg_a[1024][4];
+  uint32_t tf_a[2][1024][4], tf_b[2][1024][2];  // TF32 mma.sync fragments, two sets in turn
   const void* ldm[1024];
   EmuBlock(size_t bytes, int threads)
       : smem(bytes / 4 + 1, std::numeric_limits<float>::quiet_NaN()), bar(threads) {
@@ -137,6 +138,8 @@ inline thread_local std::barrier<>* g_cluster_bar = nullptr;
 #define g_wg_a (g_block->wg_a)
 #define g_ldm_ptr (g_block->ldm)
 inline void __syncthreads() { g_block->bar.arrive_and_wait(); }
+// the blocks of a launch share one process: a barrier orders their memory
+inline void __threadfence() {}
 // mbarrier.init / arrive / try_wait.parity on the block's table
 inline EmuBlock::Mbar& emu_mbar(void* bar) { return g_block->mbars[(char*)bar - (char*)g_smem]; }
 inline void emu_mbar_init(void* bar, int count) {
@@ -296,14 +299,18 @@ inline float emu_round_tf32(float x) {
 }
 // the tensor cores read only the TF32 bits of each operand
 inline float tf32_of(uint32_t u) { return __uint_as_float(u & 0xffffe000u); }
+// Each call's fragments go to one of two slot sets in turn, so one warp
+// barrier a call suffices: a lane writes a set again only two calls on, past
+// a barrier every lane reaches after it has read the set.
+inline thread_local unsigned g_tf_set = 0;
 inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  int t = threadIdx.x, w = t / 32, base = w * 32;
-  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
-  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  int t = threadIdx.x, w = t / 32, base = w * 32, set = (g_tf_set ^= 1u);
+  for (int i = 0; i < 4; ++i) g_block->tf_a[set][t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_block->tf_b[set][t][i] = b[i];
   g_warp_bar[w]->arrive_and_wait();
   float A[16][8], B[8][8];
   for (int l = 0; l < 32; ++l) {
-    int g = l / 4, c = l % 4; const uint32_t* aa = g_mma_a[base + l]; const uint32_t* bb = g_mma_b[base + l];
+    int g = l / 4, c = l % 4; const uint32_t* aa = g_block->tf_a[set][base + l]; const uint32_t* bb = g_block->tf_b[set][base + l];
     A[g][c] = tf32_of(aa[0]); A[g+8][c] = tf32_of(aa[1]);
     A[g][c+4] = tf32_of(aa[2]); A[g+8][c+4] = tf32_of(aa[3]);
     B[c][g] = tf32_of(bb[0]); B[c+4][g] = tf32_of(bb[1]);
@@ -313,7 +320,6 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (
     d[0] += A[g][k] * B[k][2*c]; d[1] += A[g][k] * B[k][2*c+1];
     d[2] += A[g+8][k] * B[k][2*c]; d[3] += A[g+8][k] * B[k][2*c+1];
   }
-  g_warp_bar[w]->arrive_and_wait();
 }
 inline void emu_ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* row) {
   int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
@@ -435,11 +441,12 @@ def build_host_library(d: Path, source: str, launches: int) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-# launches in a backward source: prep, stats, main and dq for bf16, two for fp32
-BWD_LAUNCHES = 6
-# <<<...>>> launches in a small-route forward source: the mma.sync and the
-# fp32 FMA bodies (the wgmma body goes through cudaLaunchKernelEx)
-FWD_LAUNCHES = 2
+# launches in a backward source: prep, stats, main and dq for bf16, one for
+# fp32 (the 3xTF32 body)
+BWD_LAUNCHES = 5
+# <<<...>>> launches in a small-route forward source: the mma.sync, the fp32
+# FMA and the 3xTF32 bodies (the wgmma body goes through cudaLaunchKernelEx)
+FWD_LAUNCHES = 3
 
 
 def _raw_table_ptrs(rope):

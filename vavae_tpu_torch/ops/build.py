@@ -83,18 +83,25 @@ def build(name: str) -> Path:
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGISTERS = re.compile(r"Used (\d+) registers")
-_KERNEL = re.compile(r"\d([a-z_]+_kernel)I(.*?)EEv")
+_LENGTH = re.compile(r"\d+")
 
 
 def _kernel_name(mangled: str) -> str:
-    """``..._GLOBAL__N_...attn_fwd_wgmma_kernelILi80EEEv...`` ->
+    """``..._GLOBAL__N_...21attn_fwd_wgmma_kernelILi80EEEv...`` ->
     ``attn_fwd_wgmma_kernel<80>`` (integer template arguments; a type
-    argument as its mangled name)."""
-    m = _KERNEL.search(mangled)
-    if not m:
-        return mangled
-    args = re.findall(r"Li(-?\d+)E|\d+(\w+?)(?=L|$)|^([a-z])", m.group(2))
-    return f"{m.group(1)}<{', '.join(next(a for a in g if a) for g in args)}>"
+    argument as its mangled name): the kernel is the length-prefixed name
+    that ends in ``_kernel`` and opens a template argument list (the length
+    may follow digits of the namespace's hash, so every tail of a run of
+    digits is tried)."""
+    for m in _LENGTH.finditer(mangled):
+        for k in range(len(m.group())):
+            name = mangled[m.end():m.end() + int(m.group()[k:])]
+            rest = mangled[m.end() + len(name):]
+            if name.endswith("_kernel") and rest.startswith("I") and "EEv" in rest:
+                targs = rest[1:rest.index("EEv")]
+                args = re.findall(r"L[ib](-?\d+)E|\d+(\w+?)(?=L|$)|^([a-z])", targs)
+                return f"{name}<{', '.join(next(a for a in g if a) for g in args)}>"
+    return mangled
 
 
 def kernel_resources(name: str) -> dict:

@@ -76,8 +76,8 @@
 //  tile's products with the next tile's softmax; the main pass holds one
 //  block per SM (226 registers a thread), so its loads and stores overlap
 //  its compute only through the prefetch of the next item.
-//  - fp32 (tests and checks): two passes of 4x4 register-blocked FMAs, per 64
-//    queries (row statistics, then dS and dq) and per 64 keys (dk, dv).
+// fp32 (the micro-Doppler DiTs' training, LoRA steps and likelihood): one
+// launch of the 3xTF32 body in attention_tf32.cuh, which holds its design.
 
 #ifndef VAVAE_ATTENTION_BWD_CUH
 #define VAVAE_ATTENTION_BWD_CUH
@@ -85,314 +85,10 @@
 #include <initializer_list>
 
 #include "attention_common.cuh"
+#include "attention_tf32.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// fp32 kernels
-
-// acc (rows ty*4+i, columns tx+16*j) of a 64x64 product of two row-major
-// tiles a, b contracted over their D columns: s = a . b^T
-__device__ __forceinline__ void tile_dot_f32(float (&s)[4][4], const float* a, const float* b,
-                                             int ld, int D, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c p[(ty*4+i), c] * x[c, tx+16j] over the 64 rows c of x
-template <int NJ>
-__device__ __forceinline__ void tile_pv_f32(float (&acc)[4][NJ], const float* p, int ldp,
-                                            const float* x, int ld, int D, int ty, int tx) {
-  for (int c = 0; c < kBlockN; ++c) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty * 4 + i) * ldp + c];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      const float xv = d < D ? x[c * ld + d] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], xv, acc[i][j]);
-    }
-  }
-}
-
-// Writes a (64, D) fp32 tile staged in shared memory (stride ld) to rows
-// n0.. of a head of the gradient (row stride row_stride), applying the
-// transposed RoPE x*cos + roll(x*sin', D/2) in fp32 when rotate is set.
-template <typename T, int NTHREADS>
-__device__ void store_rows(T* out_base, long long row_stride, const float* tile, int ld, int n0,
-                           int N, int D, bool rotate, const float* cos_t, const float* sin_t) {
-  const int half = D / 2;
-  for (int idx = threadIdx.x; idx < kBlockM * D; idx += NTHREADS) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const int n = n0 + r;
-    if (n >= N) continue;
-    float val = tile[r * ld + d];
-    if (rotate) {
-      const int p = rope_partner(d, half);
-      val = val * cos_t[n * D + d] + tile[r * ld + p] * sin_t[n * D + p];
-    }
-    out_base[n * row_stride + d] = from_float<T>(val);
-  }
-}
-
-// pass 1, fp32: dq and the row statistics for 64 queries
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(View q, View k, View v, View g, View dq, const float* __restrict__ cos_t,
-                   const float* __restrict__ sin_t, float* __restrict__ stats, int B, int N,
-                   int H, int D, float scale, int use_rope) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;  // odd row stride: column reads hit distinct banks
-  const int ldp = kBlockN + 1;
-  float* q_s = smem;                  // kBlockM x ld (reused for dq at the end)
-  float* g_s = q_s + kBlockM * ld;    // kBlockM x ld
-  float* k_s = g_s + kBlockM * ld;    // kBlockN x ld
-  float* v_s = k_s + kBlockN * ld;    // kBlockN x ld
-  float* p_s = v_s + kBlockN * ld;    // kBlockM x ldp: scores, then dS
-  float* dp_s = p_s + kBlockM * ldp;  // kBlockM x ldp: dP
-  float* m_s = dp_s + kBlockM * ldp;  // row max
-  float* l_s = m_s + kBlockM;         // row sum, then its inverse
-  float* d_s = l_s + kBlockM;         // sum of exp(s - m) * dP, then delta
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* __restrict__ qb = head_base<const float>(q, b, h);
-  const float* __restrict__ kb = head_base<const float>(k, b, h);
-  const float* __restrict__ vb = head_base<const float>(v, b, h);
-  const float* __restrict__ gb = head_base<const float>(g, b, h);
-  const bool rope = use_rope != 0;
-
-  load_tile_f32(q_s, ld, qb, q.sn, q0, N, D, rope, cos_t, sin_t);
-  load_tile_f32(g_s, ld, gb, g.sn, q0, N, D, false, cos_t, sin_t);
-  if (tid < kBlockM) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-    d_s[tid] = 0.f;
-  }
-
-  // stream 1: online row max, row sum and sum of exp(s - m) * dP
-  for (int k0 = 0; k0 < N; k0 += kBlockN) {
-    __syncthreads();
-    load_tile_f32(k_s, ld, kb, k.sn, k0, N, D, rope, cos_t, sin_t);
-    load_tile_f32(v_s, ld, vb, v.sn, k0, N, D, false, cos_t, sin_t);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot_f32(s, q_s, k_s, ld, D, ty, tx);
-    tile_dot_f32(dp, g_s, v_s, ld, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        p_s[(ty * 4 + i) * ldp + c] = (k0 + c < N) ? s[i][j] * scale : -INFINITY;
-        dp_s[(ty * 4 + i) * ldp + c] = dp[i][j];
-      }
-    __syncthreads();
-    {
-      const int r = tid >> 2;  // four neighbouring lanes share one row
-      const int part = tid & 3;
-      const float* prow = p_s + r * ldp;
-      const float* dprow = dp_s + r * ldp;
-      float mx = -INFINITY;
-      for (int c = part; c < kBlockN; c += 4) mx = fmaxf(mx, prow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile holds a key < N
-      float sum = 0.f, dsum = 0.f;
-      for (int c = part; c < kBlockN; c += 4) {
-        const float e = expf(prow[c] - m_new);
-        sum += e;
-        dsum += e * dprow[c];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
-        d_s[r] = d_s[r] * alpha + dsum;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < kBlockM) {
-    const float il = 1.0f / l_s[tid];
-    const float delta = d_s[tid] * il;
-    const int n = q0 + tid;
-    if (n < N) {
-      const long long at = ((long long)b * H + h) * N + n;
-      const long long plane = (long long)B * H * N;
-      stats[at] = m_s[tid];
-      stats[plane + at] = l_s[tid];
-      stats[2 * plane + at] = delta;
-    }
-    l_s[tid] = il;
-    d_s[tid] = delta;
-  }
-
-  // stream 2: dS and dq = dS . K~
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kBlockN) {
-    __syncthreads();
-    load_tile_f32(k_s, ld, kb, k.sn, k0, N, D, rope, cos_t, sin_t);
-    load_tile_f32(v_s, ld, vb, v.sn, k0, N, D, false, cos_t, sin_t);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot_f32(s, q_s, k_s, ld, D, ty, tx);
-    tile_dot_f32(dp, g_s, v_s, ld, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const float m = m_s[r], il = l_s[r], delta = d_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = expf(s[i][j] * scale - m) * il;
-        p_s[r * ldp + c] = (k0 + c < N) ? p * (dp[i][j] - delta) * scale : 0.f;
-      }
-    }
-    __syncthreads();
-    tile_pv_f32<NJ>(acc, p_s, ldp, k_s, ld, D, ty, tx);
-  }
-
-  __syncthreads();  // every reader of q_s is done: stage dq there
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) q_s[(ty * 4 + i) * ld + d] = acc[i][j];
-    }
-  __syncthreads();
-  store_rows<float, kThreads>(head_base<float>(dq, b, h), dq.sn, q_s, ld, q0, N, D, rope, cos_t,
-                              sin_t);
-}
-
-// pass 2, fp32: dk and dv for 64 keys
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(View q, View k, View v, View g, View dk, View dv,
-                     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                     const float* __restrict__ stats, int B, int N, int H, int D, float scale,
-                     int use_rope) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  const int ldp = kBlockN + 1;
-  float* k_s = smem;                  // kBlockM x ld, resident
-  float* v_s = k_s + kBlockM * ld;    // kBlockM x ld, resident
-  float* q_s = v_s + kBlockM * ld;    // kBlockN x ld (reused for dk at the end)
-  float* g_s = q_s + kBlockN * ld;    // kBlockN x ld
-  float* p_s = g_s + kBlockN * ld;    // kBlockM keys x ldp queries: P^T
-  float* ds_s = p_s + kBlockM * ldp;  // kBlockM x ldp: dS^T
-  float* m_s = ds_s + kBlockM * ldp;  // the streamed queries' row max,
-  float* il_s = m_s + kBlockN;        // inverse row sum
-  float* dl_s = il_s + kBlockN;       // and delta
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int k0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* __restrict__ qb = head_base<const float>(q, b, h);
-  const float* __restrict__ kb = head_base<const float>(k, b, h);
-  const float* __restrict__ vb = head_base<const float>(v, b, h);
-  const float* __restrict__ gb = head_base<const float>(g, b, h);
-  const long long plane = (long long)B * H * N;
-  const float* srow = stats + ((long long)b * H + h) * N;
-  const bool rope = use_rope != 0;
-
-  load_tile_f32(k_s, ld, kb, k.sn, k0, N, D, rope, cos_t, sin_t);
-  load_tile_f32(v_s, ld, vb, v.sn, k0, N, D, false, cos_t, sin_t);
-
-  float dv_acc[4][NJ], dk_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dv_acc[i][j] = dk_acc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kBlockN) {
-    __syncthreads();
-    load_tile_f32(q_s, ld, qb, q.sn, q0, N, D, rope, cos_t, sin_t);
-    load_tile_f32(g_s, ld, gb, g.sn, q0, N, D, false, cos_t, sin_t);
-    if (tid < kBlockN) {
-      const int n = q0 + tid;
-      const bool in = n < N;
-      m_s[tid] = in ? srow[n] : 0.f;
-      il_s[tid] = in ? 1.0f / srow[plane + n] : 0.f;
-      dl_s[tid] = in ? srow[2 * plane + n] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4], dpt[4][4];  // keys ty*4+i, queries tx+16j
-    tile_dot_f32(st, k_s, q_s, ld, D, ty, tx);
-    tile_dot_f32(dpt, v_s, g_s, ld, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool in = q0 + c < N;
-        const float p = in ? expf(st[i][j] * scale - m_s[c]) * il_s[c] : 0.f;
-        p_s[(ty * 4 + i) * ldp + c] = p;
-        ds_s[(ty * 4 + i) * ldp + c] = p * (dpt[i][j] - dl_s[c]) * scale;
-      }
-    __syncthreads();
-    tile_pv_f32<NJ>(dv_acc, p_s, ldp, g_s, ld, D, ty, tx);
-    tile_pv_f32<NJ>(dk_acc, ds_s, ldp, q_s, ld, D, ty, tx);
-  }
-
-  float* dvb = head_base<float>(dv, b, h);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = k0 + ty * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dvb[n * dv.sn + d] = dv_acc[i][j];
-    }
-  }
-  __syncthreads();  // every reader of q_s is done: stage dk there
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) q_s[(ty * 4 + i) * ld + d] = dk_acc[i][j];
-    }
-  __syncthreads();
-  store_rows<float, kThreads>(head_base<float>(dk, b, h), dk.sn, q_s, ld, k0, N, D, rope, cos_t,
-                              sin_t);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 kernels (tensor cores)
@@ -968,12 +664,18 @@ inline int bwd_padded_dim(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : D <= 80 
 
 inline size_t align256(size_t bytes) { return (bytes + 255) / 256 * 256; }
 
-// The scratch the backward needs: fp32 (3, B, H, N) statistics for the FMA
-// kernels; for bf16 the statistics in 64-query tiles, q~ and k~ as
-// (B, H, N, DP) bf16 and the dq partials (ceil(N/128), B, H, N, D) fp32.
+// The scratch the backward needs. fp32: none for N <= 64 (one tile a head);
+// for longer heads q~, k~ and dq's sum over key tiles as (B, H, N, DP) fp32
+// and the statistics (B, H, 3, N). bf16: the statistics in 64-query tiles,
+// q~ and k~ as (B, H, N, DP) bf16 and the dq partials (ceil(N/128), B, H, N,
+// D) fp32.
 inline size_t bwd_scratch_bytes(int B, int N, int H, int D, int dtype) {
   const size_t heads = (size_t)B * H;
-  if (dtype != 1) return sizeof(float) * 3 * heads * N;
+  if (dtype != 1) {
+    if (N <= kTf32Tile) return 0;
+    return 3 * align256(sizeof(float) * heads * N * tf32_padded_dim(D)) +
+           align256(sizeof(float) * 3 * heads * N);
+  }
   const size_t tiles = (N + kBwdTile - 1) / kBwdTile, blocks = (N + kBwdRows - 1) / kBwdRows;
   return align256(sizeof(float) * heads * tiles * kStatTile) +
          2 * align256(sizeof(bf16) * heads * N * bwd_padded_dim(D)) +
@@ -1080,41 +782,51 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a) {
                    : w_dq == 2 ? launch_dq_sum<2>(a, dq_part) : launch_dq_sum<1>(a, dq_part);
 }
 
-template <int NJ>
-cudaError_t launch_bwd_f32(const BwdArgs& a) {
-  const int ld = a.D + 1;
-  const size_t smem = sizeof(float) * ((size_t)4 * kBlockM * ld + (size_t)2 * kBlockM * (kBlockN + 1) +
-                                       3 * kBlockM);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<NJ>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + kBlockM - 1) / kBlockM, a.H, a.B);
+template <int DP, int VEC, bool SINGLE>
+cudaError_t launch_bwd_tf32(const BwdArgs& a) {
+  constexpr size_t smem = sizeof(float) * tf32_bwd_smem_floats<DP, SINGLE>();
+  // once per instance (the process runs on one card): the shared memory allowance
+  static const cudaError_t setup =
+      cudaFuncSetAttribute(attn_bwd_tf32_kernel<DP, VEC, SINGLE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (setup != cudaSuccess) return setup;
+  // the scratch of heads longer than one tile (bwd_scratch_bytes' layout)
+  const size_t plane = align256(sizeof(float) * a.B * a.H * a.N * DP);
+  char* at = static_cast<char*>(a.scratch);
+  float* qt = reinterpret_cast<float*>(at);
+  float* kt = reinterpret_cast<float*>(at + plane);
+  float* dqa = reinterpret_cast<float*>(at + 2 * plane);
+  float* st = reinterpret_cast<float*>(at + 3 * plane);
   const float scale = 1.0f / sqrtf((float)a.D);
-  float* stats = static_cast<float*>(a.scratch);
-  attn_bwd_dq_kernel<NJ><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.g, a.dq, a.cos_t, a.sin_t, stats, a.B, a.N, a.H, a.D, scale,
-      a.use_rope);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<NJ><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.g, a.dk, a.dv, a.cos_t, a.sin_t, stats, a.B, a.N, a.H, a.D, scale,
-      a.use_rope);
+  attn_bwd_tf32_kernel<DP, VEC, SINGLE><<<dim3(1, a.H, a.B), tf32_bwd_threads<SINGLE>(), smem,
+                                          a.stream>>>(
+      a.q, a.k, a.v, a.g, a.dq, a.dk, a.dv, a.cos_t, a.sin_t, qt, kt, dqa, st, a.N, a.H, a.D,
+      scale, a.use_rope);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels).
+template <int VEC, bool SINGLE>
+cudaError_t dispatch_bwd_tf32(const BwdArgs& a) {
+  switch (tf32_padded_dim(a.D)) {
+    case 32: return launch_bwd_tf32<32, VEC, SINGLE>(a);
+    case 64: return launch_bwd_tf32<64, VEC, SINGLE>(a);
+    case 72: return launch_bwd_tf32<72, VEC, SINGLE>(a);
+    default: return launch_bwd_tf32<128, VEC, SINGLE>(a);
+  }
+}
+
+// dtype: 0 = float32 (the 3xTF32 body), 1 = bfloat16 (the wgmma passes).
 // Needs B, N, H >= 1 and an even D <= 128.
 cudaError_t attention_bwd(const BwdArgs& a, int dtype) {
   if (a.B < 1 || a.N < 1 || a.H < 1 || a.D < 2 || a.D > 128 || (a.D & 1))
     return cudaErrorInvalidValue;
   if (dtype == 0) {
-    const int nj = (a.D + 15) / 16;
-    if (nj <= 4) return launch_bwd_f32<4>(a);
-    if (nj <= 5) return launch_bwd_f32<5>(a);
-    return launch_bwd_f32<8>(a);
+    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    const bool vec = rows_aligned16(a.q, a.D, 4) && rows_aligned16(a.k, a.D, 4) &&
+                     rows_aligned16(a.v, a.D, 4) && rows_aligned16(a.g, a.D, 4) &&
+                     (!a.use_rope || (aligned(a.cos_t) && aligned(a.sin_t)));
+    if (a.N <= kTf32Tile) return vec ? dispatch_bwd_tf32<4, true>(a) : dispatch_bwd_tf32<1, true>(a);
+    return vec ? dispatch_bwd_tf32<4, false>(a) : dispatch_bwd_tf32<1, false>(a);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   switch (bwd_padded_dim(a.D)) {

@@ -138,6 +138,37 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// x = hi + lo for the 3xTF32 products, both as fp32 bit patterns the tensor
+// cores read exactly: hi = x rounded to TF32 to nearest, ties away from zero
+// (cvt.rna.tf32's rounding, here in two integer operations: the conversion
+// unit runs at a quarter of their rate; the same bits for every x but a NaN,
+// whose lo stays NaN), lo = the rest x - hi (exact in fp32) by
+// cvt.rna.tf32, which leaves at most 2^-22 of |x| out
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(round_tf32(x - __uint_as_float(hi)));
+}
+
+// d += a . b at fp32 accuracy on the TF32 tensor cores (3xTF32), a and b as
+// split by split_tf32: the correction products lo(a).hi(b) and hi(a).lo(b)
+// first, then hi(a).hi(b); lo(a).lo(b), under 2^-22 of |a||b|, is left out
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_m16n8k8_tf32(d, al, bh);
+  mma_m16n8k8_tf32(d, ah, bl);
+  mma_m16n8k8_tf32(d, ah, bh);
+}
+
+// two neighbouring output columns of a row, as T
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  dst[0] = x;
+  dst[1] = y;
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
+
 // B fragments of two 8x8 bf16 blocks, transposed on the way (ldmatrix):
 // lanes 0-7 address the rows of the first block, lanes 8-15 the second.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,

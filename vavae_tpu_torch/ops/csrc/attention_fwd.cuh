@@ -1,10 +1,11 @@
 // Attention forward with in-kernel split-half RoPE, for sm_90a: the first
 // device bodies (mma.sync and fp32 FMA) of nat_attention_fwd.cu (fused qkv)
 // and attn_small_fwd.cu (separate q, k, v), which send bf16 calls with D <=
-// 128, 16-byte aligned rows and N <= 1024 to attention_fwd_wgmma.cuh
-// instead, and the whole body of flash_fwd.cu (the long route: q, k rotated
-// beforehand, no tables). Each reads q, k and v through their Views, in
-// place, and writes a contiguous (B, N, H, D) output.
+// 128, 16-byte aligned rows and N <= 1024 to attention_fwd_wgmma.cuh and
+// fp32 calls with D <= 128 to attention_tf32.cuh instead, and the first
+// bodies of flash_fwd.cu (the long route: q, k rotated beforehand, no
+// tables). Each reads q, k and v through their Views, in place, and writes a
+// contiguous (B, N, H, D) output.
 //
 // Numerics follow the TPU kernels (_nat_fwd_kernel, _attn_kernel_small_rope,
 // _attn_kernel_small, _flash_kernel):
@@ -35,8 +36,10 @@
 //    q, k held as TF32-rounded fp32 in shared memory and q.k^T on TF32
 //    mma.sync m16n8k8 (fp32 accumulate); P.V and the softmax as for bf16;
 //    the output in fp32.
-//  - fp32 (tests and checks): 256 threads run both products as fp32 FMAs,
-//    4x4 register-blocked.
+//  - fp32 at D in (128, 256] on the small route and flash_fwd.cu's all-fp32
+//    pair (fp32 models past N = 1024): 256 threads run both products as fp32
+//    FMAs, 4x4 register-blocked. Every other fp32 call takes the 3xTF32 body
+//    of attention_tf32.cuh.
 // What kept the bf16 kernel at 10x its bound on the small route (bytes): K/V
 // re-read (and K re-rotated) for every 64-query tile, N/64 times per head,
 // loads and compute that do not overlap, and mma.sync at a fraction of the
@@ -185,15 +188,6 @@ attn_fwd_kernel(View q, View k, View v, View out, const float* __restrict__ cos_
       if (d < D) dst[d] = acc[i][j] / l;
     }
   }
-}
-
-// two neighbouring output columns of a row, as T
-__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
-  dst[0] = x;
-  dst[1] = y;
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
 
 // TQK = dtype of q, k and the output: __nv_bfloat16 (q.k^T on bf16
@@ -411,14 +405,20 @@ cudaError_t dispatch_fwd_mma_dp(const FwdArgs& a) {
   return launch_fwd_mma<TQK, 256, VEC>(a);
 }
 
+// shared memory of the FMA kernel at head dim D
+inline size_t fwd_f32_smem(int D) {
+  return sizeof(float) *
+         ((size_t)3 * kBlockM * (D + 1) + (size_t)kBlockM * (kBlockN + 1) + 3 * kBlockM);
+}
+
 template <int NJ>
 cudaError_t launch_fwd_f32(const FwdArgs& a) {
-  const size_t smem =
-      sizeof(float) * ((size_t)3 * kBlockM * (a.D + 1) + (size_t)kBlockM * (kBlockN + 1) +
-                       3 * kBlockM);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // once per instance (the process runs on one card): the shared memory
+  // allowance of the widest head dim the instance takes, 16 * NJ
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      attn_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_f32_smem(16 * NJ));
+  if (setup != cudaSuccess) return setup;
+  const size_t smem = fwd_f32_smem(a.D);
   const dim3 grid((a.N + kBlockM - 1) / kBlockM, a.H, a.B);
   const float scale = 1.0f / sqrtf((float)a.D);
   attn_fwd_kernel<NJ><<<grid, kThreads, smem, a.stream>>>(
@@ -430,8 +430,9 @@ inline bool valid_shape(const FwdArgs& a) {
   return a.B >= 1 && a.N >= 1 && a.H >= 1 && a.D >= 2 && a.D <= 256 && !(a.D & 1);
 }
 
-// The first bodies: dtype 0 = float32 (FMA kernel), 1 = bfloat16 (mma.sync
-// kernel). Needs B, N, H >= 1 and an even D <= 256.
+// The first bodies: dtype 0 = float32 (FMA kernel: the calls the 3xTF32
+// body does not take), 1 = bfloat16 (mma.sync kernel). Needs B, N, H >= 1 and
+// an even D <= 256.
 cudaError_t attention_fwd_mma_sync(const FwdArgs& a, int dtype) {
   if (!valid_shape(a)) return cudaErrorInvalidValue;
   if (dtype == 0) {

@@ -4,9 +4,10 @@
 // _attn_kernel_small, vavae_tpu/ops/pallas/flash_attention.py) launch for
 // bf16 inputs with D <= 128, every input row 16-byte aligned (rows_aligned16)
 // and N <= 1024 (SMALL_SEQ_MAX): the sampling and training paths at 256².
-// attention_fwd() below sends every other call (fp32, D > 128, misaligned
-// views, longer sequences) to the first bodies in attention_fwd.cuh, which
-// flash_fwd.cu (the long route) calls directly.
+// attention_fwd() below sends fp32 calls with D <= 128 to the 3xTF32 body of
+// attention_tf32.cuh, and every other call (fp32 at D > 128, bf16 at D > 128,
+// misaligned views or longer sequences) to the first bodies in
+// attention_fwd.cuh, which flash_fwd.cu (the long route) calls directly.
 //
 // Numerics are those of the first bf16 body and the TPU kernels:
 //   q~ = q*cos + rot_half(q)*sin   in bf16, rounded after each operation, the
@@ -71,6 +72,7 @@
 #define VAVAE_ATTENTION_FWD_WGMMA_CUH
 
 #include "attention_fwd.cuh"
+#include "attention_tf32.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -388,10 +390,54 @@ inline bool takes_wgmma(const FwdArgs& a, int dtype) {
          (!a.use_rope || (aligned(a.cos_t) && aligned(a.sin_t)));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The wgmma body for the calls it takes,
-// the first bodies (attention_fwd_mma_sync) for the others. Needs B, N, H >= 1
-// and an even D <= 256.
+// shared memory of the 3xTF32 forward: q~ and the ring's stages, or the
+// merge of the key groups over them
+template <int DP>
+size_t fwd_tf32_smem(int stages, int D, bool rope) {
+  const size_t tiles = (size_t)kTf32FwdRows * (DP + 4) + (size_t)stages * tf32_fwd_stage<DP>(D, rope);
+  const size_t merge = tf32_fwd_merge<DP>();
+  return sizeof(float) * (tiles > merge ? tiles : merge);
+}
+
+template <int DP, int VEC>
+cudaError_t launch_fwd_tf32(const FwdArgs& a) {
+  // once per instance (the process runs on one card): the shared memory
+  // allowance of the most the instance takes (every stage, RoPE, D = DP)
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      attn_fwd_tf32_kernel<DP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwd_tf32_smem<DP>(tf32_fwd_stages<DP>(), DP, true));
+  if (setup != cudaSuccess) return setup;
+  const int stages = a.N <= kTf32Tile ? 1 : tf32_fwd_stages<DP>();
+  const size_t smem = fwd_tf32_smem<DP>(stages, a.D, a.use_rope != 0);
+  const dim3 grid((a.N + kTf32FwdRows - 1) / kTf32FwdRows, a.H, a.B);
+  const float scale = 1.0f / sqrtf((float)a.D);
+  attn_fwd_tf32_kernel<DP, VEC><<<grid, kTf32FwdThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.out, a.cos_t, a.sin_t, a.N, a.D, scale, a.use_rope, stages);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t dispatch_fwd_tf32(const FwdArgs& a) {
+  switch (tf32_padded_dim(a.D)) {
+    case 32: return launch_fwd_tf32<32, VEC>(a);
+    case 64: return launch_fwd_tf32<64, VEC>(a);
+    case 72: return launch_fwd_tf32<72, VEC>(a);
+    default: return launch_fwd_tf32<128, VEC>(a);
+  }
+}
+
+// dtype: 0 = float32, 1 = bfloat16. fp32 calls with D <= 128 take the 3xTF32
+// body, the bf16 calls that takes_wgmma accepts the wgmma body, every other
+// call the first bodies (attention_fwd_mma_sync). Needs B, N, H >= 1 and an
+// even D <= 256.
 cudaError_t attention_fwd(const FwdArgs& a, int dtype) {
+  if (dtype == 0 && valid_shape(a) && a.D <= 128) {
+    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    const bool vec = rows_aligned16(a.q, a.D, 4) && rows_aligned16(a.k, a.D, 4) &&
+                     rows_aligned16(a.v, a.D, 4) &&
+                     (!a.use_rope || (aligned(a.cos_t) && aligned(a.sin_t)));
+    return vec ? dispatch_fwd_tf32<4>(a) : dispatch_fwd_tf32<1>(a);
+  }
   if (!takes_wgmma(a, dtype)) return attention_fwd_mma_sync(a, dtype);
   if (a.D <= 32) return launch_fwd_wgmma<32>(a);
   if (a.D <= 64) return launch_fwd_wgmma<64>(a);

@@ -8,8 +8,9 @@
 // are read in place through their own batch, token and head strides, and
 // dq, dk, dv are written as (B, N, H, D) each. Without RoPE the TPU kernel
 // is handed ones/zeros tables and skips the rotation; here no tables are
-// passed. The device body, its numerics and its design are in
-// attention_bwd.cuh, shared with nat_attention_bwd.cu: the TPU kernel's
+// passed. The device bodies, their numerics and their design are in
+// attention_bwd.cuh (bf16) and attention_tf32.cuh (fp32, 3xTF32 on the
+// tensor cores), shared with nat_attention_bwd.cu: the TPU kernel's
 // transposed rotation cat(y[D/2:], -y[:D/2]) of y = x*sin equals
 // roll(x*sin', D/2) exactly.
 //

@@ -9,7 +9,8 @@
 // batch, token and head strides (v is a strided view of the qkv projection
 // on the qk-norm path) and the output is written as (B, N, H, D). The device
 // bodies, their numerics and their design are in attention_fwd_wgmma.cuh
-// (bf16, D <= 128, N <= 1024, 16-byte aligned rows: the main paths) and
+// (bf16, D <= 128, N <= 1024, 16-byte aligned rows: the main paths),
+// attention_tf32.cuh (fp32, D <= 128: 3xTF32 on the tensor cores) and
 // attention_fwd.cuh (every other call), shared with nat_attention_fwd.cu.
 //
 // Bound on an H100 SXM at the main-path shape (B=16, H=16, N=256, D=72,

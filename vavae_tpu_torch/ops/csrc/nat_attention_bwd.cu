@@ -5,14 +5,17 @@
 // the qkv projection output (B, N, 3, H, D) and the output gradient
 // (B, N, H, D) in place, strided, and writes dq, dk, dv straight into a
 // (B, N, 3, H, D) gradient: the layout of the qkv projection's output, so the
-// TPU's (B, 3, H, N, D) copies do not exist here. The device body, its
-// numerics and its design are in attention_bwd.cuh.
+// TPU's (B, 3, H, N, D) copies do not exist here. The device bodies, their
+// numerics and their design are in attention_bwd.cuh (bf16) and
+// attention_tf32.cuh (fp32, 3xTF32 on the tensor cores).
 //
 // Bound on an H100 SXM at the training shape (B=32, H=16, N=256, D=72, bf16):
 // (3 + 1 + 3)*B*N*H*D*2 = 132.1 MB of input and output -> 39.4 us at
 // 3.35 TB/s, against 10*B*H*N^2*D = 24.2 GFLOP -> 24.4 us at 989 TFLOP/s, so
-// the bound is the bytes, as for the forward. The scratch holds q~ and k~
-// rotated once, the row statistics and the per-key-block dq partials.
+// the bound is the bytes, as for the forward. The bf16 scratch holds q~ and
+// k~ rotated once, the row statistics and the per-key-block dq partials; the
+// fp32 one is empty at N <= 64 and holds q~, k~, dq's sum over key tiles and
+// the statistics for longer heads.
 
 #include "attention_bwd.cuh"
 

@@ -5,8 +5,9 @@
 // projection output (B, N, 3, H, D) in place, strided, and writes
 // (B, N, H, D) directly: the TPU's (B, 3, H, N, D) copy does not exist here.
 // The device bodies, their numerics and their design are in
-// attention_fwd_wgmma.cuh (bf16, D <= 128, N <= 1024: the main paths) and
-// attention_fwd.cuh (every other call).
+// attention_fwd_wgmma.cuh (bf16, D <= 128, N <= 1024: the main paths),
+// attention_tf32.cuh (fp32, D <= 128: the micro-Doppler DiTs, 3xTF32 on the
+// tensor cores) and attention_fwd.cuh (every other call).
 //
 // Bound on an H100 SXM at the main-path shape (B=16, H=16, N=256, D=72,
 // bf16): 4*B*H*N^2*D = 4.83 GFLOP -> 4.9 us at 989 TFLOP/s, against

@@ -284,8 +284,10 @@ def _launch_fwd(qkv5: torch.Tensor, tables) -> torch.Tensor:
 def _bwd_scratch(name: str, B: int, N: int, H: int, D: int, dtype: torch.dtype,
                  device) -> torch.Tensor:
     """The scratch a backward kernel needs for these shapes, as the library
-    computes it (``<name>_scratch_bytes``): row statistics and, for bf16, the
-    rotated q̃, k̃ and the per-key-block dq partials."""
+    computes it (``<name>_scratch_bytes``): for bf16 the row statistics, the
+    rotated q̃, k̃ and the per-key-block dq partials; for fp32 nothing at N ≤
+    64 (one tile a head), else the rotated q̃, k̃, dq's sum over key tiles
+    and the row statistics."""
     size = _entry(name, scratch_bytes=True)(B, N, H, D, _DTYPE_CODES[dtype])
     return torch.empty(size, dtype=torch.uint8, device=device)
 
